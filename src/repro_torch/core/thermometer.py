@@ -1,0 +1,40 @@
+"""Ternary thermometer input encoding (paper §III-D).
+
+The binary thermometer maps x in [0, M] to f(x)_i = +1 if i < x else -1;
+the ternary one maps x in [0, 2M] to g(x)_i = sgn(x-M) * (f(|x-M|)_i + 1)/2,
+which encodes twice the range per entry and introduces zeros.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def binary_thermometer(x: torch.Tensor, m: int) -> torch.Tensor:
+    """f: [0, M] -> {-1,+1}^M, appended as a trailing axis."""
+    x = x.to(torch.int32)
+    idx = torch.arange(m, dtype=torch.int32, device=x.device)
+    one = torch.ones((), dtype=torch.int8, device=x.device)
+    return torch.where(idx < x[..., None], one, -one)
+
+
+def ternary_thermometer(x: torch.Tensor, m: int) -> torch.Tensor:
+    """g: [0, 2M] -> {-1,0,+1}^M."""
+    x = x.to(torch.int32)
+    s = torch.sign(x - m)
+    f = binary_thermometer(torch.abs(x - m), m).to(torch.int32)
+    return (s[..., None] * ((f + 1) // 2)).to(torch.int8)
+
+
+def quantize_to_levels(x: torch.Tensor, levels: int) -> torch.Tensor:
+    """Uniformly quantize x in [0,1] to integers [0, levels] (half to even)."""
+    return torch.clamp(torch.round(x * levels), 0, levels).to(torch.int32)
+
+
+def encode_image_ternary(img01: torch.Tensor, m: int) -> torch.Tensor:
+    """Encode an image in [0,1]^(..., H, W, C) to trits (..., H, W, C*M).
+
+    The paper's CIFAR-10 setup: C=3, M=42 -> 126 input channels.
+    """
+    t = ternary_thermometer(quantize_to_levels(img01, 2 * m), m)
+    return t.reshape(*t.shape[:-2], t.shape[-2] * t.shape[-1])

@@ -1,0 +1,103 @@
+// The OCU writeback and switching counters on the device: the twins of
+// repro_torch/kernels/epilogue.py (pool_int, two_threshold, const_fixup,
+// zero_count, window_toggle_count), shared by every CNN kernel.
+//
+// Merged pooling runs on the int32 accumulator before the compare: avg
+// sums the window (thresholds were pre-scaled), max keeps the max of
+// sign(g)*z so that it commutes with a flipped compare.  The compare is
+// float32, as in the reference: (float)z > t_hi, and so on.
+#pragma once
+
+#include <stdint.h>
+#include <limits.h>
+
+enum { POOL_NONE = 0, POOL_MAX = 1, POOL_AVG = 2 };
+
+__device__ __forceinline__ int pool_init(int kind) {
+  return kind == POOL_MAX ? INT_MIN : 0;
+}
+
+// Fold one conv output z into a window's running value (sgn = -1 where
+// the channel's compare is flipped, else +1).
+__device__ __forceinline__ int pool_fold(int kind, int run, int z, int sgn) {
+  return kind == POOL_MAX ? max(run, z * sgn) : run + z;
+}
+
+__device__ __forceinline__ int pool_final(int kind, int run, int sgn) {
+  return kind == POOL_MAX ? run * sgn : run;
+}
+
+__device__ __forceinline__ int8_t two_threshold(int z, float t_lo, float t_hi,
+                                                bool flip) {
+  const float zf = (float)z;
+  const bool pos = flip ? (zf < t_hi) : (zf > t_hi);
+  const bool neg = flip ? (zf > t_lo) : (zf < t_lo);
+  return (int8_t)((int)pos - (int)neg);
+}
+
+// Degenerate (g == 0) channels take their stored constant trit.
+__device__ __forceinline__ int8_t const_fixup(int8_t y, int8_t c,
+                                              bool is_const) {
+  return is_const ? c : y;
+}
+
+// Trit (row r, col c, channel ch) of one (h, w, cin) image zero-padded by
+// `pad` on every side; r and c are padded coordinates.
+__device__ __forceinline__ int8_t padded_trit(const int8_t* img, int h, int w,
+                                              int cin, int pad, int r, int c,
+                                              int ch) {
+  const int y = r - pad, x = c - pad;
+  if (y < 0 || y >= h || x < 0 || x >= w) return 0;
+  return img[((size_t)y * w + x) * cin + ch];
+}
+
+// [begin, end) of part t when [0, len) is cut into parts of ceil(len/nt).
+__device__ __forceinline__ void chunk_range(int len, int nt, int t, int* b,
+                                            int* e) {
+  const int step = (len + nt - 1) / nt;
+  *b = min(t * step, len);
+  *e = min(*b + step, len);
+}
+
+// Zero trits of the (h, w, cin) image inside rows [r0, r1) x cols [c0, c1),
+// strided over the calling block.
+__device__ __forceinline__ int zero_count(const int8_t* img, int w, int cin,
+                                          int r0, int r1, int c0, int c1) {
+  const int nc = c1 - c0, items = (r1 - r0) * nc * cin;
+  int n = 0;
+  for (int i = threadIdx.x; i < items; i += blockDim.x) {
+    const int ch = i % cin, pix = i / cin;
+    const int r = r0 + pix / nc, c = c0 + pix % nc;
+    n += img[((size_t)r * w + c) * cin + ch] == 0;
+  }
+  return n;
+}
+
+// Window toggles of the stride-1 raster over a (wh, ww) grid of k x k
+// windows on the zero-padded image, for the steps leaving the windows in
+// rows [r0, r1) x cols [c0, c1): the (tap, channel) positions that differ
+// between a window and the next one in raster order.  Summed over a
+// partition of the grid this is window_toggle_count of the plain version.
+__device__ __forceinline__ int window_toggle_count(
+    const int8_t* img, int h, int w, int cin, int k, int pad, int wh, int ww,
+    int r0, int r1, int c0, int c1) {
+  const int nc = c1 - c0, per_win = k * k * cin;
+  const int items = (r1 - r0) * nc * per_win;
+  int n = 0;
+  for (int i = threadIdx.x; i < items; i += blockDim.x) {
+    const int ch = i % cin, tap = (i / cin) % (k * k), win = i / per_win;
+    const int r = r0 + win / nc, c = c0 + win % nc;
+    int nr, ncl;                                  // the next window
+    if (c + 1 < ww) {
+      nr = r; ncl = c + 1;
+    } else if (r + 1 < wh) {
+      nr = r + 1; ncl = 0;
+    } else {
+      continue;                                   // last window: no step
+    }
+    const int kh = tap / k, kw = tap % k;
+    n += padded_trit(img, h, w, cin, pad, r + kh, c + kw, ch)
+         != padded_trit(img, h, w, cin, pad, nr + kh, ncl + kw, ch);
+  }
+  return n;
+}

@@ -1,0 +1,232 @@
+"""Ternary K x K conv with the fused OCU epilogue: kernels and plain twins.
+
+Two weight layouts, as in the reference:
+
+* :func:`ternary_conv2d` - dense int8 trits (K, K, Cin, Cout);
+* :func:`ternary_conv2d_packed` - (Cout, G) uint8 rows at 5 trits per
+  byte (`repro_torch.core.codec.pack_filter_rows`), decoded inside the
+  kernel so the dense weights never exist in device memory.
+
+On a CUDA tensor each wrapper launches its kernel from
+`csrc/ternary_conv2d.cu` (built by `repro_torch.kernels._build`) or
+raises; on a CPU tensor it runs the plain version beside it.
+``LAUNCHES`` counts kernel launches per wrapper and nothing else.
+
+With thresholds (t_lo/t_hi/flip, optionally const/is_const and a merged
+``pool``) the output is int8 trits; without, raw int32.  ``emit_stats``
+returns ``(y, stats)`` with stats the (3,) int32 (in-zero, out-zero,
+window-toggle) totals: in-zero over the whole unpadded batch, out-zero
+over the output, toggle over image 0's stride-1 window raster.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.codec import TRITS_PER_BYTE
+from repro_torch.core.engine import conv2d_int, conv_out_dims
+from repro_torch.kernels import _build
+from repro_torch.kernels import epilogue as epi
+from repro_torch.kernels.trit_codec import unpack_digits
+
+LAUNCHES = {"ternary_conv2d": 0, "ternary_conv2d_packed": 0}
+
+_SMEM_LIMIT = 232448      # bytes of shared memory a block may use
+_CO_TILE = 32             # output channels per block (one per lane)
+_POOL_KIND = {None: 0, "max": 1, "avg": 2}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _check_epilogue(t_lo, pool, emit_stats) -> bool:
+    fuse = t_lo is not None
+    if pool is not None and not fuse:
+        raise ValueError("merged pooling requires the fused threshold "
+                         "epilogue (t_lo/t_hi/flip)")
+    if emit_stats and not fuse:
+        raise ValueError("emit_stats requires the fused threshold "
+                         "epilogue (t_lo/t_hi/flip): raw int32 outputs "
+                         "have no trit statistics")
+    return fuse
+
+
+def _unpack_rows(w_packed: torch.Tensor, k: int, cin: int) -> torch.Tensor:
+    """(Cout, G) packed rows -> (K, K, Cin, Cout) int8 trits."""
+    cout = w_packed.shape[0]
+    trits = unpack_digits(w_packed).reshape(cout, -1)[:, :k * k * cin]
+    return trits.reshape(cout, k, k, cin).permute(1, 2, 3, 0).to(torch.int8)
+
+
+def _plain_stats(x, y, k: int, padding: bool) -> torch.Tensor:
+    _, h, w, cin = x.shape
+    if padding:
+        p = k // 2
+        xp = F.pad(x[0], (0, 0, p, p, p, p))
+        wh, ww = h, w
+    else:
+        xp, wh, ww = x[0], h - k + 1, w - k + 1
+    return torch.stack([epi.zero_count(x), epi.zero_count(y),
+                        epi.window_toggle_count(xp, k, wh, ww, cin)])
+
+
+def ternary_conv2d_plain(x, w, *, stride=(1, 1), padding=True, t_lo=None,
+                         t_hi=None, flip=None, const=None, is_const=None,
+                         pool=None, emit_stats: bool = False):
+    """Plain PyTorch version of :func:`ternary_conv2d`."""
+    fuse = _check_epilogue(t_lo, pool, emit_stats)
+    z = conv2d_int(x, w, stride, padding)
+    if not fuse:
+        return z
+    y = epi.layer_epilogue(z, t_lo, t_hi, flip, const, is_const, pool)
+    if emit_stats:
+        return y, _plain_stats(x, y, w.shape[0], padding)
+    return y
+
+
+def ternary_conv2d_packed_plain(x, w_packed, *, k: int, cin: int,
+                                stride=(1, 1), padding=True, t_lo=None,
+                                t_hi=None, flip=None, const=None,
+                                is_const=None, pool=None,
+                                emit_stats: bool = False):
+    """Plain PyTorch version of :func:`ternary_conv2d_packed`."""
+    return ternary_conv2d_plain(
+        x, _unpack_rows(w_packed, k, cin), stride=stride, padding=padding,
+        t_lo=t_lo, t_hi=t_hi, flip=flip, const=const, is_const=is_const,
+        pool=pool, emit_stats=emit_stats)
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.library("ternary_conv2d")
+    fn = lib.cutie_ternary_conv2d
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch(name: str, x, w, *, packed: bool, k: int, cin: int, cout: int,
+            row_bytes: int, stride, padding, t_lo, t_hi, flip, const,
+            is_const, pool, emit_stats):
+    """Check the operands, allocate the outputs and launch one kernel."""
+    fuse = _check_epilogue(t_lo, pool, emit_stats)
+    dev = x.device
+    if x.dtype != torch.int8 or x.dim() != 4:
+        raise ValueError(f"x must be (N, H, W, Cin) int8, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if x.shape[3] != cin:
+        raise ValueError(f"x has {x.shape[3]} channels, weights {cin}")
+    if w.device != dev:
+        raise ValueError(f"weights on {w.device}, x on {dev}")
+    n, h, wd, _ = x.shape
+    sh, sw = stride
+    oh, ow = conv_out_dims(k, stride, padding, h, wd)
+    if oh <= 0 or ow <= 0:
+        raise ValueError(f"unpadded kernel {k} does not fit {h}x{wd}")
+    win = pool[1] if pool is not None else 1
+    ph, pw = oh // win, ow // win
+    if ph == 0 or pw == 0:
+        raise ValueError(f"pool window {win} exceeds the {oh}x{ow} conv "
+                         "output")
+    if not 1 <= n <= 65535:
+        raise ValueError(f"batch {n} outside 1..65535")
+    tp = max(1, 8 // win)              # pooled pixels per tile side
+    tc = tp * win
+    cw = -(-cin // 4)
+    smem = 4 * (((tc - 1) * sh + k) * ((tc - 1) * sw + k) * cw
+                + k * k * cw * _CO_TILE)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"layer needs {smem} B of shared memory per block, "
+                         f"more than {_SMEM_LIMIT}")
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()                  # the patch load reads int32 words
+    w = w.contiguous()
+    if fuse:
+        vec = [torch.as_tensor(v, device=dev).to(torch.float32)
+               .reshape(cout).contiguous() for v in (t_lo, t_hi)]
+        flags = [torch.as_tensor(flip, device=dev).to(torch.int8)
+                 .reshape(cout).contiguous()]
+        if const is not None:
+            flags += [torch.as_tensor(v, device=dev).to(torch.int8)
+                      .reshape(cout).contiguous() for v in (const, is_const)]
+        out = torch.empty((n, ph, pw, cout), dtype=torch.int8, device=dev)
+    else:
+        vec, flags = [], []
+        out = torch.empty((n, oh, ow, cout), dtype=torch.int32, device=dev)
+    stats = (torch.zeros(3, dtype=torch.int32, device=dev) if emit_stats
+             else None)
+    tiles_r, tiles_c = -(-ph // tp), -(-pw // tp)
+    wh, ww = (h, wd) if padding else (h - k + 1, wd - k + 1)
+    geo = (n, h, wd, cin, cout, k, sh, sw, k // 2 if padding else 0, oh, ow,
+           win, _POOL_KIND[pool[0] if pool else None], ph, pw, tp, tiles_r,
+           tiles_c, int(fuse), wh, ww, row_bytes)
+    ptrs = [v.data_ptr() for v in vec] + [f.data_ptr() for f in flags]
+    ptrs += [None] * (5 - len(ptrs))
+    lib = _library()
+    err = lib.cutie_ternary_conv2d(
+        int(packed), x.data_ptr(), w.data_ptr(), *ptrs, out.data_ptr(),
+        stats.data_ptr() if stats is not None else None,
+        (ctypes.c_int * len(geo))(*geo),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, name)
+    LAUNCHES[name] += 1
+    return (out, stats) if emit_stats else out
+
+
+def ternary_conv2d(x, w, *, stride=(1, 1), padding=True, t_lo=None,
+                   t_hi=None, flip=None, const=None, is_const=None,
+                   pool=None, emit_stats: bool = False):
+    """NHWC trit conv.  x (N,H,W,Cin) int8, w (K,K,Cin,Cout) int8.
+
+    Replaces `repro.kernels.ternary_conv2d.ternary_conv2d_pallas`.
+    """
+    if x.device.type == "cpu":
+        return ternary_conv2d_plain(
+            x, w, stride=stride, padding=padding, t_lo=t_lo, t_hi=t_hi,
+            flip=flip, const=const, is_const=is_const, pool=pool,
+            emit_stats=emit_stats)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if w.dtype != torch.int8 or w.dim() != 4 or w.shape[0] != w.shape[1]:
+        raise ValueError(f"w must be (K, K, Cin, Cout) int8, got {w.dtype} "
+                         f"{tuple(w.shape)}")
+    k, _, cin, cout = w.shape
+    return _launch("ternary_conv2d", x, w, packed=False, k=k, cin=cin,
+                   cout=cout, row_bytes=0, stride=stride, padding=padding,
+                   t_lo=t_lo, t_hi=t_hi, flip=flip, const=const,
+                   is_const=is_const, pool=pool, emit_stats=emit_stats)
+
+
+def ternary_conv2d_packed(x, w_packed, *, k: int, cin: int, stride=(1, 1),
+                          padding=True, t_lo=None, t_hi=None, flip=None,
+                          const=None, is_const=None, pool=None,
+                          emit_stats: bool = False):
+    """Conv from packed (Cout, G) uint8 weight rows, decoded in the kernel.
+
+    Replaces `repro.kernels.ternary_conv2d.ternary_conv2d_packed_pallas`.
+    """
+    cout, g = w_packed.shape
+    if g * TRITS_PER_BYTE < k * k * cin:
+        raise ValueError(f"{g} bytes per row cannot hold {k}x{k}x{cin} "
+                         "trits")
+    if x.device.type == "cpu":
+        return ternary_conv2d_packed_plain(
+            x, w_packed, k=k, cin=cin, stride=stride, padding=padding,
+            t_lo=t_lo, t_hi=t_hi, flip=flip, const=const, is_const=is_const,
+            pool=pool, emit_stats=emit_stats)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if w_packed.dtype != torch.uint8:
+        raise ValueError(f"w_packed must be uint8, got {w_packed.dtype}")
+    return _launch("ternary_conv2d_packed", x, w_packed, packed=True, k=k,
+                   cin=cin, cout=cout, row_bytes=g, stride=stride,
+                   padding=padding, t_lo=t_lo, t_hi=t_hi, flip=flip,
+                   const=const, is_const=is_const, pool=pool,
+                   emit_stats=emit_stats)

@@ -1,0 +1,175 @@
+"""`CutiePipeline`: a compiled CUTIE program bound to a backend and device.
+
+The ASIC compiles the network into its layer FIFO once, then runs the
+whole program with the host asleep (paper §III, Fig. 3).  Here the
+program's weights and thresholds are lowered onto the device once, and a
+run is a Python loop over the layers: PyTorch runs eagerly, so the loop
+takes the place of the reference's ``lax.scan`` under ``jit``, and every
+layer is one kernel launch on the current stream.
+
+    pipe = CutiePipeline(prog)                        # cuda backend, card
+    y = pipe.run(x)                                   # trits out
+    y, rows = pipe.run(x, tracer=SwitchingTracer())   # + per-layer stats
+    energy = pipe.measure(x)                          # priced inference
+
+Tracers with ``kernel_stats`` take their counts from the kernels
+themselves (``emit_stats``), so a traced run launches the same kernels
+and reads back one (3,) int32 row per layer.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import engine
+from repro_torch.device import resolve_device
+from repro_torch.pipeline import backends as B
+from repro_torch.pipeline.tracer import SwitchingTracer, Tracer
+
+
+def layer_out_shape(instr: engine.LayerInstr, in_shape) -> tuple:
+    """Static shape inference for one compiled layer (conv + merged pool)."""
+    n, h, w, _ = in_shape
+    oh, ow = engine.conv_out_hw(instr, h, w)
+    if instr.pool is not None:
+        oh, ow = oh // instr.pool[1], ow // instr.pool[1]
+    return (n, oh, ow, instr.weights.shape[-1])
+
+
+def program_shapes(program: engine.CutieProgram, in_shape) -> list[tuple]:
+    """Per-layer activation shapes: [input, after layer 0, ..., output]."""
+    shapes = [tuple(in_shape)]
+    for instr in program.layers:
+        shapes.append(layer_out_shape(instr, shapes[-1]))
+    return shapes
+
+
+class CutiePipeline:
+    """A compiled CUTIE program bound to an execution backend and device.
+
+    ``device=None`` is the card (raises when there is none); pass
+    ``device="cpu"`` for the plain PyTorch path on the CPU.
+    """
+
+    def __init__(self, program: engine.CutieProgram,
+                 backend: str | B.Backend | None = None, device=None, *,
+                 mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= execution is not ported yet: see ROADMAP.md, "
+                "'Modules still to port', item 9 (launch/cutie_mesh.py on "
+                "torch.distributed)")
+        program.validate()
+        self.program = program
+        self.device = resolve_device(device)
+        self.backend = B.get_backend(backend)
+        self._lowered = [self.backend.lower(i, self.device)
+                         for i in program.layers]
+
+    @classmethod
+    def compile(cls, source, **kwargs) -> "CutiePipeline":
+        """Not ported yet: the graph compiler comes with its own slice.
+
+        Until then, build layers with `engine.compile_layer` and pass a
+        `CutieProgram` to the constructor.
+        """
+        raise NotImplementedError(
+            "CutiePipeline.compile is not ported yet: see ROADMAP.md, "
+            "'Modules still to port', item 5 (compiler); build a "
+            "CutieProgram with engine.compile_layer instead")
+
+    # -- introspection ------------------------------------------------------
+
+    @property
+    def backend_name(self) -> str:
+        return self.backend.name
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.program.layers)
+
+    @property
+    def batch_quantum(self) -> int:
+        """Executed batches are padded to a multiple of this: 1, since
+        the port runs on one device."""
+        return 1
+
+    def shapes(self, in_shape) -> list[tuple]:
+        return program_shapes(self.program, in_shape)
+
+    def execution_plan(self, in_shape=None, tracer: Tracer | None = None
+                       ) -> dict:
+        """How this pipeline will execute a run (``in_shape`` is accepted
+        for the reference's signature; the plan does not depend on it)."""
+        del in_shape
+        reason = "eager loop over the layer FIFO, one kernel per layer"
+        if tracer is not None:
+            reason += ("; tracer rows from in-kernel counters"
+                       if tracer.kernel_stats else
+                       "; tracer reads every layer's activations")
+        return {"mode": "per-layer", "backend": self.backend_name,
+                "device": str(self.device), "mesh": None,
+                "scannable": False, "reason": reason, "fallback": None}
+
+    def __repr__(self) -> str:
+        return (f"CutiePipeline(layers={self.n_layers}, "
+                f"backend={self.backend_name!r}, device={self.device})")
+
+    # -- execution ----------------------------------------------------------
+
+    def run(self, x, tracer: Tracer | None = None):
+        """Execute the whole program on input trits x (N, H, W, C) int8.
+
+        Returns the final trit tensor; with a tracer, also the tracer's
+        per-layer rows: ``(out, rows)``.
+        """
+        x = torch.as_tensor(x, device=self.device).to(torch.int8)
+        if x.dim() != 4:
+            raise ValueError(f"expected (N, H, W, C) trits, got "
+                             f"{tuple(x.shape)}")
+        cur, recs = x, []
+        for lw, instr in zip(self._lowered, self.program.layers):
+            if tracer is None:
+                y = self.backend.apply(lw, cur, instr)
+            elif tracer.kernel_stats:
+                y, row = self.backend.apply_with_stats(lw, cur, instr)
+                recs.append(row)
+            else:
+                y = self.backend.apply(lw, cur, instr)
+                recs.append(tracer.trace_layer(cur, y, instr))
+            cur = y
+        if tracer is None:
+            return cur
+        shapes = self.shapes(tuple(x.shape))
+        if tracer.kernel_stats:
+            counts = (torch.stack(recs).cpu().numpy() if recs
+                      else np.zeros((0, 3), np.int32))
+            return cur, tracer.finalize_counts(self.program, counts, shapes)
+        recs = [{k: v.cpu().numpy() for k, v in r.items()} for r in recs]
+        return cur, tracer.finalize(self.program, recs, shapes)
+
+    # -- measurement --------------------------------------------------------
+
+    def measure(self, x, params=None) -> dict:
+        """Run and price every layer with the calibrated energy model.
+
+        Per-layer rows, totals (energy per inference, avg and peak
+        TOp/s/W) and the final trit tensor under ``"final"``; the network
+        executes once, with the switching counts from the kernels.
+        """
+        from repro_torch.energy import model as E
+
+        params = params or E.EnergyParams(self.program.instance.technology)
+        out, rows = self.run(x, tracer=SwitchingTracer())
+        res = E.network_energy(rows, params)
+        res["final"] = out
+        return res
+
+    # -- serving ------------------------------------------------------------
+
+    def engine(self, *args, **kwargs):
+        """Not ported yet: CNN serving comes with `repro_torch.serving`."""
+        raise NotImplementedError(
+            "CutiePipeline.engine is not ported yet: see ROADMAP.md, "
+            "'Modules still to port', item 7 (CNN serving and obs)")
