@@ -8,10 +8,10 @@ codec, so packed weights and activations cross between the packages.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
-TRITS_PER_BYTE = 5
-_POW3 = (1, 3, 9, 27, 81)
+from repro_torch.kernels import trit_codec as _tc
+
+TRITS_PER_BYTE = _tc.TRITS_PER_BYTE
 
 
 def packed_size(n: int) -> int:
@@ -23,24 +23,15 @@ def pack_trits(t: torch.Tensor) -> torch.Tensor:
     """Pack a flat tensor of trits {-1,0,1} into uint8, 5 per byte.
 
     The input is zero-padded up to a multiple of 5; callers keep the
-    original length to unpack.
+    original length to unpack.  A CUDA tensor goes through the codec
+    kernel (`repro_torch.kernels.trit_codec`).
     """
-    t = t.reshape(-1).to(torch.int32)
-    t = F.pad(t, (0, (-t.numel()) % TRITS_PER_BYTE))
-    d = (t + 1).reshape(-1, TRITS_PER_BYTE)
-    pow3 = torch.tensor(_POW3, dtype=torch.int32, device=t.device)
-    return (d * pow3).sum(dim=1).to(torch.uint8)
+    return _tc.pack_trits(t.reshape(1, -1)).reshape(-1)
 
 
 def unpack_trits(b: torch.Tensor, n: int) -> torch.Tensor:
     """Inverse of `pack_trits`: uint8 bytes -> n trits in {-1,0,1} (int8)."""
-    v = b.reshape(-1).to(torch.int32)
-    digits = []
-    for _ in range(TRITS_PER_BYTE):
-        digits.append(v % 3)
-        v = v // 3
-    trits = torch.stack(digits, dim=-1).reshape(-1) - 1
-    return trits[:n].to(torch.int8)
+    return _tc.unpack_trits(b.reshape(1, -1)).reshape(-1)[:n]
 
 
 def pack_filter_rows(w: torch.Tensor) -> torch.Tensor:
@@ -51,6 +42,4 @@ def pack_filter_rows(w: torch.Tensor) -> torch.Tensor:
     on its own: the layout the packed conv kernel reads.
     """
     k, _, cin, cout = w.shape
-    flat = w.permute(3, 0, 1, 2).reshape(cout, k * k * cin)
-    flat = F.pad(flat, (0, (-flat.shape[1]) % TRITS_PER_BYTE))
-    return pack_trits(flat.reshape(-1)).reshape(cout, -1)
+    return _tc.pack_trits(w.permute(3, 0, 1, 2).reshape(cout, k * k * cin))

@@ -2,28 +2,25 @@
 
 The binary thermometer maps x in [0, M] to f(x)_i = +1 if i < x else -1;
 the ternary one maps x in [0, 2M] to g(x)_i = sgn(x-M) * (f(|x-M|)_i + 1)/2,
-which encodes twice the range per entry and introduces zeros.
+which encodes twice the range per entry and introduces zeros.  On a CUDA
+tensor both run the thermometer kernel (`repro_torch.kernels.trit_codec`).
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import trit_codec as _tc
+
 
 def binary_thermometer(x: torch.Tensor, m: int) -> torch.Tensor:
     """f: [0, M] -> {-1,+1}^M, appended as a trailing axis."""
-    x = x.to(torch.int32)
-    idx = torch.arange(m, dtype=torch.int32, device=x.device)
-    one = torch.ones((), dtype=torch.int8, device=x.device)
-    return torch.where(idx < x[..., None], one, -one)
+    return _tc.thermometer(x, m, ternary=False)
 
 
 def ternary_thermometer(x: torch.Tensor, m: int) -> torch.Tensor:
     """g: [0, 2M] -> {-1,0,+1}^M."""
-    x = x.to(torch.int32)
-    s = torch.sign(x - m)
-    f = binary_thermometer(torch.abs(x - m), m).to(torch.int32)
-    return (s[..., None] * ((f + 1) // 2)).to(torch.int8)
+    return _tc.thermometer(x, m, ternary=True)
 
 
 def quantize_to_levels(x: torch.Tensor, levels: int) -> torch.Tensor:

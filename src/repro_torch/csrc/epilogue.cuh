@@ -1,6 +1,7 @@
 // The OCU writeback and switching counters on the device: the twins of
 // repro_torch/kernels/epilogue.py (pool_int, two_threshold, const_fixup,
-// zero_count, window_toggle_count), shared by every CNN kernel.
+// zero_count, window_toggle_count), shared by every CNN kernel through
+// conv_tile.cuh.
 //
 // Merged pooling runs on the int32 accumulator before the compare: avg
 // sums the window (thresholds were pre-scaled), max keeps the max of
@@ -60,13 +61,14 @@ __device__ __forceinline__ void chunk_range(int len, int nt, int t, int* b,
 }
 
 // Zero trits of the (h, w, cin) image inside rows [r0, r1) x cols [c0, c1),
-// strided over the calling block.
+// over its first ``nch`` channels, strided over the calling block.
 __device__ __forceinline__ int zero_count(const int8_t* img, int w, int cin,
-                                          int r0, int r1, int c0, int c1) {
-  const int nc = c1 - c0, items = (r1 - r0) * nc * cin;
+                                          int nch, int r0, int r1, int c0,
+                                          int c1) {
+  const int nc = c1 - c0, items = (r1 - r0) * nc * nch;
   int n = 0;
   for (int i = threadIdx.x; i < items; i += blockDim.x) {
-    const int ch = i % cin, pix = i / cin;
+    const int ch = i % nch, pix = i / nch;
     const int r = r0 + pix / nc, c = c0 + pix % nc;
     n += img[((size_t)r * w + c) * cin + ch] == 0;
   }
@@ -78,14 +80,15 @@ __device__ __forceinline__ int zero_count(const int8_t* img, int w, int cin,
 // rows [r0, r1) x cols [c0, c1): the (tap, channel) positions that differ
 // between a window and the next one in raster order.  Summed over a
 // partition of the grid this is window_toggle_count of the plain version.
+// Only the first ``nch`` of the image's ``cin`` channels are compared.
 __device__ __forceinline__ int window_toggle_count(
-    const int8_t* img, int h, int w, int cin, int k, int pad, int wh, int ww,
-    int r0, int r1, int c0, int c1) {
-  const int nc = c1 - c0, per_win = k * k * cin;
+    const int8_t* img, int h, int w, int cin, int nch, int k, int pad, int wh,
+    int ww, int r0, int r1, int c0, int c1) {
+  const int nc = c1 - c0, per_win = k * k * nch;
   const int items = (r1 - r0) * nc * per_win;
   int n = 0;
   for (int i = threadIdx.x; i < items; i += blockDim.x) {
-    const int ch = i % cin, tap = (i / cin) % (k * k), win = i / per_win;
+    const int ch = i % nch, tap = (i / nch) % (k * k), win = i / per_win;
     const int r = r0 + win / nc, c = c0 + win % nc;
     int nr, ncl;                                  // the next window
     if (c + 1 < ww) {

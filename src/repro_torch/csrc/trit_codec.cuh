@@ -1,5 +1,6 @@
-// Base-3 trit digits on the device: the decode twin of
-// repro_torch/kernels/trit_codec.py `unpack_digits`.
+// Base-3 trit digits on the device: the twins of
+// repro_torch/kernels/trit_codec.py `pack_digits` / `unpack_digits`,
+// shared by the codec kernels, the packed conv and the trunk megakernel.
 //
 // Layout (shared with repro_torch.core.codec): trit index j lives in byte
 // j / 5 at digit j % 5, little-endian; digit d = trit + 1 in {0, 1, 2}.
@@ -14,4 +15,12 @@ __device__ __forceinline__ void trit_decode5(uint32_t v, int8_t t[5]) {
     t[i] = (int8_t)((int)(v % 3u) - 1);
     v /= 3u;
   }
+}
+
+// Trits t[0..n) (n <= 5; missing trits are 0, digit 1) -> one byte.
+__device__ __forceinline__ uint8_t trit_encode(const int8_t* t, int n) {
+  int acc = 0;
+#pragma unroll
+  for (int i = 4; i >= 0; --i) acc = acc * 3 + (i < n ? t[i] + 1 : 1);
+  return (uint8_t)acc;
 }

@@ -63,7 +63,9 @@ def _unpack_rows(w_packed: torch.Tensor, k: int, cin: int) -> torch.Tensor:
     return trits.reshape(cout, k, k, cin).permute(1, 2, 3, 0).to(torch.int8)
 
 
-def _plain_stats(x, y, k: int, padding: bool) -> torch.Tensor:
+def plain_stats(x, y, k: int, padding: bool) -> torch.Tensor:
+    """The (3,) int32 (in-zero, out-zero, window-toggle) counters of one
+    layer, plain: what the kernels add up with atomics."""
     _, h, w, cin = x.shape
     if padding:
         p = k // 2
@@ -85,7 +87,7 @@ def ternary_conv2d_plain(x, w, *, stride=(1, 1), padding=True, t_lo=None,
         return z
     y = epi.layer_epilogue(z, t_lo, t_hi, flip, const, is_const, pool)
     if emit_stats:
-        return y, _plain_stats(x, y, w.shape[0], padding)
+        return y, plain_stats(x, y, w.shape[0], padding)
     return y
 
 
@@ -101,12 +103,85 @@ def ternary_conv2d_packed_plain(x, w_packed, *, k: int, cin: int,
         pool=pool, emit_stats=emit_stats)
 
 
+#: The int fields of `csrc/conv_tile.cuh` TileGeo, in declaration order.
+TILE_FIELDS = ("h", "w", "cin", "cout", "k", "sh", "sw", "pad", "win",
+               "kind", "ph", "pw", "tp", "tiles_r", "tiles_c", "fuse", "wh",
+               "ww", "w_rows", "row_bytes", "stat_c")
+
+
+def tile_geometry(h: int, w: int, cin: int, cout: int, k: int, stride,
+                  padding: bool, pool, *, fuse: bool = True,
+                  w_rows: int | None = None, row_bytes: int = 0,
+                  stat_c: int | None = None) -> dict:
+    """One layer's TileGeo for the tile body of `csrc/conv_tile.cuh`.
+
+    Raises on what the kernels do not take: an unpadded kernel larger
+    than the map, a pool window larger than the conv output, or a tile
+    that needs more shared memory than a block has.
+    """
+    sh, sw = stride
+    oh, ow = conv_out_dims(k, stride, padding, h, w)
+    if oh <= 0 or ow <= 0:
+        raise ValueError(f"unpadded kernel {k} does not fit {h}x{w}")
+    win = pool[1] if pool is not None else 1
+    ph, pw = oh // win, ow // win
+    if ph == 0 or pw == 0:
+        raise ValueError(f"pool window {win} exceeds the {oh}x{ow} conv "
+                         "output")
+    tp = max(1, 8 // win)              # pooled pixels per tile side
+    tc = tp * win
+    cw = -(-cin // 4)
+    smem = 4 * (((tc - 1) * sh + k) * ((tc - 1) * sw + k) * cw
+                + k * k * cw * _CO_TILE)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"layer needs {smem} B of shared memory per block, "
+                         f"more than {_SMEM_LIMIT}")
+    return dict(h=h, w=w, cin=cin, cout=cout, k=k, sh=sh, sw=sw,
+                pad=k // 2 if padding else 0, win=win,
+                kind=_POOL_KIND[pool[0] if pool else None], ph=ph, pw=pw,
+                tp=tp, tiles_r=-(-ph // tp), tiles_c=-(-pw // tp),
+                fuse=int(fuse), wh=h if padding else h - k + 1,
+                ww=w if padding else w - k + 1,
+                w_rows=cin if w_rows is None else w_rows,
+                row_bytes=row_bytes, stat_c=cin if stat_c is None else stat_c)
+
+
+def geo_array(rows) -> ctypes.Array:
+    """TileGeo rows as the flat C int array the kernels read."""
+    flat = [int(g[f]) for g in rows for f in TILE_FIELDS]
+    return (ctypes.c_int * len(flat))(*flat)
+
+
+def epilogue_vectors(dev, shape, t_lo, t_hi, flip, const, is_const):
+    """Thresholds as contiguous float32 / int8 tensors of ``shape`` on
+    ``dev``: the pointers the kernels read.  Tensors that already are
+    pass through without a copy."""
+    def vec(v, dtype):
+        if not (isinstance(v, torch.Tensor) and v.dtype == dtype
+                and v.device == dev and v.is_contiguous()):
+            v = torch.as_tensor(v, device=dev).to(dtype).contiguous()
+        return v.reshape(shape)
+    out = [vec(t_lo, torch.float32), vec(t_hi, torch.float32),
+           vec(flip, torch.int8)]
+    if const is not None:
+        out += [vec(const, torch.int8), vec(is_const, torch.int8)]
+    return out
+
+
+def aligned(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous, on a 16-byte boundary: the patch load reads int32
+    words."""
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.library("ternary_conv2d")
     fn = lib.cutie_ternary_conv2d
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
-                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+                       + [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
@@ -125,55 +200,23 @@ def _launch(name: str, x, w, *, packed: bool, k: int, cin: int, cout: int,
     if w.device != dev:
         raise ValueError(f"weights on {w.device}, x on {dev}")
     n, h, wd, _ = x.shape
-    sh, sw = stride
-    oh, ow = conv_out_dims(k, stride, padding, h, wd)
-    if oh <= 0 or ow <= 0:
-        raise ValueError(f"unpadded kernel {k} does not fit {h}x{wd}")
-    win = pool[1] if pool is not None else 1
-    ph, pw = oh // win, ow // win
-    if ph == 0 or pw == 0:
-        raise ValueError(f"pool window {win} exceeds the {oh}x{ow} conv "
-                         "output")
     if not 1 <= n <= 65535:
         raise ValueError(f"batch {n} outside 1..65535")
-    tp = max(1, 8 // win)              # pooled pixels per tile side
-    tc = tp * win
-    cw = -(-cin // 4)
-    smem = 4 * (((tc - 1) * sh + k) * ((tc - 1) * sw + k) * cw
-                + k * k * cw * _CO_TILE)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"layer needs {smem} B of shared memory per block, "
-                         f"more than {_SMEM_LIMIT}")
-    x = x.contiguous()
-    if x.data_ptr() % 16:
-        x = x.clone()                  # the patch load reads int32 words
-    w = w.contiguous()
-    if fuse:
-        vec = [torch.as_tensor(v, device=dev).to(torch.float32)
-               .reshape(cout).contiguous() for v in (t_lo, t_hi)]
-        flags = [torch.as_tensor(flip, device=dev).to(torch.int8)
-                 .reshape(cout).contiguous()]
-        if const is not None:
-            flags += [torch.as_tensor(v, device=dev).to(torch.int8)
-                      .reshape(cout).contiguous() for v in (const, is_const)]
-        out = torch.empty((n, ph, pw, cout), dtype=torch.int8, device=dev)
-    else:
-        vec, flags = [], []
-        out = torch.empty((n, oh, ow, cout), dtype=torch.int32, device=dev)
+    g = tile_geometry(h, wd, cin, cout, k, stride, padding, pool, fuse=fuse,
+                      row_bytes=row_bytes)
+    x, w = aligned(x), w.contiguous()
+    vecs = (epilogue_vectors(dev, (cout,), t_lo, t_hi, flip, const,
+                             is_const) if fuse else [])
+    out = torch.empty((n, g["ph"], g["pw"], cout),
+                      dtype=torch.int8 if fuse else torch.int32, device=dev)
     stats = (torch.zeros(3, dtype=torch.int32, device=dev) if emit_stats
              else None)
-    tiles_r, tiles_c = -(-ph // tp), -(-pw // tp)
-    wh, ww = (h, wd) if padding else (h - k + 1, wd - k + 1)
-    geo = (n, h, wd, cin, cout, k, sh, sw, k // 2 if padding else 0, oh, ow,
-           win, _POOL_KIND[pool[0] if pool else None], ph, pw, tp, tiles_r,
-           tiles_c, int(fuse), wh, ww, row_bytes)
-    ptrs = [v.data_ptr() for v in vec] + [f.data_ptr() for f in flags]
+    ptrs = [v.data_ptr() for v in vecs]
     ptrs += [None] * (5 - len(ptrs))
     lib = _library()
     err = lib.cutie_ternary_conv2d(
         int(packed), x.data_ptr(), w.data_ptr(), *ptrs, out.data_ptr(),
-        stats.data_ptr() if stats is not None else None,
-        (ctypes.c_int * len(geo))(*geo),
+        stats.data_ptr() if stats is not None else None, n, geo_array([g]),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, name)
     LAUNCHES[name] += 1

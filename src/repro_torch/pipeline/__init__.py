@@ -1,14 +1,15 @@
 """CUTIE execution on PyTorch: run -> measure over pluggable backends."""
 
 from repro_torch.pipeline.backends import (Backend, CudaBackend,
-                                           PackedBackend, RefBackend,
-                                           available_backends, get_backend)
+                                           FusedBackend, PackedBackend,
+                                           RefBackend, available_backends,
+                                           get_backend)
 from repro_torch.pipeline.pipeline import (CutiePipeline, layer_out_shape,
                                            program_shapes)
 from repro_torch.pipeline.tracer import StatsTracer, SwitchingTracer, Tracer
 
 __all__ = [
-    "Backend", "RefBackend", "CudaBackend", "PackedBackend",
+    "Backend", "RefBackend", "CudaBackend", "PackedBackend", "FusedBackend",
     "available_backends", "get_backend",
     "CutiePipeline", "layer_out_shape", "program_shapes",
     "Tracer", "StatsTracer", "SwitchingTracer",

@@ -13,6 +13,12 @@ degenerate-channel fixup), so their trit outputs are bit-identical.
 * ``packed`` - weights kept at 5 trits per byte
   (`repro_torch.core.codec.pack_filter_rows`) and decoded inside the conv
   kernel: the deployment path.
+* ``fused``  - trunk-fused execution: maximal runs of uniform layers
+  (`repro_torch.compiler.trunks.plan_segments`) run in ONE launch of the
+  trunk megakernel (`repro_torch.kernels.fused_trunk`), activations
+  ping-ponging in L2-resident buffers; consecutive trunks exchange their
+  activations packed at 5 trits per byte.  Layers that cannot fuse run on
+  the ``cuda`` conv kernel.  The counterpart of the reference's ``fused``.
 * ``ref``    - the plain PyTorch oracle, only when asked for by name.
 
 On a CPU device the kernel backends run their kernels' plain versions.
@@ -24,8 +30,11 @@ import dataclasses
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.compiler import trunks
 from repro_torch.core import codec, engine, folding
+from repro_torch.kernels import fused_trunk as FT
 from repro_torch.kernels import ternary_conv2d as K
 
 
@@ -37,6 +46,12 @@ class Backend:
     `repro_torch.pipeline.tracer.layer_stat_counts` layout).  The base
     implementation derives them from the activations with the oracle;
     kernel backends emit them from inside the kernel.
+
+    Backends may also implement ``build_program(program, in_shape,
+    emit_stats=False)``, returning ``fn(lowered, x) -> (out, counts)``
+    that runs the whole program; the pipeline prefers it for untraced
+    runs and for tracers with ``kernel_stats``, where ``counts`` is the
+    program's (L, 3) int32 counter block.
     """
 
     name: str = "?"
@@ -123,16 +138,105 @@ class PackedBackend(Backend):
         return self.apply(lowered, x, instr, emit_stats=True)
 
 
+#: The trunk kernel's threshold operands and their types.
+_THRESHOLD_DTYPES = {"t_lo": torch.float32, "t_hi": torch.float32,
+                     "flip": torch.int8, "const": torch.int8,
+                     "is_const": torch.int8}
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedBackend(CudaBackend):
+    """Trunk-fused execution: one trunk-kernel launch per run of uniform
+    layers.
+
+    ``l2_budget`` (bytes) bounds each trunk's priced L2 residency
+    (default `repro_torch.compiler.trunks.DEFAULT_L2_BUDGET`, the H100's
+    50 MiB); ``pack_boundaries`` makes consecutive fused trunks exchange
+    their activations as 5-trits/byte packed bytes, encoded and decoded
+    inside the trunk kernels (boundaries that touch a per-layer segment
+    stay int8).  Per-layer segments, and traced runs whose tracer has no
+    kernel-side mode, inherit the ``cuda`` conv kernel.
+    """
+
+    l2_budget: int | None = None
+    pack_boundaries: bool = True
+    name: str = dataclasses.field(default="fused", init=False)
+
+    def plan(self, program: engine.CutieProgram, in_shape):
+        return trunks.plan_segments(program, tuple(in_shape), self.l2_budget)
+
+    def build_program(self, program: engine.CutieProgram, in_shape,
+                      emit_stats: bool = False):
+        """Whole-program trunk-fused execution for one input shape.
+
+        Returns ``fn(lowered, x) -> (out, counts)``; with ``emit_stats``
+        ``counts`` is the program's (L, 3) int32 counter block in layer
+        order (fused trunks count inside their kernel, per-layer segments
+        inside the conv kernel), else ``[]``.  ``fn`` stacks each trunk's
+        weights (head Cin zero-padded to the trunk's common width) and
+        thresholds (in the kernel's types) on its first call and reuses
+        them after: it belongs to the one pipeline whose ``lowered``
+        layers it is called with.
+        """
+        in_shape = tuple(in_shape)
+        segments = self.plan(program, in_shape)
+        layers = program.layers
+        hw = trunks.segment_shapes(layers, in_shape[1:3])
+        packed_after = [self.pack_boundaries and a.fused and b.fused
+                        for a, b in zip(segments, segments[1:])] + [False]
+        stacks: dict[int, tuple] = {}
+
+        def operands(lowered, si, seg):
+            if si not in stacks:
+                rng = range(seg.start, seg.stop)
+                cu = trunks.trunk_cin(layers[seg.start:seg.stop])
+                ws = torch.stack([
+                    F.pad(lowered[i]["w"],
+                          (0, 0, 0, cu - lowered[i]["w"].shape[2]))
+                    for i in rng])
+                th = [torch.stack([getattr(lowered[i]["th"], f)
+                                   for i in rng]).to(dtype)
+                      for f, dtype in _THRESHOLD_DTYPES.items()]
+                metas = tuple((layers[i].stride, layers[i].pool)
+                              for i in rng)
+                stacks[si] = ws, th, metas
+            return stacks[si]
+
+        def fn(lowered, x):
+            cur, counts = x, []
+            for si, seg in enumerate(segments):
+                if not seg.fused:
+                    for i in range(seg.start, seg.stop):
+                        if emit_stats:
+                            cur, row = self.apply_with_stats(
+                                lowered[i], cur, layers[i])
+                            counts.append(row[None])
+                        else:
+                            cur = self.apply(lowered[i], cur, layers[i])
+                    continue
+                ws, th, metas = operands(lowered, si, seg)
+                cin = layers[seg.start].weights.shape[2]
+                packed_in = None
+                if si > 0 and packed_after[si - 1]:
+                    h, w = hw[seg.start]
+                    packed_in = (in_shape[0], h, w, cin)
+                cur = FT.fused_trunk(
+                    cur, ws, *th, metas=metas, packed_in=packed_in,
+                    pack_out=packed_after[si], emit_stats=emit_stats,
+                    stats_cin=cin)
+                if emit_stats:
+                    cur, seg_counts = cur
+                    counts.append(seg_counts)
+            return (cur, torch.cat(counts)) if emit_stats else (cur, [])
+
+        return fn
+
+
 _REGISTRY = {
     "ref": RefBackend,
     "cuda": CudaBackend,
     "packed": PackedBackend,
-}
-
-#: Reference backends not ported yet, with the ROADMAP entry that ports them.
-_NOT_YET = {
-    "fused": "ROADMAP.md, section 2 'TPU kernels', kernel 3 "
-             "(fused_trunk_pallas: the trunk megakernel)",
+    "fused": FusedBackend,
 }
 
 DEFAULT_BACKEND = "cuda"
@@ -147,9 +251,6 @@ def get_backend(backend: str | Backend | None = None) -> Backend:
     if isinstance(backend, Backend):
         return backend
     name = backend or DEFAULT_BACKEND
-    if name in _NOT_YET:
-        raise NotImplementedError(
-            f"backend {name!r} is not ported yet: see {_NOT_YET[name]}")
     if name not in _REGISTRY:
         raise ValueError(
             f"unknown backend {name!r}; available: {sorted(_REGISTRY)}")

@@ -2,10 +2,13 @@
 
 The ASIC compiles the network into its layer FIFO once, then runs the
 whole program with the host asleep (paper §III, Fig. 3).  Here the
-program's weights and thresholds are lowered onto the device once, and a
-run is a Python loop over the layers: PyTorch runs eagerly, so the loop
-takes the place of the reference's ``lax.scan`` under ``jit``, and every
-layer is one kernel launch on the current stream.
+program's weights and thresholds are lowered onto the device once.  A
+backend with ``build_program`` (``fused``) runs the whole program through
+one function built per input shape and cached: one trunk-kernel launch
+per fused segment.  Otherwise a run is a Python loop over the layers:
+PyTorch runs eagerly, so the loop takes the place of the reference's
+``lax.scan`` under ``jit``, and every layer is one kernel launch on the
+current stream.
 
     pipe = CutiePipeline(prog)                        # cuda backend, card
     y = pipe.run(x)                                   # trits out
@@ -14,7 +17,8 @@ layer is one kernel launch on the current stream.
 
 Tracers with ``kernel_stats`` take their counts from the kernels
 themselves (``emit_stats``), so a traced run launches the same kernels
-and reads back one (3,) int32 row per layer.
+and reads back one (3,) int32 row per layer; a tracer without it makes
+even ``fused`` run layer by layer.
 """
 
 from __future__ import annotations
@@ -66,6 +70,7 @@ class CutiePipeline:
         self.backend = B.get_backend(backend)
         self._lowered = [self.backend.lower(i, self.device)
                          for i in program.layers]
+        self._programs: dict[tuple, object] = {}   # built program fns
 
     @classmethod
     def compile(cls, source, **kwargs) -> "CutiePipeline":
@@ -100,23 +105,68 @@ class CutiePipeline:
 
     def execution_plan(self, in_shape=None, tracer: Tracer | None = None
                        ) -> dict:
-        """How this pipeline will execute a run (``in_shape`` is accepted
-        for the reference's signature; the plan does not depend on it)."""
-        del in_shape
-        reason = "eager loop over the layer FIFO, one kernel per layer"
-        if tracer is not None:
-            reason += ("; tracer rows from in-kernel counters"
-                       if tracer.kernel_stats else
-                       "; tracer reads every layer's activations")
-        return {"mode": "per-layer", "backend": self.backend_name,
+        """How this pipeline will execute a run.
+
+        ``mode`` is ``"program"`` (the backend's whole-program build: one
+        trunk-kernel launch per fused segment) or ``"per-layer"`` (one
+        kernel launch per layer).  ``fallback`` is ``"tracer"`` when a
+        tracer without a kernel-side mode drops a program-level backend
+        to per-layer execution, else None.  With ``in_shape`` and a
+        backend that plans trunks, ``segments`` lists each segment's
+        layer range, whether it is fused, its priced L2 residency
+        (``l2_bytes``, the port's name for the reference's
+        ``vmem_bytes``) and the planner's reason.
+        """
+        has_program = hasattr(self.backend, "build_program")
+        kernel_stats = tracer is not None and tracer.kernel_stats
+        fallback = None
+        if has_program and (tracer is None or kernel_stats):
+            mode = "program"
+            reason = (f"backend {self.backend_name!r} provides "
+                      "build_program (one trunk-kernel launch per fused "
+                      "segment)")
+            if kernel_stats:
+                reason += "; tracer rows come from in-kernel counters"
+        else:
+            mode = "per-layer"
+            reason = "eager loop over the layer FIFO, one kernel per layer"
+            if tracer is not None:
+                reason += ("; tracer rows from in-kernel counters"
+                           if kernel_stats else
+                           "; tracer reads every layer's activations")
+            if has_program:
+                fallback = "tracer"
+                reason = (f"tracer {type(tracer).__name__} has no "
+                          "kernel-side mode (kernel_stats=False); the "
+                          f"program-level build is dropped: {reason}")
+        plan = {"mode": mode, "backend": self.backend_name,
                 "device": str(self.device), "mesh": None,
-                "scannable": False, "reason": reason, "fallback": None}
+                "scannable": False, "reason": reason, "fallback": fallback}
+        if in_shape is not None and hasattr(self.backend, "plan"):
+            plan["segments"] = [
+                {"start": s.start, "stop": s.stop, "fused": s.fused,
+                 "l2_bytes": s.l2_bytes, "reason": s.reason or None}
+                for s in self.backend.plan(self.program, tuple(in_shape))]
+        return plan
 
     def __repr__(self) -> str:
         return (f"CutiePipeline(layers={self.n_layers}, "
                 f"backend={self.backend_name!r}, device={self.device})")
 
     # -- execution ----------------------------------------------------------
+
+    def _program(self, in_shape, tracer: Tracer | None):
+        """The backend's whole-program function for ``in_shape``, built
+        once and cached; None when the run goes layer by layer."""
+        if not hasattr(self.backend, "build_program"):
+            return None
+        if tracer is not None and not tracer.kernel_stats:
+            return None
+        key = (tuple(in_shape), tracer is not None)
+        if key not in self._programs:
+            self._programs[key] = self.backend.build_program(
+                self.program, tuple(in_shape), emit_stats=tracer is not None)
+        return self._programs[key]
 
     def run(self, x, tracer: Tracer | None = None):
         """Execute the whole program on input trits x (N, H, W, C) int8.
@@ -128,6 +178,14 @@ class CutiePipeline:
         if x.dim() != 4:
             raise ValueError(f"expected (N, H, W, C) trits, got "
                              f"{tuple(x.shape)}")
+        fn = self._program(x.shape, tracer)
+        if fn is not None:
+            out, counts = fn(self._lowered, x)
+            if tracer is None:
+                return out
+            return out, tracer.finalize_counts(
+                self.program, counts.cpu().numpy(),
+                self.shapes(tuple(x.shape)))
         cur, recs = x, []
         for lw, instr in zip(self._lowered, self.program.layers):
             if tracer is None:

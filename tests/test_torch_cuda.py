@@ -1,4 +1,6 @@
-"""The CUDA conv kernels against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, on the card: the dense
+and packed conv, the trunk megakernel, the trit codec and the
+thermometer.
 
 Run on a machine with an NVIDIA Hopper card:
 
@@ -13,8 +15,11 @@ import pytest
 import torch
 
 from repro_torch.core import codec, engine
+from repro_torch.kernels import fused_trunk as FT
 from repro_torch.kernels import ternary_conv2d as K
-from repro_torch.pipeline import CutiePipeline, SwitchingTracer
+from repro_torch.kernels import trit_codec as TC
+from repro_torch.pipeline import (CutiePipeline, FusedBackend, StatsTracer,
+                                  SwitchingTracer)
 
 pytestmark = pytest.mark.gpu
 
@@ -99,3 +104,133 @@ def test_pipeline_matches_ref_on_card(cuda, backend):
     y, rows = CutiePipeline(prog, backend=backend).run(
         x, tracer=SwitchingTracer())
     assert torch.equal(y, y_ref) and rows == rows_ref
+
+
+# -- the trunk megakernel ----------------------------------------------------
+
+CIFAR_POOLS = (None, None, ("max", 2), None, ("max", 2), None, ("max", 2),
+               ("avg", 4))
+TRUNKS = {
+    "cifar-width": dict(n=2, hw=(32, 32), cin=126, c=128,
+                        metas=[((1, 1), p) for p in CIFAR_POOLS]),
+    "odd-c13-head6": dict(n=3, hw=(11, 9), cin=6, c=13,
+                          metas=[((1, 1), None), ((1, 1), ("max", 2)),
+                                 ((1, 1), None)]),
+    "stride2-avg": dict(n=2, hw=(17, 15), cin=16, c=16,
+                        metas=[((2, 2), None), ((1, 1), ("avg", 2)),
+                               ((1, 1), None)]),
+}
+
+
+def _trunk_operands(rng, dev, *, n, hw, cin, c, metas):
+    nl, cu = len(metas), max(cin, c)
+    w = rng.integers(-1, 2, (nl, 3, 3, cu, c)).astype(np.int8)
+    w[0, :, :, cin:] = 0                     # the head's padded rows
+    t_hi = np.round(rng.uniform(-15, 15, (nl, c)))
+    for l, (_, pool) in enumerate(metas):
+        if pool and pool[0] == "avg":
+            t_hi[l] *= pool[1] ** 2
+    t_lo = t_hi - rng.uniform(0, 20, (nl, c))
+    th = [torch.as_tensor(t_lo, dtype=torch.float32, device=dev),
+          torch.as_tensor(t_hi, dtype=torch.float32, device=dev),
+          torch.as_tensor(rng.random((nl, c)) < 0.4, device=dev),
+          torch.as_tensor(rng.integers(-1, 2, (nl, c)), dtype=torch.int8,
+                          device=dev),
+          torch.as_tensor(rng.random((nl, c)) < 0.2, device=dev)]
+    x = torch.as_tensor(rng.integers(-1, 2, (n, *hw, cin)), dtype=torch.int8,
+                        device=dev)
+    return x, torch.as_tensor(w, device=dev), th
+
+
+@pytest.mark.parametrize("name", sorted(TRUNKS))
+def test_trunk_kernel_matches_plain_on_card(cuda, name):
+    spec = TRUNKS[name]
+    x, w, th = _trunk_operands(np.random.default_rng(20), cuda, **spec)
+    kw = dict(metas=spec["metas"], emit_stats=True)
+    want_y, want_s = FT.fused_trunk_plain(x, w, *th, **kw)
+    before = FT.LAUNCHES["fused_trunk"]
+    y, s = FT.fused_trunk(x, w, *th, **kw)
+    torch.cuda.synchronize()
+    assert FT.LAUNCHES["fused_trunk"] == before + 1
+    assert torch.equal(y, want_y) and torch.equal(s, want_s)
+
+
+def test_trunk_kernel_packed_in_and_out_on_card(cuda):
+    spec = TRUNKS["odd-c13-head6"]
+    x, w, th = _trunk_operands(np.random.default_rng(21), cuda, **spec)
+    metas = spec["metas"]
+    mid = FT.fused_trunk_plain(x, w[:2], *[t[:2] for t in th],
+                               metas=metas[:2])
+    got_b = FT.fused_trunk(x, w[:2], *[t[:2] for t in th], metas=metas[:2],
+                           pack_out=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got_b, codec.pack_trits(mid.cpu()).to(cuda))
+    b_w = w[2:, :, :, :13].contiguous()
+    kw = dict(metas=metas[2:], packed_in=tuple(mid.shape), emit_stats=True)
+    want_y, want_s = FT.fused_trunk_plain(got_b, b_w,
+                                          *[t[2:] for t in th], **kw)
+    y, s = FT.fused_trunk(got_b, b_w, *[t[2:] for t in th], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(y, want_y) and torch.equal(s, want_s)
+
+
+@pytest.mark.parametrize("pack", [True, False])
+def test_fused_pipeline_matches_ref_on_card(cuda, pack):
+    rng = np.random.default_rng(22)
+    layers, cin = [], 15
+    for pool in (None, None, ("max", 2), None, ("avg", 2)):
+        w = torch.as_tensor(rng.standard_normal((3, 3, cin, 16)),
+                            dtype=torch.float32, device=cuda)
+        bn = {"gamma": torch.as_tensor(rng.standard_normal(16) + 0.5,
+                                       dtype=torch.float32, device=cuda)}
+        layers.append(engine.compile_layer(w, bn, pool=pool))
+        cin = 16
+    prog = engine.CutieProgram(layers, engine.CutieInstance(n_i=16, n_o=16))
+    x = torch.as_tensor(rng.integers(-1, 2, (3, 16, 16, 15)),
+                        dtype=torch.int8, device=cuda)
+    y_ref, rows_ref = CutiePipeline(prog, backend="ref").run(
+        x, tracer=StatsTracer())
+    from repro_torch.compiler import trunk_l2_bytes
+    split = FusedBackend(l2_budget=trunk_l2_bytes(layers[:3], x.shape),
+                         pack_boundaries=pack)
+    for be in (FusedBackend(pack_boundaries=pack), split):
+        pipe = CutiePipeline(prog, backend=be)
+        n_fused = sum(s.fused for s in be.plan(prog, x.shape))
+        before = FT.LAUNCHES["fused_trunk"]
+        y, rows = pipe.run(x, tracer=StatsTracer())
+        torch.cuda.synchronize()
+        assert FT.LAUNCHES["fused_trunk"] == before + n_fused
+        assert torch.equal(y, y_ref) and rows == rows_ref
+    assert n_fused == 2
+
+
+# -- the trit codec and the thermometer --------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(3, 1003), (1, 641), (130, 7)])
+def test_codec_kernels_match_plain_on_card(cuda, shape):
+    rng = np.random.default_rng(shape[1])
+    t = torch.as_tensor(rng.integers(-1, 2, shape), dtype=torch.int8,
+                        device=cuda)
+    before = dict(TC.LAUNCHES)
+    b = TC.pack_trits(t)
+    back = TC.unpack_trits(b)
+    torch.cuda.synchronize()
+    assert TC.LAUNCHES["pack_trits"] == before["pack_trits"] + 1
+    assert TC.LAUNCHES["unpack_trits"] == before["unpack_trits"] + 1
+    assert torch.equal(b, TC.pack_trits_plain(t))
+    assert torch.equal(back, TC.unpack_trits_plain(b))
+    assert torch.equal(back[:, :shape[1]], t)
+
+
+@pytest.mark.parametrize("ternary", [True, False])
+def test_thermometer_kernel_matches_plain_on_card(cuda, ternary):
+    rng = np.random.default_rng(23)
+    m = 42
+    x = torch.as_tensor(rng.integers(0, 2 * m + 1, (5, 7, 3)),
+                        dtype=torch.int32, device=cuda)
+    before = TC.LAUNCHES["thermometer"]
+    got = TC.thermometer(x, m, ternary=ternary)
+    torch.cuda.synchronize()
+    assert TC.LAUNCHES["thermometer"] == before + 1
+    assert torch.equal(got, TC.thermometer_plain(x, m, ternary=ternary))

@@ -163,8 +163,9 @@ def test_pipeline_introspection_matches():
 def test_unported_surfaces_name_their_roadmap_item():
     pipe, r = _port("uniform", "ref")
     prog = pipe.program
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*fused_trunk"):
-        CutiePipeline(prog, backend="fused", device="cpu")
+    # ``fused`` is ported now (tests/test_torch_fused.py)
+    assert CutiePipeline(prog, backend="fused",
+                         device="cpu").backend_name == "fused"
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*cutie_mesh"):
         CutiePipeline(prog, device="cpu", mesh=8)
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*compiler"):
