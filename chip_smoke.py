@@ -7,14 +7,18 @@ Phases, each of which fails the script (no result line) when it fails:
 
 1. the card's name and power limit, from nvidia-smi;
 2. build every kernel from `src/repro_torch/csrc/` with nvcc (sm_90a);
-3. hold each kernel bit for bit against its plain PyTorch version on the
-   card: the conv kernels on the full-width CIFAR layer shapes plus
-   odd-channel, stride-2/3, unpadded, raw-int32 and const-channel cases;
+3. hold each kernel against its plain PyTorch version on the card: the
+   conv kernels on the full-width CIFAR layer shapes plus odd-channel,
+   stride-2/3, unpadded, raw-int32 and const-channel cases;
    the trunk megakernel on the full CIFAR trunk at batch 64, its two-trunk
    split through a packed boundary, odd C = 13 with a head Cin of 6, and
    stride 2 + avg pool; the codec and thermometer kernels at the main
    path's shapes and at lengths that are not a multiple of 5 x 128;
-   counters included;
+   counters included; the packed ternary matmul (every epilogue, int8 and
+   bf16 x, M in {1, 4, 37, 128}, ragged N, a logical K that is not a
+   multiple of 5, and the seven llama3.2-1B projections at M = 4 and 64)
+   and the dense int8 matmul: int8 x bit for bit, bf16 x within the
+   tolerances stated below;
 4. the main path: the paper's CIFAR-10 network (Table III, full width:
    126 -> 128 channels, 32 x 32, 8 layers, max-pools after layers 2, 4, 6
    and avg-pool 4 after layer 7) compiled with `engine.compile_layer`
@@ -26,11 +30,24 @@ Phases, each of which fails the script (no result line) when it fails:
    backend's on the same card, each conv kernel's launch count must grow
    by 8 per run, the trunk kernel's by 1 (2 when split) with no conv
    launch; then the codec entry points pack and unpack the split's
-   boundary trits, which must equal the trunk kernel's own packed bytes;
+   boundary trits, which must equal the trunk kernel's own packed bytes.
+   Then the second main path, LLM serving: llama3.2-1B at full width and
+   depth with ``quant="ternary_packed"``, seeded random weights on the
+   card, 8 requests of 40 tokens (a shared 32-token prefix + 8 distinct)
+   through `CutieEngine` + `LLMExecutor` with the default `ServerConfig`
+   (paged, 4 slots, max_len 256, block 16, greedy), 16 new tokens each:
+   every request must return 16 tokens, the prefix cache must hit, the
+   packed matmul kernel must launch 7 x 16 times per model forward
+   (prefill or decode step), the same requests served contiguous must give
+   the same tokens, and one prefill's logits with the plain matmul must
+   agree with the kernel's within ``LOGIT_TOL``;
 5. time the whole program (`run`, `measure`) per backend on the host
    clock, then each kernel at the main path's shapes beside its bound, its
    plain version and, where one PyTorch call computes the same function,
-   that call (f32 `F.conv2d`) as a library yardstick.
+   that call as a library yardstick (f32 `F.conv2d`; bf16 `torch.matmul`
+   on pre-decoded weights; `torch._int_mm`); then the serving times
+   (decode step, prefill, tokens/s, latency p50/p99) of the LLM path and
+   of the same requests on ``quant="none"``, the bf16 baseline.
 
 The line before the last is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a card, and
@@ -53,6 +70,7 @@ BATCH = 64
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12           # H100 SXM dense int8 tensor-core peak
+BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor-core peak
 SOURCE = {
     "ternary_conv2d": "src/repro_torch/csrc/ternary_conv2d.cu",
     "ternary_conv2d_packed": "src/repro_torch/csrc/ternary_conv2d.cu",
@@ -60,6 +78,8 @@ SOURCE = {
     "pack_trits": "src/repro_torch/csrc/trit_codec.cu",
     "unpack_trits": "src/repro_torch/csrc/trit_codec.cu",
     "thermometer": "src/repro_torch/csrc/trit_codec.cu",
+    "ternary_matmul": "src/repro_torch/csrc/ternary_matmul.cu",
+    "ternary_matmul_dense": "src/repro_torch/csrc/ternary_matmul.cu",
 }
 REPLACES = {
     "ternary_conv2d": "src/repro/kernels/ternary_conv2d.py:223",
@@ -68,12 +88,30 @@ REPLACES = {
     "pack_trits": "src/repro/kernels/trit_codec.py:65",
     "unpack_trits": "src/repro/kernels/trit_codec.py:86",
     "thermometer": "src/repro/kernels/trit_codec.py:116",
+    "ternary_matmul": "src/repro/kernels/ternary_matmul.py:90",
+    "ternary_matmul_dense": "src/repro/kernels/ternary_matmul.py:159",
 }
 SPLIT_AT = 4                       # the two-trunk split: layers [0, 4), [4, 8)
 # (op, pool) per layer of paper Table III (repro.configs.cutie_cnn.layout)
 CIFAR_POOLS = (None, None, ("max", 2), None, ("max", 2), None, ("max", 2),
                ("avg", 4))
 CIFAR_CIN, CIFAR_WIDTH, CIFAR_HW, THERMO_M = 126, 128, 32, 42
+# the LLM path: llama3.2-1B at full width and depth, ternary_packed, served
+# with the default ServerConfig (paged, 4 slots, max_len 256, block 16)
+LLM_ARCH, LLM_REQUESTS, LLM_PREFIX, LLM_PROMPT, LLM_NEW = (
+    "llama3.2-1b", 8, 32, 40, 16)
+DECODE_M, PREFILL_M = 4, 64        # n_slots; bucket of a 40-token prompt
+# (name, K, N) of one layer's seven packed projections
+LLM_PROJ = (("q", 2048, 2048), ("k", 2048, 512), ("v", 2048, 512),
+            ("o", 2048, 2048), ("gate", 2048, 8192), ("up", 2048, 8192),
+            ("down", 8192, 2048))
+# Tolerances for float x (int8 x must be bit-identical): the kernel sums
+# the same exact f32 products as the plain version in another order, so a
+# bf16 output may round one ulp apart (2**-7 of the output's largest
+# magnitude) and an f32 output within 1e-5 of it.  Whole-model logits of
+# one prefill (16 layers, each rounding its activations to bf16) within
+# LOGIT_TOL absolute.
+BF16_OUT_TOL, F32_OUT_TOL, LOGIT_TOL = 2.0 ** -7, 1e-5, 0.125
 
 
 def log(msg: str) -> None:
@@ -253,6 +291,97 @@ def compare_new_kernels(torch, FT, TC, worst: dict) -> None:
         "bit-identical to the plain versions (outputs and counters)")
 
 
+def _mm_case(rng, torch, m, k, n, xdt, ep):
+    """x, w_packed and the epilogue operands of one matmul case."""
+    dev = DEVICE
+    if xdt == "int8":
+        x = torch.as_tensor(rng.integers(-1, 2, (m, k)), dtype=torch.int8)
+    else:
+        x = torch.as_tensor(rng.standard_normal((m, k)),
+                            dtype=torch.float32).to(torch.bfloat16)
+    wp = torch.as_tensor(rng.integers(0, 243, (-(-k // 5), n)),
+                         dtype=torch.uint8)
+    f32 = dict(dtype=torch.float32, device=dev)
+    kw = {}
+    if ep == "scale":
+        kw["scale"] = torch.as_tensor(rng.uniform(0.01, 0.05, n), **f32)
+    elif ep == "threshold":
+        t_hi = np.round(rng.uniform(-8, 8, n))
+        kw = dict(t_lo=torch.as_tensor(t_hi - rng.uniform(0, 10, n), **f32),
+                  t_hi=torch.as_tensor(t_hi, **f32),
+                  flip=torch.as_tensor(rng.random(n) < 0.4, device=dev))
+    return x.to(dev), wp.to(dev), kw
+
+
+def compare_matmul_kernels(torch, MM, worst: dict) -> None:
+    """Kernels 7 and 8 against their plain versions on the card: every
+    epilogue, int8 and bf16 x, M in {1, 4, 37, 128}, ragged N and a logical
+    K that is not a multiple of 5, then the seven llama projections at the
+    decode and prefill M.  Int8 x bit-identical; bf16 x within the stated
+    tolerance (a threshold may flip a trit whose sum lies within rounding
+    of it: at most 1 in 1000)."""
+    rng = np.random.default_rng(SEED + 5)
+    cases = [(m, 1001, 77, xdt, ep) for m in (1, 4, 37, 128)
+             for xdt in ("int8", "bfloat16")
+             for ep in ("none", "scale", "threshold")]
+    cases += [(m, k, n, xdt, "scale") for m in (DECODE_M, PREFILL_M)
+              for _, k, n in LLM_PROJ for xdt in ("int8", "bfloat16")]
+    rel = {"bfloat16": 0.0, "float32": 0.0}
+    flips = 0.0
+    for m, k, n, xdt, ep in cases:
+        x, wp, kw = _mm_case(rng, torch, m, k, n, xdt, ep)
+        got = MM.ternary_matmul(x, wp, **kw)
+        want = MM.ternary_matmul_plain(x, wp, **kw)
+        sync(torch)
+        what = f"ternary_matmul {xdt} x ({m}, {k}) N {n} epilogue {ep}"
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise RuntimeError(f"{what}: {got.dtype} {tuple(got.shape)}, "
+                               f"want {want.dtype} {tuple(want.shape)}")
+        err = float((got.double() - want.double()).abs().max())
+        worst["ternary_matmul"] = max(worst["ternary_matmul"], err)
+        if xdt == "int8":
+            if err != 0:
+                raise RuntimeError(f"{what} differs: max |err| {err}")
+        elif ep == "threshold":
+            share = float((got != want).double().mean())
+            flips = max(flips, share)
+            if share > 1e-3:
+                raise RuntimeError(f"{what}: {share} of trits flipped")
+        else:
+            scale = float(want.double().abs().max())
+            tol = (BF16_OUT_TOL if got.dtype == torch.bfloat16
+                   else F32_OUT_TOL)
+            key = "bfloat16" if got.dtype == torch.bfloat16 else "float32"
+            rel[key] = max(rel[key], err / scale)
+            if err > tol * scale:
+                raise RuntimeError(f"{what}: max |err| {err} > {tol} x "
+                                   f"{scale}")
+    dense = [(m, 1001, 77) for m in (1, 4, 37, 128)]
+    dense += [(m, k, n) for m in (DECODE_M, PREFILL_M)
+              for _, k, n in LLM_PROJ]
+    for m, k, n in dense:
+        x = torch.as_tensor(rng.integers(-128, 128, (m, k)), dtype=torch.int8,
+                            device=DEVICE)
+        w = torch.as_tensor(rng.integers(-1, 2, (k, n)), dtype=torch.int8,
+                            device=DEVICE)
+        got = MM.ternary_matmul_dense(x, w)
+        want = MM.ternary_matmul_dense_plain(x, w)
+        sync(torch)
+        err = _err(torch, got, want)
+        worst["ternary_matmul_dense"] = max(worst["ternary_matmul_dense"],
+                                            err)
+        if got.dtype != torch.int32 or err != 0:
+            raise RuntimeError(f"ternary_matmul_dense ({m}, {k}) N {n}: "
+                               f"max |err| {err}")
+    log(f"phase 3: ternary_matmul on {len(cases)} cases: int8 x "
+        "bit-identical; bf16 x worst |err| / max|out| "
+        f"{rel['bfloat16']!r} (bf16 out, tolerance {BF16_OUT_TOL!r}), "
+        f"{rel['float32']!r} (f32 out, tolerance {F32_OUT_TOL!r}), threshold "
+        f"flips at most {flips!r}; worst absolute error "
+        f"{worst['ternary_matmul']!r}; ternary_matmul_dense on {len(dense)} "
+        "cases bit-identical")
+
+
 # -- phase 4: the main path --------------------------------------------------
 
 
@@ -425,6 +554,121 @@ def _trunk_operands(torch, layers):
                  for f in ("t_lo", "t_hi", "flip", "const", "is_const")])
 
 
+def llm_prompts(cfg) -> list:
+    """8 prompts of 40 tokens: one shared 32-token prefix + 8 distinct."""
+    rng = np.random.default_rng(SEED + 6)
+    prefix = rng.integers(0, cfg.vocab, LLM_PREFIX)
+    return [np.concatenate([prefix, rng.integers(0, cfg.vocab,
+                                                 LLM_PROMPT - LLM_PREFIX)])
+            for _ in range(LLM_REQUESTS)]
+
+
+def llm_params(torch, TF, cfg):
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED)
+    return TF.init_params(cfg, gen)
+
+
+def serve(torch, S, params, cfg, prompts, **scfg) -> dict:
+    """The requests through CutieEngine + LLMExecutor; returns tokens,
+    stats, host-clock seconds and the trace's prefill/decode spans."""
+    eng = S.CutieEngine("fcfs")
+    ex = S.LLMExecutor(params, cfg, S.ServerConfig(max_new_tokens=LLM_NEW,
+                                                   **scfg))
+    eng.register("llm", ex)
+    hs = [eng.submit(pr, model="llm") for pr in prompts]
+    sync(torch)
+    t0 = time.perf_counter()
+    out = eng.run()
+    sync(torch)
+    secs = time.perf_counter() - t0
+    spans: dict = {"prefill": [], "decode": []}
+    open_: dict = {}
+    for ev in eng.trace_export()["traceEvents"]:
+        key = (ev["name"], ev.get("tid"))
+        if ev["name"] not in spans:
+            continue
+        if ev["ph"] == "B":
+            open_[key] = ev["ts"]
+        elif ev["ph"] == "E":
+            spans[ev["name"]].append((ev["ts"] - open_.pop(key)) / 1e3)
+    return {"tokens": [out[h.uid] for h in hs], "executor": ex,
+            "stats": eng.stats(), "seconds": secs, "spans": spans}
+
+
+def llm_main_path(torch, MM, TC, S, TF, DEC, C, configs) -> dict:
+    """llama3.2-1B, ternary_packed, full width and depth, served through
+    CutieEngine + LLMExecutor on the card: tokens, prefix hits and kernel
+    7's launch count, then paged against contiguous, then one prefill
+    with the plain matmul against the kernel."""
+    cfg = configs.get(LLM_ARCH).replace(quant="ternary_packed",
+                                        attn_kv_chunk=16)
+    params = llm_params(torch, TF, cfg)
+    prompts = llm_prompts(cfg)
+    sync(torch)
+    reset_launches(MM, TC)
+    paged = serve(torch, S, params, cfg, prompts)
+    sync(torch)
+    launches = dict(MM.LAUNCHES)
+    st = paged["stats"]["paged_state"]["llm"]
+    forwards = st["prefills"] + st["decode_steps"]
+    want = 7 * cfg.n_layers * forwards if DEVICE == "cuda" else 0
+    lens = [len(t) for t in paged["tokens"]]
+    if lens != [LLM_NEW] * LLM_REQUESTS:
+        raise RuntimeError(f"llm: token counts {lens}, want {LLM_NEW} each")
+    if not st["prefix_hit_rate"] > 0:
+        raise RuntimeError(f"llm: prefix_hit_rate {st['prefix_hit_rate']}")
+    if launches["ternary_matmul"] != want or \
+            launches["ternary_matmul_dense"] or any(TC.LAUNCHES.values()):
+        raise RuntimeError(f"llm: launches {launches} {TC.LAUNCHES}, want "
+                           f"ternary_matmul = 7 x {cfg.n_layers} x "
+                           f"{forwards} forwards = {want}")
+    log(f"phase 4: llm {cfg.name} ternary_packed (d_model {cfg.d_model}, "
+        f"{cfg.n_layers} layers, vocab {cfg.vocab}): {LLM_REQUESTS} requests "
+        f"x {LLM_PROMPT} tokens -> {LLM_NEW} tokens each; prefix_hit_rate "
+        f"{st['prefix_hit_rate']!r}, prefill tokens computed "
+        f"{st['prefill_tokens_computed']} of {st['prefill_tokens']}; "
+        f"{st['prefills']} prefills + {st['decode_steps']} decode steps; "
+        f"ternary_matmul launched {launches['ternary_matmul']} times "
+        f"(7 x {cfg.n_layers} x {forwards})")
+    contiguous = serve(torch, S, params, cfg, prompts, paged=False)
+    if contiguous["tokens"] != paged["tokens"]:
+        raise RuntimeError("llm: paged and contiguous tokens differ")
+    log("phase 4: llm paged and contiguous serving: tokens identical "
+        f"(first request {paged['tokens'][0]})")
+    # one prefill with the plain matmul on the card against the kernel
+    toks = torch.as_tensor(np.pad(prompts[0], (0, PREFILL_M - LLM_PROMPT))
+                           [None], device=DEVICE)
+    empty = {n: torch.zeros((cfg.n_layers, 1, 0, cfg.n_kv, cfg.d_head),
+                            dtype=torch.bfloat16, device=DEVICE)
+             for n in ("k", "v")}
+    lg, _ = DEC.prefill_with_prefix(params, toks, empty, cfg)
+
+    class _Plain:                  # `linear` reaches the plain version
+        ternary_matmul = staticmethod(MM.ternary_matmul_plain)
+
+    saved, C._mm = C._mm, _Plain
+    try:
+        lg_plain, _ = DEC.prefill_with_prefix(params, toks, empty, cfg)
+    finally:
+        C._mm = saved
+    sync(torch)
+    a = lg[0, :LLM_PROMPT, :cfg.vocab].double()
+    b = lg_plain[0, :LLM_PROMPT, :cfg.vocab].double()
+    err = float((a - b).abs().max())
+    if not (bool(torch.isfinite(a).all()) and err <= LOGIT_TOL):
+        raise RuntimeError(f"llm: kernel and plain prefill logits differ by "
+                           f"{err} (tolerance {LOGIT_TOL})")
+    same = float((a.argmax(-1) == b.argmax(-1)).double().mean())
+    log(f"phase 4: llm prefill of {LLM_PROMPT} tokens (bucket {PREFILL_M}) "
+        f"with the plain matmul on the card: logits max |err| {err!r} "
+        f"(tolerance {LOGIT_TOL}, max |logit| {float(b.abs().max())!r}), "
+        f"argmax equal on {same!r} of positions")
+    return {"cfg": cfg, "params": params, "prompts": prompts,
+            "paged": paged, "contiguous": contiguous,
+            "launches": launches["ternary_matmul"], "logit_err": err}
+
+
 # -- phase 5: timing ---------------------------------------------------------
 
 
@@ -470,6 +714,23 @@ def timed(torch, fn, reps: int = 20) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def device_ms(torch, fn, name_part: str, reps: int = 10):
+    """Mean device time in ms per call of ``fn`` of the kernels whose name
+    holds ``name_part``, from a torch.profiler trace (CUPTI); None when the
+    trace shows no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if name_part in e.key)
+    return us / reps / 1e3 if us else None
 
 
 def _record(name, launches, worst, ms, plain_ms, bytes_ms, ops_ms,
@@ -613,6 +874,158 @@ def time_new_kernels(torch, FT, TC, mp, card: str, worst: dict,
     return out
 
 
+def time_matmul_kernels(torch, MM, llm, card: str, worst: dict
+                        ) -> list[dict]:
+    """Kernels 7 and 8 at each projection shape, at the decode M and the
+    prefill bucket's M, beside their bounds, plain versions and a library
+    call.  The JSON records sum one forward's 7 x n_layers projections:
+    kernel 7 at the decode M (one decode step), kernel 8 (no caller on the
+    path) at the prefill M, where `torch._int_mm` applies."""
+    from repro_torch.kernels import ref as R
+
+    rng = np.random.default_rng(SEED + 7)
+    n_layers = llm["cfg"].n_layers
+    layer = llm["params"]["layers"][0]
+    packed = {"q": layer["attn"]["wq"], "k": layer["attn"]["wk"],
+              "v": layer["attn"]["wv"], "o": layer["attn"]["wo"],
+              "gate": layer["mlp"]["gate"], "up": layer["mlp"]["up"],
+              "down": layer["mlp"]["down"]}
+    tot = {(name, m): {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                       "bytes_ms": 0.0, "ops_ms": 0.0, "device_ms": 0.0,
+                       "lib_null": False}
+           for name in ("ternary_matmul", "ternary_matmul_dense")
+           for m in (DECODE_M, PREFILL_M)}
+    log(f"phase 5: matmul ms per call at the llama projection shapes on "
+        f"{card} (CUDA events, mean of 20 after 3 warm-up calls, L2 warm)")
+    for pname, k, n in LLM_PROJ:
+        p = packed[pname]
+        wp = p["w_packed"]
+        alpha = p["scale"].to(torch.bfloat16).float()
+        # the library yardstick's weights: trits * bf16(alpha), decoded once
+        w_dec = (R.unpack_trits(wp.T).T[:k].to(torch.bfloat16)
+                 * alpha.to(torch.bfloat16))
+        w8 = torch.as_tensor(rng.integers(-1, 2, (k, n)), dtype=torch.int8,
+                             device=DEVICE)
+        for m in (DECODE_M, PREFILL_M):
+            x = torch.as_tensor(rng.standard_normal((m, k)),
+                                dtype=torch.float32,
+                                device=DEVICE).to(torch.bfloat16)
+            x8 = torch.as_tensor(rng.integers(-1, 2, (m, k)),
+                                 dtype=torch.int8, device=DEVICE)
+            ops = 2 * m * k * n
+            try:
+                torch._int_mm(x8, w8)
+                int_mm = (lambda: torch._int_mm(x8, w8))
+            except RuntimeError:
+                int_mm = None
+            runs = {
+                "ternary_matmul": (
+                    lambda: MM.ternary_matmul(x, wp, scale=alpha),
+                    lambda: MM.ternary_matmul_plain(x, wp, scale=alpha),
+                    lambda: torch.matmul(x, w_dec),
+                    wp.numel() + 2 * m * k + 2 * m * n + 4 * n,
+                    ops / BF16_OPS_PER_S * 1e3, "torch.matmul bf16 x @ "
+                    "pre-decoded bf16 trits*alpha"),
+                "ternary_matmul_dense": (
+                    lambda: MM.ternary_matmul_dense(x8, w8),
+                    lambda: MM.ternary_matmul_dense_plain(x8, w8),
+                    int_mm, k * n + m * k + 4 * m * n,
+                    ops / INT8_OPS_PER_S * 1e3, "torch._int_mm"),
+            }
+            for name, (kern, plain, lib, nbytes, o_ms, lib_what) in \
+                    runs.items():
+                ms, pms = timed(torch, kern), timed(torch, plain)
+                dev = device_ms(torch, kern, "matmul_kernel")
+                lms = timed(torch, lib) if lib is not None else None
+                b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                t = tot[(name, m)]
+                t["ms"] += n_layers * ms
+                t["plain_ms"] += n_layers * pms
+                t["bytes_ms"] += n_layers * b_ms
+                t["ops_ms"] += n_layers * o_ms
+                if lms is None:
+                    t["lib_null"] = True
+                else:
+                    t["library_ms"] += n_layers * lms
+                t["device_ms"] += n_layers * (
+                    dev if dev is not None else float("nan"))
+                log(f"  {name} {pname} ({m}, {k}) x ({k}, {n}): ms {ms!r} "
+                    f"(device only {dev!r}, torch.profiler) "
+                    f"plain_ms {pms!r} library_ms {lms!r} ({lib_what}"
+                    f"{'' if lms is not None else ': shape not accepted'}) "
+                    f"bound_ms {max(b_ms, o_ms)!r} "
+                    f"({'bytes' if b_ms > o_ms else 'operations'}: {nbytes} "
+                    f"B, {ops} ops)")
+    out = []
+    for (name, m), t in tot.items():
+        per = (f"one forward's {7 * n_layers} projections at M = {m}")
+        log(f"phase 5: {name} summed over {per}: ms {t['ms']!r} (device "
+            f"only {t['device_ms']!r}) plain_ms "
+            f"{t['plain_ms']!r} library_ms "
+            f"{None if t['lib_null'] else t['library_ms']!r} bound_ms "
+            f"{max(t['bytes_ms'], t['ops_ms'])!r} ({card})")
+        if (name, m) in (("ternary_matmul", DECODE_M),
+                         ("ternary_matmul_dense", PREFILL_M)):
+            launches = llm["launches"] if name == "ternary_matmul" else 0
+            out.append(_record(name, launches, worst[name], t["ms"],
+                               t["plain_ms"], t["bytes_ms"], t["ops_ms"],
+                               None if t["lib_null"] else t["library_ms"]))
+    return out
+
+
+def _serving_line(label: str, run: dict, card: str) -> None:
+    st = run["stats"]
+    toks = sum(len(t) for t in run["tokens"])
+    dec = run["spans"]["decode"]
+    pre = run["spans"]["prefill"]
+    lat = st["latency"]
+    log(f"phase 5: serving {label}: {LLM_REQUESTS} requests, {toks} tokens "
+        f"in {run['seconds']!r} s ({toks / run['seconds']!r} tokens/s); "
+        f"decode step ms median {float(np.median(dec))!r} (min {min(dec)!r}, "
+        f"{len(dec)} steps); prefill ms median {float(np.median(pre))!r} "
+        f"(first {pre[0]!r}, {len(pre)} prefills); latency p50 "
+        f"{lat['p50']!r} s p99 {lat['p99']!r} s (host clock, {card})")
+
+
+def serving_profile(torch, S, params, cfg, prompts, card: str) -> None:
+    """One more ternary_packed run under torch.profiler (CUDA activity):
+    the device's busy share of the run's host-clock time, and the kernels
+    that take the device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run = serve(torch, S, params, cfg, prompts)
+    ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in ev) / 1e6
+    log(f"phase 5: serving ternary_packed paged under torch.profiler: "
+        f"{run['seconds']!r} s host clock, device busy {busy!r} s "
+        f"({busy / run['seconds']!r} of it; idle share "
+        f"{1 - busy / run['seconds']!r}); {card}")
+    for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  device {e.self_device_time_total / 1e3!r} ms in {e.count} "
+            f"calls: {e.key[:90]}")
+
+
+def serving_numbers(torch, S, TF, llm, card: str) -> None:
+    """The main path's serving times, a second ternary_packed run (warm),
+    and the same requests on quant="none", the bf16 baseline the
+    reference's examples/serve_ternary.py also serves."""
+    cfg, params, prompts = llm["cfg"], llm["params"], llm["prompts"]
+    _serving_line("ternary_packed paged (first run)", llm["paged"], card)
+    _serving_line("ternary_packed contiguous", llm["contiguous"], card)
+    warm = serve(torch, S, params, cfg, prompts)
+    _serving_line("ternary_packed paged (second run)", warm, card)
+    serving_profile(torch, S, params, cfg, prompts, card)
+    base_cfg = cfg.replace(quant="none")
+    base_params = llm_params(torch, TF, base_cfg)
+    for i in range(2):
+        base = serve(torch, S, base_params, base_cfg, prompts)
+        _serving_line(f"bf16 baseline quant='none' paged (run {i + 1})",
+                      base, card)
+    del base_params
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -622,14 +1035,19 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch.nn.functional as F
 
-    from repro_torch import compiler
+    from repro_torch import compiler, configs
     from repro_torch import pipeline as P
+    from repro_torch import serving as S
     from repro_torch.core import codec, engine, thermometer
     from repro_torch.kernels import _build
     from repro_torch.kernels import fused_trunk as FT
     from repro_torch.kernels import ops
     from repro_torch.kernels import ternary_conv2d as K
+    from repro_torch.kernels import ternary_matmul as MM
     from repro_torch.kernels import trit_codec as TC
+    from repro_torch.models import common as C
+    from repro_torch.models import decoding as DEC
+    from repro_torch.models import transformer as TF
 
     t0 = time.perf_counter()
     card = card_line()
@@ -646,12 +1064,16 @@ def main() -> int:
 
     worst = compare_kernels(torch, K, codec)
     compare_new_kernels(torch, FT, TC, worst)
+    compare_matmul_kernels(torch, MM, worst)
     mp = main_path(torch, K, FT, TC, ops, engine, thermometer, compiler, P)
+    llm = llm_main_path(torch, MM, TC, S, TF, DEC, C, configs)
     program_latency(torch, P, mp, card)
     kernels, conv_lib_ms = time_kernels(torch, F, K, codec, engine, mp, card,
                                         worst)
     kernels += time_new_kernels(torch, FT, TC, mp, card, worst, conv_lib_ms)
-    reset_launches(K, FT, TC)              # timing launches are not counted
+    kernels += time_matmul_kernels(torch, MM, llm, card, worst)
+    serving_numbers(torch, S, TF, llm, card)
+    reset_launches(K, FT, TC, MM)          # timing launches are not counted
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

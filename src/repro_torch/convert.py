@@ -1,8 +1,10 @@
-"""Carry a compiled program across from plain arrays.
+"""Carry a compiled program or an LLM's parameters across from plain
+arrays.
 
 A `CutieProgram` of the reference package, exported as numpy arrays per
-layer, becomes the port's program, so both packages compute the same
-thing from the same weights and thresholds.
+layer, becomes the port's program; an LLM parameter tree exported as
+numpy arrays becomes the port's parameter dict.  Both packages then
+compute the same thing from the same weights.
 """
 
 from __future__ import annotations
@@ -54,3 +56,46 @@ def program_from_numpy(layers, instance, device=None
     prog = engine.CutieProgram(out, instance)
     prog.validate()
     return prog
+
+
+def _tensor(a, dev) -> torch.Tensor:
+    """One numpy leaf -> a tensor on ``dev``; bfloat16 arrays (numpy's
+    extension type) cross bit for bit through their 16-bit pattern."""
+    a = np.array(a)                       # a writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(dev)
+    return torch.as_tensor(a, device=dev)
+
+
+def _tree(node, dev):
+    if isinstance(node, Mapping):
+        return {k: _tree(v, dev) for k, v in node.items()}
+    return _tensor(node, dev)
+
+
+def _unstack(node, n: int) -> list:
+    """A tree of tensors stacked on a leading axis of ``n`` -> ``n`` trees."""
+    if isinstance(node, Mapping):
+        parts = {k: _unstack(v, n) for k, v in node.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    if node.shape[0] != n:
+        raise ValueError(f"a layer leaf stacks {node.shape[0]} layers, the "
+                         f"config has {n}")
+    return list(node.unbind(0))
+
+
+def llm_params_from_numpy(tree, cfg, device=None) -> dict:
+    """The reference's LLM ``init_params`` tree, as numpy arrays, -> the
+    port's parameters (`repro_torch.models.transformer`).
+
+    The reference stacks each layer leaf on a leading ``n_layers`` axis;
+    the port keeps a list of per-layer dicts.  Tensors go to
+    ``resolve_device(device)``; dtypes and bytes are kept.
+    """
+    from repro_torch.models import transformer as TF
+
+    TF.require_ported(cfg)
+    dev = resolve_device(device)
+    out = {k: _tree(v, dev) for k, v in tree.items() if k != "layers"}
+    out["layers"] = _unstack(_tree(tree["layers"], dev), cfg.n_layers)
+    return out

@@ -34,6 +34,19 @@ def unpack_trits(b: torch.Tensor, n: int) -> torch.Tensor:
     return _tc.unpack_trits(b.reshape(1, -1)).reshape(-1)[:n]
 
 
+def pack_rows(t: torch.Tensor) -> torch.Tensor:
+    """(R, W) trits -> (R, ceil(W / 5)) uint8, each row on its own, its
+    tail padded with trit 0: the layout of packed linear weights (rows =
+    output columns) and of trit KV rows."""
+    return _tc.pack_trits(t)
+
+
+def unpack_rows(b: torch.Tensor) -> torch.Tensor:
+    """Inverse of `pack_rows` before the tail is cut: (R, G) uint8 ->
+    (R, 5G) int8 trits."""
+    return _tc.unpack_trits(b)
+
+
 def pack_filter_rows(w: torch.Tensor) -> torch.Tensor:
     """(K, K, Cin, Cout) trits -> (Cout, ceil(K*K*Cin/5)) packed rows.
 

@@ -1,5 +1,5 @@
-"""Plain PyTorch oracles for the kernel package: the conv, the trit codec
-and the thermometer encoder."""
+"""Plain PyTorch oracles for the kernel package: the ternary matmul, the
+conv, the trit codec and the thermometer encoder."""
 
 from __future__ import annotations
 
@@ -33,6 +33,46 @@ def unpack_trits(b: torch.Tensor) -> torch.Tensor:
     d = torch.stack(digits, dim=-1) - 1
     return d.reshape(*b.shape[:-1], b.shape[-1] * TRITS_PER_BYTE).to(
         torch.int8)
+
+
+def _int_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """int8 x int8 -> int32 product.  float64 holds every partial sum of
+    int8 products exactly (|sum| < 2**53), and runs on both devices."""
+    return (x.to(torch.int8).to(torch.float64)
+            @ w.to(torch.int8).to(torch.float64)).to(torch.int32)
+
+
+def ternary_matmul(x: torch.Tensor, w_packed: torch.Tensor, *, scale=None,
+                   t_lo=None, t_hi=None, flip=None) -> torch.Tensor:
+    """x (M, K) @ unpack(w_packed) (K, N), K = 5 * w_packed.shape[0].
+
+    Epilogues (mutually exclusive, thresholds first):
+      * scale - out = acc * scale (TWN serving path; out dtype = x dtype
+        for floats, f32 for int accum),
+      * t_lo/t_hi/flip - two-threshold ternarize (TNN path; int8 trits).
+    No epilogue: raw accumulator (int32 for integer x, f32 otherwise).
+    """
+    k5 = w_packed.shape[0]
+    if x.shape[-1] != k5 * TRITS_PER_BYTE:
+        raise ValueError(f"x has K = {x.shape[-1]}, w_packed decodes to "
+                         f"{k5 * TRITS_PER_BYTE} rows")
+    w = unpack_trits(w_packed.T).T                     # (K, N) trits
+    if x.is_floating_point():
+        # bf16/f16 products are exact in f32: an f32 accumulation
+        acc = x.to(torch.float32) @ w.to(torch.float32)
+    else:
+        acc = _int_matmul(x, w)
+    if t_lo is not None:
+        return two_threshold(acc, t_lo, t_hi, flip)
+    if scale is not None:
+        out = acc.to(torch.float32) * scale.to(torch.float32)
+        return out.to(x.dtype if x.is_floating_point() else torch.float32)
+    return acc
+
+
+def ternary_matmul_dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Unpacked trit matmul oracle (int8 x int8 -> int32)."""
+    return _int_matmul(x, w)
 
 
 def ternary_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride=(1, 1),

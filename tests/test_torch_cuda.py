@@ -234,3 +234,115 @@ def test_thermometer_kernel_matches_plain_on_card(cuda, ternary):
     torch.cuda.synchronize()
     assert TC.LAUNCHES["thermometer"] == before + 1
     assert torch.equal(got, TC.thermometer_plain(x, m, ternary=ternary))
+
+
+# -- the ternary matmul kernels (packed and dense) ----------------------------
+
+MM_SHAPES = [(1, 2048, 2048), (4, 2050, 512), (37, 1001, 77), (128, 645, 130),
+             (4, 8192, 2048)]
+MM_CASES = [(shape, xdt, ep) for shape in MM_SHAPES
+            for xdt in ("int8", "bfloat16", "float32")
+            for ep in ("none", "scale", "threshold")]
+
+
+def _mm_operands(rng, dev, m, k, n, xdt):
+    k5 = -(-k // 5)
+    if xdt == "int8":
+        x = torch.as_tensor(rng.integers(-1, 2, (m, k)), dtype=torch.int8)
+    else:
+        x = torch.as_tensor(rng.standard_normal((m, k)),
+                            dtype=getattr(torch, xdt))
+    wp = torch.as_tensor(rng.integers(0, 243, (k5, n)), dtype=torch.uint8)
+    return x.to(dev), wp.to(dev)
+
+
+@pytest.mark.parametrize("shape,xdt,ep", MM_CASES,
+                         ids=[f"{s[0]}x{s[1]}x{s[2]}-{x}-{e}"
+                              for s, x, e in MM_CASES])
+def test_ternary_matmul_kernel_matches_plain_on_card(cuda, shape, xdt, ep):
+    """Int8 x: bit-identical.  Float x: the f32 sums run in another
+    order, so within 1e-5 of the output scale (f32 out) or one bf16 ulp
+    at that scale (2**-7 of it, bf16 out); a threshold epilogue may flip a
+    trit whose sum lies within rounding of its threshold."""
+    from repro_torch.kernels import ternary_matmul as MM
+
+    m, k, n = shape
+    rng = np.random.default_rng(m * 7 + n)
+    x, wp = _mm_operands(rng, cuda, m, k, n, xdt)
+    f32 = dict(dtype=torch.float32, device=cuda)
+    kw = {}
+    if ep == "scale":
+        kw["scale"] = torch.as_tensor(rng.uniform(0.5, 2, n), **f32)
+    elif ep == "threshold":
+        t_hi = np.round(rng.uniform(-5, 5, n))
+        kw = dict(t_lo=torch.as_tensor(t_hi - rng.uniform(0, 6, n), **f32),
+                  t_hi=torch.as_tensor(t_hi, **f32),
+                  flip=torch.as_tensor(rng.random(n) < 0.4, device=cuda))
+    before = MM.LAUNCHES["ternary_matmul"]
+    got = MM.ternary_matmul(x, wp, **kw)
+    want = MM.ternary_matmul_plain(x, wp, **kw)
+    torch.cuda.synchronize()
+    assert MM.LAUNCHES["ternary_matmul"] == before + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if xdt == "int8":
+        assert torch.equal(got, want)
+    elif ep == "threshold":
+        # a sum within rounding of a threshold may flip one trit
+        assert (got != want).float().mean().item() < 1e-3
+    else:
+        g, w = got.float(), want.float()
+        bf16_out = got.dtype == torch.bfloat16
+        tol = (2 ** -7 if bf16_out else 1e-5) * w.abs().max()
+        assert (g - w).abs().max().item() <= tol.item()
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 640, 32), (37, 1001, 77),
+                                   (128, 512, 130)])
+def test_ternary_matmul_dense_kernel_matches_plain_on_card(cuda, m, k, n):
+    from repro_torch.kernels import ternary_matmul as MM
+
+    rng = np.random.default_rng(k)
+    x = torch.as_tensor(rng.integers(-128, 128, (m, k)), dtype=torch.int8,
+                        device=cuda)
+    w = torch.as_tensor(rng.integers(-1, 2, (k, n)), dtype=torch.int8,
+                        device=cuda)
+    got = MM.ternary_matmul_dense(x, w)
+    want = MM.ternary_matmul_dense_plain(x, w)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+def test_reduced_llm_serve_on_card(cuda):
+    """The reduced llama3.2-1B config, ternary_packed, served through
+    CutieEngine + LLMExecutor on the card: every projection launches the
+    packed kernel (7 per layer per forward), and paged and contiguous
+    serving give the same tokens."""
+    from repro_torch import configs
+    from repro_torch.kernels import ternary_matmul as MM
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.config import reduce_for_smoke
+    from repro_torch.serving import CutieEngine, LLMExecutor, ServerConfig
+
+    cfg = reduce_for_smoke(configs.get("llama3.2-1b")).replace(
+        quant="ternary_packed", attn_kv_chunk=8)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    params = TF.init_params(cfg, gen)
+    shared = list(np.arange(20) % 50)
+    prompts = [np.array(shared + [100 + i, i]) for i in range(4)]
+    outs = {}
+    for paged in (True, False):
+        eng = CutieEngine("fcfs")
+        ex = LLMExecutor(params, cfg, ServerConfig(
+            paged=paged, n_slots=2, max_new_tokens=5, max_len=64,
+            block_size=8))
+        eng.register("llm", ex)
+        for pr in prompts:
+            eng.submit(pr, model="llm")
+        MM.reset_launches()
+        outs[paged] = eng.run()
+        st = ex.extra_stats()
+        forwards = st["prefills"] + st["decode_steps"]
+        assert MM.LAUNCHES["ternary_matmul"] == 7 * cfg.n_layers * forwards
+    assert outs[True] == outs[False]
+    assert all(len(v) == 5 for v in outs[True].values())
