@@ -18,7 +18,9 @@ Phases, each of which fails the script (no result line) when it fails:
    bf16 x, M in {1, 4, 37, 128}, ragged N, a logical K that is not a
    multiple of 5, and the seven llama3.2-1B projections at M = 4 and 64)
    and the dense int8 matmul: int8 x bit for bit, bf16 x within the
-   tolerances stated below;
+   tolerances stated below; then kernel 7's rows at M = 4, 16 and 64
+   against the same rows at M = 128, bit for bit (bf16 and int8 x, the
+   seven llama projections);
 4. the main path: the paper's CIFAR-10 network (Table III, full width:
    126 -> 128 channels, 32 x 32, 8 layers, max-pools after layers 2, 4, 6
    and avg-pool 4 after layer 7) compiled with `engine.compile_layer`
@@ -45,7 +47,10 @@ Phases, each of which fails the script (no result line) when it fails:
    clock, then each kernel at the main path's shapes beside its bound, its
    plain version and, where one PyTorch call computes the same function,
    that call as a library yardstick (f32 `F.conv2d`; bf16 `torch.matmul`
-   on pre-decoded weights; `torch._int_mm`); then the serving times
+   on pre-decoded weights; `torch._int_mm`); kernels 7 and 8 also with
+   their device-only time and the library call's (torch.profiler) and
+   the wrapper's host microseconds per call, kernel 7 at the decode M
+   and at the prefill M; then the serving times
    (decode step, prefill, tokens/s, latency p50/p99) of the LLM path and
    of the same requests on ``quant="none"``, the bf16 baseline.
 
@@ -101,6 +106,7 @@ CIFAR_CIN, CIFAR_WIDTH, CIFAR_HW, THERMO_M = 126, 128, 32, 42
 LLM_ARCH, LLM_REQUESTS, LLM_PREFIX, LLM_PROMPT, LLM_NEW = (
     "llama3.2-1b", 8, 32, 40, 16)
 DECODE_M, PREFILL_M = 4, 64        # n_slots; bucket of a 40-token prompt
+INVARIANT_M = (4, 16, 64)          # decode, prefix-hit and cold prefill M
 # (name, K, N) of one layer's seven packed projections
 LLM_PROJ = (("q", 2048, 2048), ("k", 2048, 512), ("v", 2048, 512),
             ("o", 2048, 2048), ("gate", 2048, 8192), ("up", 2048, 8192),
@@ -108,10 +114,11 @@ LLM_PROJ = (("q", 2048, 2048), ("k", 2048, 512), ("v", 2048, 512),
 # Tolerances for float x (int8 x must be bit-identical): the kernel sums
 # the same exact f32 products as the plain version in another order, so a
 # bf16 output may round one ulp apart (2**-7 of the output's largest
-# magnitude) and an f32 output within 1e-5 of it.  Whole-model logits of
-# one prefill (16 layers, each rounding its activations to bf16) within
-# LOGIT_TOL absolute.
+# magnitude), an f16 output one f16 ulp (2**-10 of it) and an f32 output
+# within 1e-5 of it.  Whole-model logits of one prefill (16 layers, each
+# rounding its activations to bf16) within LOGIT_TOL absolute.
 BF16_OUT_TOL, F32_OUT_TOL, LOGIT_TOL = 2.0 ** -7, 1e-5, 0.125
+F16_OUT_TOL = 2.0 ** -10
 
 
 def log(msg: str) -> None:
@@ -298,13 +305,15 @@ def _mm_case(rng, torch, m, k, n, xdt, ep):
         x = torch.as_tensor(rng.integers(-1, 2, (m, k)), dtype=torch.int8)
     else:
         x = torch.as_tensor(rng.standard_normal((m, k)),
-                            dtype=torch.float32).to(torch.bfloat16)
+                            dtype=torch.float32).to(getattr(torch, xdt))
     wp = torch.as_tensor(rng.integers(0, 243, (-(-k // 5), n)),
                          dtype=torch.uint8)
     f32 = dict(dtype=torch.float32, device=dev)
     kw = {}
-    if ep == "scale":
+    if ep in ("scale", "scale+round"):
         kw["scale"] = torch.as_tensor(rng.uniform(0.01, 0.05, n), **f32)
+        if ep == "scale+round":              # alpha rounded as `linear` asks
+            kw["round_scale"] = True
     elif ep == "threshold":
         t_hi = np.round(rng.uniform(-8, 8, n))
         kw = dict(t_lo=torch.as_tensor(t_hi - rng.uniform(0, 10, n), **f32),
@@ -317,16 +326,25 @@ def compare_matmul_kernels(torch, MM, worst: dict) -> None:
     """Kernels 7 and 8 against their plain versions on the card: every
     epilogue, int8 and bf16 x, M in {1, 4, 37, 128}, ragged N and a logical
     K that is not a multiple of 5, then the seven llama projections at the
-    decode and prefill M.  Int8 x bit-identical; bf16 x within the stated
-    tolerance (a threshold may flip a trit whose sum lies within rounding
-    of it: at most 1 in 1000)."""
+    decode and prefill M; the scale epilogue with ``round_scale`` (as
+    `linear` calls it) for bf16 and f16 x at the same shapes.  Int8 x
+    bit-identical; float x within the stated tolerance (a threshold may
+    flip a trit whose sum lies within rounding of it: at most 1 in
+    1000)."""
     rng = np.random.default_rng(SEED + 5)
     cases = [(m, 1001, 77, xdt, ep) for m in (1, 4, 37, 128)
              for xdt in ("int8", "bfloat16")
              for ep in ("none", "scale", "threshold")]
     cases += [(m, k, n, xdt, "scale") for m in (DECODE_M, PREFILL_M)
               for _, k, n in LLM_PROJ for xdt in ("int8", "bfloat16")]
-    rel = {"bfloat16": 0.0, "float32": 0.0}
+    cases += [(m, k, n, xdt, "scale+round")
+              for m, k, n in [(m, 1001, 77) for m in (1, 4, 37, 128)]
+              + [(m, k, n) for m in (DECODE_M, PREFILL_M)
+                 for _, k, n in LLM_PROJ]
+              for xdt in ("bfloat16", "float16")]
+    tols = {torch.bfloat16: BF16_OUT_TOL, torch.float16: F16_OUT_TOL,
+            torch.float32: F32_OUT_TOL}
+    rel = dict.fromkeys(tols, 0.0)
     flips = 0.0
     for m, k, n, xdt, ep in cases:
         x, wp, kw = _mm_case(rng, torch, m, k, n, xdt, ep)
@@ -349,10 +367,8 @@ def compare_matmul_kernels(torch, MM, worst: dict) -> None:
                 raise RuntimeError(f"{what}: {share} of trits flipped")
         else:
             scale = float(want.double().abs().max())
-            tol = (BF16_OUT_TOL if got.dtype == torch.bfloat16
-                   else F32_OUT_TOL)
-            key = "bfloat16" if got.dtype == torch.bfloat16 else "float32"
-            rel[key] = max(rel[key], err / scale)
+            tol = tols[got.dtype]
+            rel[got.dtype] = max(rel[got.dtype], err / scale)
             if err > tol * scale:
                 raise RuntimeError(f"{what}: max |err| {err} > {tol} x "
                                    f"{scale}")
@@ -373,13 +389,75 @@ def compare_matmul_kernels(torch, MM, worst: dict) -> None:
         if got.dtype != torch.int32 or err != 0:
             raise RuntimeError(f"ternary_matmul_dense ({m}, {k}) N {n}: "
                                f"max |err| {err}")
+    rows_invariant(torch, MM, rng)
+    round_scale_exact(torch, MM, rng)
     log(f"phase 3: ternary_matmul on {len(cases)} cases: int8 x "
-        "bit-identical; bf16 x worst |err| / max|out| "
-        f"{rel['bfloat16']!r} (bf16 out, tolerance {BF16_OUT_TOL!r}), "
-        f"{rel['float32']!r} (f32 out, tolerance {F32_OUT_TOL!r}), threshold "
-        f"flips at most {flips!r}; worst absolute error "
+        "bit-identical; float x worst |err| / max|out| "
+        f"{rel[torch.bfloat16]!r} (bf16 out, tolerance {BF16_OUT_TOL!r}), "
+        f"{rel[torch.float16]!r} (f16 out, tolerance {F16_OUT_TOL!r}), "
+        f"{rel[torch.float32]!r} (f32 out, tolerance {F32_OUT_TOL!r}), "
+        f"threshold flips at most {flips!r}; worst absolute error "
         f"{worst['ternary_matmul']!r}; ternary_matmul_dense on {len(dense)} "
         "cases bit-identical")
+
+
+def rows_invariant(torch, MM, rng) -> None:
+    """Kernel 7's rows at M in INVARIANT_M against the same rows at M =
+    128, bit for bit, for bf16 and int8 x at the seven llama projections:
+    the K split and the sum order must not depend on M (a prompt's rows
+    run at M = 64 cold, 16 on a prefix hit, 4 in decode)."""
+    checked = 0
+    for _, k, n in LLM_PROJ:
+        for xdt in ("bfloat16", "int8"):
+            x, wp, kw = _mm_case(rng, torch, 128, k, n, xdt, "scale")
+            for ep in ({}, dict(kw, round_scale=xdt != "int8")):
+                full = MM.ternary_matmul(x, wp, **ep)
+                for m in INVARIANT_M:
+                    got = MM.ternary_matmul(x[:m], wp, **ep)
+                    sync(torch)
+                    bits = {4: torch.int32, 2: torch.int16}[got.element_size()]
+                    if not torch.equal(got.view(bits), full[:m].view(bits)):
+                        raise RuntimeError(
+                            f"ternary_matmul {xdt} x ({m}, {k}) N {n} "
+                            f"{'scale' if ep else 'none'}: rows differ from "
+                            "the same rows at M = 128")
+                    checked += 1
+    log(f"phase 3: ternary_matmul rows at M in {INVARIANT_M} bit-identical "
+        f"to the same rows at M = 128 ({checked} cases: bf16 and int8 x, "
+        "no epilogue and scale, the seven llama projections)")
+
+
+def round_scale_exact(torch, MM, rng) -> None:
+    """Kernel 7 with ``round_scale=True``, as every call on the main path
+    makes it, against the kernel handed scale already rounded to x's type:
+    the same plan and sum order, so the same bits.  The unrounded call's
+    bits must differ, so that a kernel which skipped the rounding, or
+    rounded to another type, would fail here.  bf16 and f16 x, the seven
+    llama projections at the decode and prefill M."""
+    checked = 0
+    for m in (DECODE_M, PREFILL_M):
+        for pname, k, n in LLM_PROJ:
+            for xdt in ("bfloat16", "float16"):
+                x, wp, kw = _mm_case(rng, torch, m, k, n, xdt, "scale")
+                s = kw["scale"]
+                got = MM.ternary_matmul(x, wp, scale=s, round_scale=True)
+                pre = MM.ternary_matmul(x, wp, scale=s.to(x.dtype).float())
+                raw = MM.ternary_matmul(x, wp, scale=s)
+                sync(torch)
+                what = f"ternary_matmul {xdt} x ({m}, {k}) N {n} round_scale"
+                if not torch.equal(got.view(torch.int16),
+                                   pre.view(torch.int16)):
+                    raise RuntimeError(f"{what}: bits differ from the call "
+                                       "with scale rounded beforehand")
+                if torch.equal(got.view(torch.int16), raw.view(torch.int16)):
+                    raise RuntimeError(f"{what}: bits equal the unrounded "
+                                       "call's, so the check cannot see the "
+                                       "rounding")
+                checked += 1
+    log(f"phase 3: ternary_matmul round_scale=True bit-identical to scale "
+        f"rounded beforehand, and different from scale unrounded ({checked} "
+        "cases: bf16 and f16 x, the seven llama projections at M = "
+        f"{DECODE_M} and {PREFILL_M})")
 
 
 # -- phase 4: the main path --------------------------------------------------
@@ -874,13 +952,54 @@ def time_new_kernels(torch, FT, TC, mp, card: str, worst: dict,
     return out
 
 
+def host_us(torch, fn, reps: int = 50) -> float:
+    """Host microseconds per call of ``fn`` until it returns, before a
+    synchronize: the wrapper's own cost where the device keeps up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs / reps * 1e6
+
+
+def host_breakdown(torch, MM, x, wp, scale, card: str) -> None:
+    """Where kernel 7's host microseconds per call go, at one decode
+    projection: the whole wrapper, its output allocation alone, and the
+    ctypes launch alone with its arguments made beforehand."""
+    m, k = x.shape
+    n = wp.shape[1]
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    sc = scale.to(torch.float32).contiguous()
+    # held: the split-K scratch the arguments point into, alive until return
+    args, held = MM._launch_args(x, wp, out, (sc, None, None, None),
+                                 wp.shape[0], 1, "scale", True)
+    fn = MM._kernel()
+    parts = {
+        "wrapper": lambda: MM.ternary_matmul(x, wp, scale=scale,
+                                             round_scale=True),
+        "torch.empty of the output": lambda: torch.empty(
+            (m, n), dtype=x.dtype, device=x.device),
+        "ctypes launch alone": lambda: fn(*args),
+    }
+    log(f"phase 5: ternary_matmul host us per call at ({m}, {k}) x ({k}, "
+        f"{n}): " + "; ".join(f"{what} {host_us(torch, f)!r}"
+                             for what, f in parts.items())
+        + f" (host clock, 50 calls, no synchronize; {card})")
+
+
 def time_matmul_kernels(torch, MM, llm, card: str, worst: dict
                         ) -> list[dict]:
     """Kernels 7 and 8 at each projection shape, at the decode M and the
-    prefill bucket's M, beside their bounds, plain versions and a library
-    call.  The JSON records sum one forward's 7 x n_layers projections:
-    kernel 7 at the decode M (one decode step), kernel 8 (no caller on the
-    path) at the prefill M, where `torch._int_mm` applies."""
+    prefill bucket's M: ms per call (CUDA events), device-only ms of the
+    kernel and of the library call (torch.profiler, every kernel of the
+    call summed), the wrapper's host us per call, the bound and the plain
+    version.  The JSON records sum one forward's 7 x n_layers projections:
+    kernel 7 at the decode M (one decode step) with its prefill forward
+    under "prefill", kernel 8 (no caller on the path) at the prefill M,
+    where `torch._int_mm` applies."""
     from repro_torch.kernels import ref as R
 
     rng = np.random.default_rng(SEED + 7)
@@ -890,26 +1009,28 @@ def time_matmul_kernels(torch, MM, llm, card: str, worst: dict
               "v": layer["attn"]["wv"], "o": layer["attn"]["wo"],
               "gate": layer["mlp"]["gate"], "up": layer["mlp"]["up"],
               "down": layer["mlp"]["down"]}
-    tot = {(name, m): {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                       "bytes_ms": 0.0, "ops_ms": 0.0, "device_ms": 0.0,
-                       "lib_null": False}
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+            "bytes_ms", "ops_ms", "host_us")
+    tot = {(name, m): dict.fromkeys(keys, 0.0)
            for name in ("ternary_matmul", "ternary_matmul_dense")
            for m in (DECODE_M, PREFILL_M)}
     log(f"phase 5: matmul ms per call at the llama projection shapes on "
-        f"{card} (CUDA events, mean of 20 after 3 warm-up calls, L2 warm)")
+        f"{card} (CUDA events, mean of 20 after 3 warm-up calls, L2 warm; "
+        "device-only ms from torch.profiler; host us until return)")
     for pname, k, n in LLM_PROJ:
         p = packed[pname]
-        wp = p["w_packed"]
-        alpha = p["scale"].to(torch.bfloat16).float()
+        wp, scale = p["w_packed"], p["scale"]
         # the library yardstick's weights: trits * bf16(alpha), decoded once
         w_dec = (R.unpack_trits(wp.T).T[:k].to(torch.bfloat16)
-                 * alpha.to(torch.bfloat16))
+                 * scale.to(torch.bfloat16))
         w8 = torch.as_tensor(rng.integers(-1, 2, (k, n)), dtype=torch.int8,
                              device=DEVICE)
         for m in (DECODE_M, PREFILL_M):
             x = torch.as_tensor(rng.standard_normal((m, k)),
                                 dtype=torch.float32,
                                 device=DEVICE).to(torch.bfloat16)
+            if (pname, m) == ("q", DECODE_M):
+                host_breakdown(torch, MM, x, wp, scale, card)
             x8 = torch.as_tensor(rng.integers(-1, 2, (m, k)),
                                  dtype=torch.int8, device=DEVICE)
             ops = 2 * m * k * n
@@ -918,10 +1039,12 @@ def time_matmul_kernels(torch, MM, llm, card: str, worst: dict
                 int_mm = (lambda: torch._int_mm(x8, w8))
             except RuntimeError:
                 int_mm = None
-            runs = {
+            runs = {                       # kernel 7 as `linear` calls it
                 "ternary_matmul": (
-                    lambda: MM.ternary_matmul(x, wp, scale=alpha),
-                    lambda: MM.ternary_matmul_plain(x, wp, scale=alpha),
+                    lambda: MM.ternary_matmul(x, wp, scale=scale,
+                                              round_scale=True),
+                    lambda: MM.ternary_matmul_plain(x, wp, scale=scale,
+                                                    round_scale=True),
                     lambda: torch.matmul(x, w_dec),
                     wp.numel() + 2 * m * k + 2 * m * n + 4 * n,
                     ops / BF16_OPS_PER_S * 1e3, "torch.matmul bf16 x @ "
@@ -935,42 +1058,59 @@ def time_matmul_kernels(torch, MM, llm, card: str, worst: dict
             for name, (kern, plain, lib, nbytes, o_ms, lib_what) in \
                     runs.items():
                 ms, pms = timed(torch, kern), timed(torch, plain)
-                dev = device_ms(torch, kern, "matmul_kernel")
-                lms = timed(torch, lib) if lib is not None else None
+                dev = device_ms(torch, kern, "ternary_mm")
+                hus = host_us(torch, kern)
+                lms = ldev = None
+                if lib is not None:
+                    lms = timed(torch, lib)
+                    ldev = device_ms(torch, lib, "")
                 b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                ws_b = MM.workspace_bytes(m, k, n, torch.bfloat16
+                                          if name == "ternary_matmul"
+                                          else torch.int8)
                 t = tot[(name, m)]
-                t["ms"] += n_layers * ms
-                t["plain_ms"] += n_layers * pms
-                t["bytes_ms"] += n_layers * b_ms
-                t["ops_ms"] += n_layers * o_ms
-                if lms is None:
-                    t["lib_null"] = True
-                else:
-                    t["library_ms"] += n_layers * lms
-                t["device_ms"] += n_layers * (
-                    dev if dev is not None else float("nan"))
+                for key, v in (("ms", ms), ("plain_ms", pms),
+                               ("device_ms", dev), ("host_us", hus),
+                               ("library_ms", lms),
+                               ("library_device_ms", ldev),
+                               ("bytes_ms", b_ms), ("ops_ms", o_ms)):
+                    # a value not measured leaves the sum not measured
+                    t[key] = None if v is None or t[key] is None else \
+                        t[key] + n_layers * v
                 log(f"  {name} {pname} ({m}, {k}) x ({k}, {n}): ms {ms!r} "
-                    f"(device only {dev!r}, torch.profiler) "
-                    f"plain_ms {pms!r} library_ms {lms!r} ({lib_what}"
+                    f"(device only {dev!r}; host us per call {hus!r}) "
+                    f"plain_ms {pms!r} library_ms {lms!r} (device only "
+                    f"{ldev!r}; {lib_what}"
                     f"{'' if lms is not None else ': shape not accepted'}) "
                     f"bound_ms {max(b_ms, o_ms)!r} "
                     f"({'bytes' if b_ms > o_ms else 'operations'}: {nbytes} "
-                    f"B, {ops} ops)")
-    out = []
+                    f"B, {ops} ops); split-K workspace {ws_b} B written and "
+                    "read back per call, outside the bound")
+    recs = {}
     for (name, m), t in tot.items():
-        per = (f"one forward's {7 * n_layers} projections at M = {m}")
+        calls = 7 * n_layers
+        per = f"one forward's {calls} projections at M = {m}"
+        host = None if t["host_us"] is None else t["host_us"] / calls
         log(f"phase 5: {name} summed over {per}: ms {t['ms']!r} (device "
-            f"only {t['device_ms']!r}) plain_ms "
-            f"{t['plain_ms']!r} library_ms "
-            f"{None if t['lib_null'] else t['library_ms']!r} bound_ms "
+            f"only {t['device_ms']!r}; wrapper host us per call {host!r}) "
+            f"plain_ms {t['plain_ms']!r} library_ms {t['library_ms']!r} "
+            f"(device only {t['library_device_ms']!r}) bound_ms "
             f"{max(t['bytes_ms'], t['ops_ms'])!r} ({card})")
-        if (name, m) in (("ternary_matmul", DECODE_M),
-                         ("ternary_matmul_dense", PREFILL_M)):
-            launches = llm["launches"] if name == "ternary_matmul" else 0
-            out.append(_record(name, launches, worst[name], t["ms"],
-                               t["plain_ms"], t["bytes_ms"], t["ops_ms"],
-                               None if t["lib_null"] else t["library_ms"]))
-    return out
+        launches = llm["launches"] if name == "ternary_matmul" else 0
+        rec = _record(name, launches, worst[name], t["ms"], t["plain_ms"],
+                      t["bytes_ms"], t["ops_ms"], t["library_ms"])
+        rec.update(m=m, device_ms=t["device_ms"],
+                   library_device_ms=t["library_device_ms"],
+                   host_us_per_call=host)
+        recs[(name, m)] = rec
+    # kernel 7: one decode step, with one prefill forward beside it
+    k7 = recs[("ternary_matmul", DECODE_M)]
+    k7["prefill"] = {key: v for key, v in
+                     recs[("ternary_matmul", PREFILL_M)].items()
+                     if key in ("m", "ms", "device_ms", "plain_ms",
+                                "bound_ms", "bound_by", "library_ms",
+                                "library_device_ms", "host_us_per_call")}
+    return [k7, recs[("ternary_matmul_dense", PREFILL_M)]]
 
 
 def _serving_line(label: str, run: dict, card: str) -> None:

@@ -7,18 +7,24 @@ its dense int8 twin, kernels and plain versions.
   epilogue; output types exactly as `repro_torch.kernels.ref.
   ternary_matmul`.  K is the logical depth, K <= 5G: trits at or beyond
   K multiply nothing, so `repro_torch.models.common.linear` hands over
-  its x unpadded when d_in is not a multiple of 5;
+  its x unpadded when d_in is not a multiple of 5.  ``round_scale=True``
+  rounds ``scale`` to x's float type inside the epilogue (the
+  reference's bf16 alpha) instead of in two casts per call;
 * :func:`ternary_matmul_dense` - x (M, K) int8 @ w (K, N) int8 -> int32.
 
 On a CUDA tensor each wrapper launches its kernel from
 `csrc/ternary_matmul.cu` (``packed = 1`` and ``packed = 0``) or raises;
-on a CPU tensor it runs the plain version beside it.  ``LAUNCHES`` counts
-kernel launches per wrapper and nothing else.
+on a CPU tensor it runs the plain version beside it.  bf16/f16 and int8
+x run on the tensor cores, f32 x on the CUDA cores (TF32 would round
+x): the route follows x's dtype, never M.  ``LAUNCHES`` counts kernel
+launches per wrapper and nothing else.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +41,46 @@ _X_TYPES = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2,
 _EPILOGUES = {"none": 0, "scale": 1, "threshold": 2}
 _OUT_TYPES = {torch.int8: 0, torch.int32: 1, torch.float32: 2,
               torch.bfloat16: 3, torch.float16: 4}
+
+# The tensor-core kernel's tiling (csrc/ternary_matmul.cu): a block owns
+# BLOCK_M rows x BLOCK_N columns and `ups` stages of STAGE_K trits along K.
+BLOCK_M, BLOCK_N, STAGE_K = 64, 32, 160
+MMA_K = {torch.bfloat16: 16, torch.float16: 16, torch.int8: 32}
+SMS = 132                          # H100 SXM streaming multiprocessors
+TARGET_BLOCKS = 2 * SMS            # blocks a decode step's projection aims at
+MAX_UPS = 3                        # most stages one block walks
+# The split-K workspace kept between calls; a call that needs more (M in
+# the hundreds) allocates its own, which the caching allocator takes back.
+KEEP_WORKSPACE_BYTES = 16 << 20
+
+
+class Plan(NamedTuple):
+    """How one call splits K: ``splits`` blocks along K per output tile,
+    each walking ``ups`` stages (the last may walk fewer)."""
+    ups: int
+    splits: int
+    n_tiles: int
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(k: int, n: int, x_dtype: torch.dtype) -> Plan:
+    """The K split of a call, a function of (K, N, x's dtype) alone, so a
+    row's sum order, and so its bits, never depend on M.  It aims at
+    TARGET_BLOCKS blocks per m tile with at most MAX_UPS stages each, and
+    at no fewer blocks than K's stages allow."""
+    units = max(1, -(-k // STAGE_K))
+    n_tiles = -(-n // BLOCK_N)
+    if x_dtype not in MMA_K:                 # f32 x: one block spans K
+        return Plan(units, 1, n_tiles)
+    ups = max(1, min(MAX_UPS, units * n_tiles // TARGET_BLOCKS))
+    return Plan(ups, -(-units // ups), n_tiles)
+
+
+def workspace_bytes(m: int, k: int, n: int, x_dtype: torch.dtype) -> int:
+    """Bytes of 32-bit partials one call writes and its fix-up reads back:
+    ``splits`` x M x N, so they grow with M."""
+    splits = _plan(k, n, x_dtype).splits
+    return 4 * splits * m * n if splits > 1 else 0
 
 
 def reset_launches() -> None:
@@ -60,18 +106,27 @@ def _check(x: torch.Tensor, w: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: x on {x.device}, w on {w.device}")
 
 
+def _check_round_scale(x: torch.Tensor, round_scale: bool) -> None:
+    if round_scale and not x.is_floating_point():
+        raise ValueError("round_scale rounds to x's float type; x is "
+                         f"{x.dtype}")
+
+
 # -- plain versions ----------------------------------------------------------
 
 
 def ternary_matmul_plain(x: torch.Tensor, w_packed: torch.Tensor, *,
-                         scale=None, t_lo=None, t_hi=None, flip=None
-                         ) -> torch.Tensor:
+                         scale=None, t_lo=None, t_hi=None, flip=None,
+                         round_scale: bool = False) -> torch.Tensor:
     """Plain PyTorch version of :func:`ternary_matmul` (logical K)."""
     pad = w_packed.shape[0] * TRITS_PER_BYTE - x.shape[1]
     if pad < 0:
         raise ValueError(f"x has K = {x.shape[1]}, more than the "
                          f"{w_packed.shape[0] * TRITS_PER_BYTE} rows of "
                          "w_packed")
+    _check_round_scale(x, round_scale)
+    if round_scale and scale is not None:
+        scale = torch.as_tensor(scale, device=x.device).to(x.dtype).float()
     return _ref.ternary_matmul(F.pad(x, (0, pad)), w_packed, scale=scale,
                                t_lo=t_lo, t_hi=t_hi, flip=flip)
 
@@ -84,15 +139,21 @@ def ternary_matmul_dense_plain(x: torch.Tensor, w: torch.Tensor
 
 # -- kernels -----------------------------------------------------------------
 
+_FN = None                          # the ctypes function, typed once
+_SCRATCH: dict = {}                 # (device, stream) -> [workspace, counters]
+# the current stream's handle without a Stream object (CUDA builds)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
-def _library() -> ctypes.CDLL:
-    lib = _build.library("ternary_matmul")
-    fn = lib.cutie_ternary_matmul
-    if fn.argtypes is None:
+
+def _kernel():
+    global _FN
+    if _FN is None:
+        fn = _build.library("ternary_matmul").cutie_ternary_matmul
         p, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 7 + [i32] * 8 + [p]
+        fn.argtypes = [p] * 9 + [i32] * 11 + [p]
         fn.restype = ctypes.c_int
-    return lib
+        _FN = fn
+    return _FN
 
 
 def _on_card(x: torch.Tensor, name: str) -> bool:
@@ -105,29 +166,74 @@ def _on_card(x: torch.Tensor, name: str) -> bool:
 
 
 def _vec(v, n: int, dtype, dev, what: str) -> torch.Tensor:
-    v = torch.as_tensor(v, device=dev).to(dtype).reshape(-1).contiguous()
+    """``v`` as a contiguous (n,) ``dtype`` vector on ``dev``: as it is
+    when it already is one, converted (and checked) otherwise."""
+    if not (isinstance(v, torch.Tensor) and v.dtype == dtype
+            and v.device == dev and v.dim() == 1 and v.is_contiguous()):
+        v = torch.as_tensor(v, device=dev).to(dtype).reshape(-1).contiguous()
     if v.numel() != n:
         raise ValueError(f"{what} has {v.numel()} entries, want N = {n}")
     return v
 
 
-def _launch(x, w, out, eps, rows: int, packed: int, epilogue: str,
-            name: str) -> None:
+def _scratch(dev, stream: int, nbytes: int, tiles: int):
+    """The split-K workspace (``nbytes`` of 32-bit partials) and the
+    per-tile arrival counters of one stream.  The counters are kept and
+    grown (the kernel's last block per tile resets its counter to zero);
+    the workspace is kept up to KEEP_WORKSPACE_BYTES and made for the call
+    beyond that."""
+    key = (dev, stream)
+    cur = _SCRATCH.get(key)
+    if cur is None:
+        cur = _SCRATCH[key] = [torch.empty(0, dtype=torch.int32, device=dev),
+                               torch.zeros(0, dtype=torch.int32, device=dev)]
+    words = -(-nbytes // 4)
+    if cur[1].numel() < tiles:
+        cur[1] = torch.zeros(tiles, dtype=torch.int32, device=dev)
+    if nbytes > KEEP_WORKSPACE_BYTES:
+        return torch.empty(words, dtype=torch.int32, device=dev), cur[1]
+    if cur[0].numel() < words:
+        cur[0] = torch.empty(words, dtype=torch.int32, device=dev)
+    return cur[0], cur[1]
+
+
+def _launch_args(x, w, out, eps, rows: int, packed: int, epilogue: str,
+                 round_scale: bool):
+    """The kernel's arguments for one call, in the order of
+    ``cutie_ternary_matmul``, and the scratch tensors they point into,
+    which the caller holds until the launch is enqueued."""
     m, k = x.shape
     n = w.shape[1]
+    plan = _plan(k, n, x.dtype)
+    stream = (_raw_stream(x.get_device()) if _raw_stream is not None
+              else torch.cuda.current_stream(x.device).cuda_stream)
+    held = ()
+    ws = cnt = 0
+    if plan.splits > 1:
+        held = _scratch(x.device, stream, workspace_bytes(m, k, n, x.dtype),
+                        plan.n_tiles * -(-m // BLOCK_M))
+        ws, cnt = (t.data_ptr() for t in held)
     ptr = [0 if t is None else t.data_ptr() for t in eps]
-    lib = _library()
-    err = lib.cutie_ternary_matmul(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), *ptr, m, k, n, rows,
-        _X_TYPES[x.dtype], packed, _EPILOGUES[epilogue],
-        _OUT_TYPES[out.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, err, name)
+    args = (x.data_ptr(), w.data_ptr(), out.data_ptr(), *ptr, ws, cnt, m, k,
+            n, rows, _X_TYPES[x.dtype], packed, _EPILOGUES[epilogue],
+            _OUT_TYPES[out.dtype], int(round_scale), plan.ups, plan.splits,
+            stream)
+    return args, held
+
+
+def _launch(x, w, out, eps, rows: int, packed: int, epilogue: str,
+            round_scale: bool, name: str) -> None:
+    args, _held = _launch_args(x, w, out, eps, rows, packed, epilogue,
+                               round_scale)
+    err = _kernel()(*args)
+    if err:
+        _build.check(_build.library("ternary_matmul"), err, name)
     LAUNCHES[name] += 1
 
 
 def ternary_matmul(x: torch.Tensor, w_packed: torch.Tensor, *, scale=None,
-                   t_lo=None, t_hi=None, flip=None) -> torch.Tensor:
+                   t_lo=None, t_hi=None, flip=None,
+                   round_scale: bool = False) -> torch.Tensor:
     """x (M, K) @ decode(w_packed)[:K] with an optional fused epilogue.
 
     Replaces `repro.kernels.ternary_matmul.ternary_matmul_pallas`.
@@ -135,7 +241,8 @@ def ternary_matmul(x: torch.Tensor, w_packed: torch.Tensor, *, scale=None,
     _check(x, w_packed, "ternary_matmul")
     if not _on_card(x, "ternary_matmul"):
         return ternary_matmul_plain(x, w_packed, scale=scale, t_lo=t_lo,
-                                    t_hi=t_hi, flip=flip)
+                                    t_hi=t_hi, flip=flip,
+                                    round_scale=round_scale)
     if w_packed.dtype != torch.uint8:
         raise ValueError(f"w_packed must be uint8, got {w_packed.dtype}")
     m, k = x.shape
@@ -147,6 +254,7 @@ def ternary_matmul(x: torch.Tensor, w_packed: torch.Tensor, *, scale=None,
         x = x.to(torch.int8)                 # integer x: trits, as the ref
     elif x.dtype not in _X_TYPES:
         raise ValueError(f"ternary_matmul: no kernel for x of {x.dtype}")
+    _check_round_scale(x, round_scale)
     epilogue, out_dtype = _epilogue(x, scale, t_lo)
     dev = x.device
     if epilogue == "threshold":
@@ -163,7 +271,7 @@ def ternary_matmul(x: torch.Tensor, w_packed: torch.Tensor, *, scale=None,
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if out.numel():
         _launch(x.contiguous(), w_packed.contiguous(), out, eps, rows, 1,
-                epilogue, "ternary_matmul")
+                epilogue, round_scale, "ternary_matmul")
     return out
 
 
@@ -182,6 +290,6 @@ def ternary_matmul_dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                       device=x.device)
     if out.numel():
         _launch(x.to(torch.int8).contiguous(), w.to(torch.int8).contiguous(),
-                out, (None, None, None, None), w.shape[0], 0, "none",
+                out, (None, None, None, None), w.shape[0], 0, "none", False,
                 "ternary_matmul_dense")
     return out

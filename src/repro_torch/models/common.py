@@ -100,15 +100,15 @@ def linear(p, x, *, quant: str = "none"):
                        to (rows, d_in) and handed over unpadded (the
                        packed rows are padded to a multiple of 5).
     The reference multiplies the trits by alpha rounded to x's dtype, so
-    the kernel's scale epilogue takes that rounded alpha: each
-    ``trit * alpha`` is then the reference's exact weight, and the two
-    differ only in the order of the f32 sum.
+    the kernel's scale epilogue rounds alpha the same way
+    (``round_scale``): each ``trit * alpha`` is then the reference's exact
+    weight, and the two differ only in the order of the f32 sum.
     """
     if quant == "ternary_packed":
         lead = x.shape[:-1]
-        alpha = p["scale"].to(x.dtype).to(torch.float32)
         y = _mm.ternary_matmul(x.reshape(-1, x.shape[-1]), p["w_packed"],
-                               scale=alpha).reshape(*lead, -1)
+                               scale=p["scale"], round_scale=True
+                               ).reshape(*lead, -1)
     elif quant == "none":
         y = x @ p["w"]
     else:

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain versions, on the card: the dense
-and packed conv, the trunk megakernel, the trit codec and the
-thermometer.
+and packed conv, the trunk megakernel, the trit codec, the thermometer
+and the packed and dense ternary matmuls (whose rows must also be
+bit-identical at every M).
 
 Run on a machine with an NVIDIA Hopper card:
 
@@ -241,7 +242,7 @@ def test_thermometer_kernel_matches_plain_on_card(cuda, ternary):
 MM_SHAPES = [(1, 2048, 2048), (4, 2050, 512), (37, 1001, 77), (128, 645, 130),
              (4, 8192, 2048)]
 MM_CASES = [(shape, xdt, ep) for shape in MM_SHAPES
-            for xdt in ("int8", "bfloat16", "float32")
+            for xdt in ("int8", "bfloat16", "float16", "float32")
             for ep in ("none", "scale", "threshold")]
 
 
@@ -261,9 +262,10 @@ def _mm_operands(rng, dev, m, k, n, xdt):
                               for s, x, e in MM_CASES])
 def test_ternary_matmul_kernel_matches_plain_on_card(cuda, shape, xdt, ep):
     """Int8 x: bit-identical.  Float x: the f32 sums run in another
-    order, so within 1e-5 of the output scale (f32 out) or one bf16 ulp
-    at that scale (2**-7 of it, bf16 out); a threshold epilogue may flip a
-    trit whose sum lies within rounding of its threshold."""
+    order, so within 1e-5 of the output scale (f32 out) or one ulp at
+    that scale (2**-7 of it, bf16 out; 2**-10, f16 out); a threshold
+    epilogue may flip a trit whose sum lies within rounding of its
+    threshold."""
     from repro_torch.kernels import ternary_matmul as MM
 
     m, k, n = shape
@@ -291,13 +293,77 @@ def test_ternary_matmul_kernel_matches_plain_on_card(cuda, shape, xdt, ep):
         assert (got != want).float().mean().item() < 1e-3
     else:
         g, w = got.float(), want.float()
-        bf16_out = got.dtype == torch.bfloat16
-        tol = (2 ** -7 if bf16_out else 1e-5) * w.abs().max()
+        # one ulp of the largest magnitude for a bf16 or f16 output
+        rel = {torch.bfloat16: 2 ** -7, torch.float16: 2 ** -10}
+        tol = rel.get(got.dtype, 1e-5) * w.abs().max()
         assert (g - w).abs().max().item() <= tol.item()
 
 
+# (K, N) of llama3.2-1B's seven projections
+LLAMA_PROJ = [(2048, 2048), (2048, 512), (2048, 512), (2048, 2048),
+              (2048, 8192), (2048, 8192), (8192, 2048)]
+INVARIANCE_SHAPES = sorted(set(LLAMA_PROJ)) + [(1001, 77)]
+
+
+@pytest.mark.parametrize("xdt", ["bfloat16", "int8"])
+@pytest.mark.parametrize("k,n", INVARIANCE_SHAPES)
+def test_ternary_matmul_rows_invariant_in_m(cuda, k, n, xdt):
+    """Each row of x[:M] gives the bits it gives at M = 128, for every M:
+    the kernel's K split and sum order do not depend on M (paged and
+    contiguous serving, and a prefix hit, feed rows at different M)."""
+    from repro_torch.kernels import ternary_matmul as MM
+
+    rng = np.random.default_rng(k + n)
+    x, wp = _mm_operands(rng, cuda, 128, k, n, xdt)
+    scale = torch.as_tensor(rng.uniform(0.01, 0.05, n), dtype=torch.float32,
+                            device=cuda)
+    def bits(t):                                    # -0.0 differs from 0.0
+        return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+    full = MM.ternary_matmul(x, wp)                 # the raw accumulator
+    full_s = MM.ternary_matmul(x, wp, scale=scale)
+    for m in (1, 4, 16, 37, 64):
+        got = MM.ternary_matmul(x[:m], wp)
+        got_s = MM.ternary_matmul(x[:m], wp, scale=scale)
+        torch.cuda.synchronize()
+        assert torch.equal(bits(got), bits(full[:m])), m
+        assert torch.equal(bits(got_s), bits(full_s[:m])), m
+
+
+ROUND_CASES = [(m, k, n, xdt) for m in (4, 64) for k, n in LLAMA_PROJ
+               for xdt in ("bfloat16", "float16")]
+
+
+@pytest.mark.parametrize("m,k,n,xdt", ROUND_CASES,
+                         ids=[f"{m}x{k}x{n}-{x}" for m, k, n, x in ROUND_CASES])
+def test_ternary_matmul_round_scale_on_card(cuda, m, k, n, xdt):
+    """``round_scale=True`` (as `linear` calls kernel 7) gives the bits of
+    the kernel handed scale already rounded to x's type: the plan and so
+    the sum order are the same.  Unrounded, the bits differ, so the check
+    sees a kernel that skips the rounding or rounds to another type; and
+    the result stays within one output ulp of the plain version's."""
+    from repro_torch.kernels import ternary_matmul as MM
+
+    rng = np.random.default_rng(m + k + n)
+    x, wp = _mm_operands(rng, cuda, m, k, n, xdt)
+    scale = torch.as_tensor(rng.uniform(0.01, 0.05, n), dtype=torch.float32,
+                            device=cuda)
+    got = MM.ternary_matmul(x, wp, scale=scale, round_scale=True)
+    pre = MM.ternary_matmul(x, wp, scale=scale.to(x.dtype).float())
+    raw = MM.ternary_matmul(x, wp, scale=scale)
+    want = MM.ternary_matmul_plain(x, wp, scale=scale, round_scale=True)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype
+    assert torch.equal(got.view(torch.int16), pre.view(torch.int16))
+    assert not torch.equal(got.view(torch.int16), raw.view(torch.int16))
+    rel = {torch.bfloat16: 2 ** -7, torch.float16: 2 ** -10}[got.dtype]
+    w = want.float()
+    assert (got.float() - w).abs().max().item() <= rel * w.abs().max().item()
+
+
 @pytest.mark.parametrize("m,k,n", [(1, 640, 32), (37, 1001, 77),
-                                   (128, 512, 130)])
+                                   (128, 512, 130)]
+                         + [(64, k, n) for k, n in LLAMA_PROJ])
 def test_ternary_matmul_dense_kernel_matches_plain_on_card(cuda, m, k, n):
     from repro_torch.kernels import ternary_matmul as MM
 

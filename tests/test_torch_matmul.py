@@ -183,3 +183,88 @@ def test_linear_init_packs_the_reference_trits(d_in, d_out):
     want = np.asarray(jref.pack_trits(trits.T.astype(jnp.int8)).T)
     assert np.array_equal(p["w_packed"].numpy(), want)
     np.testing.assert_allclose(p["scale"].numpy(), alpha, rtol=1e-6)
+
+
+# -- the kernel's K split (pure Python; the kernel runs on the card) ---------
+
+# (K, N) of llama3.2-1B's seven projections, and a ragged case
+LLAMA_SHAPES = [(2048, 2048), (2048, 512), (2048, 512), (2048, 2048),
+                (2048, 8192), (2048, 8192), (8192, 2048)]
+PLAN_SHAPES = sorted(set(LLAMA_SHAPES)) + [(1001, 77)]
+
+
+def test_plan_takes_no_m():
+    """The split is a function of (K, N, x dtype) alone: M cannot reach it,
+    so a row's sum order is the same at every M."""
+    import inspect
+    assert list(inspect.signature(MM._plan).parameters) == ["k", "n",
+                                                            "x_dtype"]
+
+
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float16, torch.int8])
+@pytest.mark.parametrize("k,n", PLAN_SHAPES)
+def test_plan_covers_k_and_fills_the_card(k, n, xdt):
+    plan = MM._plan(k, n, xdt)
+    units = -(-k // MM.STAGE_K)
+    assert 1 <= plan.ups <= MM.MAX_UPS
+    # every split walks at least one stage, and together they cover K
+    assert (plan.splits - 1) * plan.ups < units <= plan.splits * plan.ups
+    assert plan.n_tiles == -(-n // MM.BLOCK_N)
+    if (k, n) in LLAMA_SHAPES:     # a decode step (M = 4: one m tile)
+        assert plan.n_tiles * plan.splits >= MM.SMS
+
+
+def test_plan_routes_f32_to_the_cuda_cores():
+    """f32 x runs the CUDA-core kernel, which spans K in one block: no
+    split, so no workspace, whatever M."""
+    plan = MM._plan(2048, 512, torch.float32)
+    assert plan.splits == 1 and plan.ups * MM.STAGE_K >= 2048
+    assert MM.workspace_bytes(4096, 2048, 512, torch.float32) == 0
+
+
+@pytest.mark.parametrize("m", [4, 64, 512])
+def test_workspace_kept_between_calls_is_capped(m):
+    """The split-K workspace grows with M (splits x M x N partials); the
+    one kept per stream stays within KEEP_WORKSPACE_BYTES, and a call that
+    needs more gets a workspace of its own."""
+    k, n, xdt = 2048, 8192, torch.bfloat16             # llama's gate
+    nbytes = MM.workspace_bytes(m, k, n, xdt)
+    assert nbytes == 4 * MM._plan(k, n, xdt).splits * m * n
+    key = ("cpu", -m)
+    try:
+        ws, cnt = MM._scratch("cpu", -m, nbytes, 256)
+        assert ws.numel() * 4 >= nbytes and cnt.numel() >= 256
+        assert not cnt.any()
+        kept = MM._SCRATCH[key][0]
+        assert kept.numel() * 4 <= MM.KEEP_WORKSPACE_BYTES
+        assert (ws is kept) == (nbytes <= MM.KEEP_WORKSPACE_BYTES)
+    finally:
+        MM._SCRATCH.pop(key, None)
+
+
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float16, torch.int8])
+def test_stage_and_chunk_hold_whole_mma_steps(xdt):
+    """A stage (and the 640-trit chunk of 128 packed bytes per column)
+    holds whole packed bytes and whole k16 (bf16/f16) or k32 (int8) MMA
+    steps, so no MMA straddles two stages."""
+    step = MM.MMA_K[xdt]
+    assert MM.STAGE_K % MM.TRITS_PER_BYTE == 0 and MM.STAGE_K % step == 0
+    assert 640 % MM.STAGE_K == 0 and 640 % step == 0
+    assert MM.BLOCK_M % 16 == 0 and MM.BLOCK_N % 8 == 0
+
+
+@pytest.mark.parametrize("xdt", ["bfloat16", "float16", "float32"])
+def test_round_scale_rounds_alpha_to_x_dtype(xdt):
+    """``round_scale`` equals handing over scale rounded to x's dtype, bit
+    for bit; int8 x has no float type to round to."""
+    rng = np.random.default_rng(11)
+    x = torch.as_tensor(rng.standard_normal((3, 23)),
+                        dtype=torch.float32).to(getattr(torch, xdt))
+    wp = torch.as_tensor(rng.integers(0, 243, (5, 17)), dtype=torch.uint8)
+    s = torch.as_tensor(rng.uniform(0.01, 0.05, 17), dtype=torch.float32)
+    got = MM.ternary_matmul(x, wp, scale=s, round_scale=True)
+    want = MM.ternary_matmul(x, wp, scale=s.to(x.dtype).float())
+    assert got.dtype == x.dtype and torch.equal(got, want)
+    with pytest.raises(ValueError, match="round_scale"):
+        MM.ternary_matmul(torch.zeros((2, 23), dtype=torch.int8), wp,
+                          scale=s, round_scale=True)
