@@ -6,10 +6,13 @@
 Phases, each of which fails the script (no result line) when it fails:
 
 1. the card's name and power limit, from nvidia-smi;
-2. build every kernel from `src/repro_torch/csrc/` with nvcc (sm_90a);
+2. build every kernel from `src/repro_torch/csrc/` with nvcc (sm_90a),
+   printing ptxas's registers and spills and, for each CIFAR layer, the
+   conv kernels' plan (tile, Cout slice, pipelines, grid, shared memory);
 3. hold each kernel against its plain PyTorch version on the card: the
    conv kernels on the full-width CIFAR layer shapes plus odd-channel,
-   stride-2/3, unpadded, raw-int32 and const-channel cases;
+   stride-2/3, unpadded, raw-int32 and const-channel cases and the edges
+   of their planner (`conv_cases`);
    the trunk megakernel on the full CIFAR trunk at batch 64, its two-trunk
    split through a packed boundary, odd C = 13 with a head Cin of 6, and
    stride 2 + avg pool; the codec and thermometer kernels at the main
@@ -46,9 +49,11 @@ Phases, each of which fails the script (no result line) when it fails:
 5. time the whole program (`run`, `measure`) per backend on the host
    clock, then each kernel at the main path's shapes beside its bound, its
    plain version and, where one PyTorch call computes the same function,
-   that call as a library yardstick (f32 `F.conv2d`; bf16 `torch.matmul`
-   on pre-decoded weights; `torch._int_mm`); kernels 7 and 8 also with
-   their device-only time and the library call's (torch.profiler) and
+   that call as a library yardstick (f16 channels-last `F.conv2d`, whose
+   int32 cast must equal the conv kernel's raw output, with f32
+   `F.conv2d` beside it; bf16 `torch.matmul` on pre-decoded weights;
+   `torch._int_mm`); kernels 1, 2, 7 and 8 also with their device-only
+   time and the library call's (torch.profiler); kernels 7 and 8 with
    the wrapper's host microseconds per call, kernel 7 at the decode M
    and at the prefill M; then the serving times
    (decode step, prefill, tokens/s, latency p50/p99) of the LLM path and
@@ -96,6 +101,8 @@ REPLACES = {
     "ternary_matmul": "src/repro/kernels/ternary_matmul.py:90",
     "ternary_matmul_dense": "src/repro/kernels/ternary_matmul.py:159",
 }
+# the conv kernels' library_ms; library_f32_ms is f32 F.conv2d, TF32 off
+LIBRARY_CONV = "F.conv2d f16 channels-last, 8 calls (exact integers)"
 SPLIT_AT = 4                       # the two-trunk split: layers [0, 4), [4, 8)
 # (op, pool) per layer of paper Table III (repro.configs.cutie_cnn.layout)
 CIFAR_POOLS = (None, None, ("max", 2), None, ("max", 2), None, ("max", 2),
@@ -168,15 +175,20 @@ def _err(torch, got, want) -> int:
                if a.numel() else 0 for a, b in pairs)
 
 
-def compare_kernels(torch, K, codec) -> dict:
-    rng = np.random.default_rng(SEED)
+def conv_cases() -> list[dict]:
+    """Phase 3's conv cases: the main path's layer shapes, then odd
+    channels, strides 2 and 3, unpadded, raw int32 and const-free cases,
+    then the edges of the kernels' planner (`conv_plan`): maps that are
+    not multiples of the tile, Cout over more than one slice and ragged,
+    Cin 126 raw, avg 4 on a 4 x 4 map, packed rows whose length is not a
+    multiple of 5."""
     cases = []
     hw, cin = CIFAR_HW, CIFAR_CIN
     for pool in CIFAR_POOLS:                   # the main path's layer shapes
         cases.append(dict(n=BATCH, h=hw, w=hw, cin=cin, cout=CIFAR_WIDTH,
                           pool=pool))
         hw, cin = (hw // pool[1] if pool else hw), CIFAR_WIDTH
-    cases += [
+    return cases + [
         dict(n=3, h=11, w=9, cin=13, cout=20, pool=("max", 2)),
         dict(n=2, h=17, w=17, cin=8, cout=5, stride=(2, 2)),
         dict(n=2, h=16, w=15, cin=16, cout=13, stride=(2, 2),
@@ -184,7 +196,20 @@ def compare_kernels(torch, K, codec) -> dict:
         dict(n=2, h=9, w=9, cin=6, cout=33, stride=(3, 3), pool=("avg", 3)),
         dict(n=2, h=10, w=10, cin=7, cout=9, padding=False, const=False),
         dict(n=2, h=8, w=8, cin=7, cout=9, fuse=False),
+        dict(n=3, h=11, w=9, cin=16, cout=33, pool=("max", 2)),
+        dict(n=2, h=17, w=17, cin=32, cout=160),
+        dict(n=BATCH, h=CIFAR_HW, w=CIFAR_HW, cin=CIFAR_CIN,
+             cout=CIFAR_WIDTH, fuse=False),
+        dict(n=3, h=12, w=12, cin=16, cout=20, stride=(3, 3),
+             pool=("avg", 3)),
+        dict(n=5, h=4, w=4, cin=64, cout=33, pool=("avg", 4)),
+        dict(n=2, h=7, w=12, cin=7, cout=9, pool=("max", 2)),
     ]
+
+
+def compare_kernels(torch, K, codec) -> dict:
+    rng = np.random.default_rng(SEED)
+    cases = conv_cases()
     worst = {name: 0 for name in REPLACES}
     for i, c in enumerate(cases):
         x, w, kw = _case(rng, torch, **c)
@@ -794,21 +819,25 @@ def timed(torch, fn, reps: int = 20) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def device_ms(torch, fn, name_part: str, reps: int = 10):
+def device_ms(torch, fn, name_part: str, reps: int = 10, tries: int = 3):
     """Mean device time in ms per call of ``fn`` of the kernels whose name
-    holds ``name_part``, from a torch.profiler trace (CUPTI); None when the
-    trace shows no such kernel."""
+    holds ``name_part``, from a torch.profiler trace (CUPTI); None when
+    ``tries`` traces show no such kernel (a trace now and then comes back
+    empty)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if name_part in e.key)
-    return us / reps / 1e3 if us else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if name_part in e.key)
+        if us:
+            return us / reps / 1e3
+    return None
 
 
 def _record(name, launches, worst, ms, plain_ms, bytes_ms, ops_ms,
@@ -822,9 +851,13 @@ def _record(name, launches, worst, ms, plain_ms, bytes_ms, ops_ms,
 
 
 def time_kernels(torch, F, K, codec, engine, mp, card: str,
-                 worst: dict) -> tuple[list[dict], float]:
-    """The conv kernels layer by layer; returns their records and the
-    summed f32 `F.conv2d` yardstick (8 calls)."""
+                 worst: dict) -> tuple[list[dict], dict]:
+    """The conv kernels layer by layer: caller-visible ms (CUDA events),
+    device-only ms (torch.profiler), the plain version and two library
+    yardsticks, f16 channels-last `F.conv2d` (tensor cores; its output
+    must equal the kernel's raw int32 output, or the run fails) and f32
+    `F.conv2d` with TF32 off (CUDA cores).  Returns the records and the
+    summed yardsticks (8 calls each)."""
     prog, x = mp["program"], mp["x"]
     acts, cur = [], x
     for instr in prog.layers:                  # each layer's real input
@@ -835,16 +868,17 @@ def time_kernels(torch, F, K, codec, engine, mp, card: str,
             t_lo=th.t_lo, t_hi=th.t_hi, flip=th.flip, const=th.const,
             is_const=th.is_const, pool=instr.pool)
     names = ("ternary_conv2d", "ternary_conv2d_packed")
-    totals = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                     "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0}
-              for name in names}
+    keys = ("ms", "device_ms", "plain_ms", "bytes_ms", "ops_ms", "bound_ms")
+    totals = {name: dict.fromkeys(keys, 0.0) for name in names}
+    lib = dict.fromkeys(("f16_ms", "f16_device_ms", "f32_ms"), 0.0)
     log(f"phase 5: per-layer ms at batch {BATCH} on {card} "
-        "(CUDA events, mean of 20 after 3 warm-up calls, L2 warm)")
+        "(CUDA events, mean of 20 after 3 warm-up calls, L2 warm; device "
+        "only from torch.profiler, mean of 10)")
     for li, (instr, a) in enumerate(zip(prog.layers, acts)):
         th = instr.thresholds
-        ep = dict(stride=instr.stride, padding=instr.padding, t_lo=th.t_lo,
-                  t_hi=th.t_hi, flip=th.flip, const=th.const,
-                  is_const=th.is_const, pool=instr.pool)
+        conv = dict(stride=instr.stride, padding=instr.padding)
+        ep = dict(conv, t_lo=th.t_lo, t_hi=th.t_hi, flip=th.flip,
+                  const=th.const, is_const=th.is_const, pool=instr.pool)
         w = instr.weights
         k, _, cin, cout = w.shape
         wp = codec.pack_filter_rows(w)
@@ -853,8 +887,32 @@ def time_kernels(torch, F, K, codec, engine, mp, card: str,
         ph, pw = ((oh // instr.pool[1], ow // instr.pool[1]) if instr.pool
                   else (oh, ow))
         ops = 2 * n * oh * ow * k * k * cin * cout
+        lib_args = dict(stride=instr.stride,
+                        padding=k // 2 if instr.padding else 0)
         xf = a.permute(0, 3, 1, 2).float()
         wf = w.permute(3, 2, 0, 1).float()
+        # trits and sums up to 9 x 128 = 1,152 < 2,048 are exact in f16
+        xh = a.permute(0, 3, 1, 2).half()        # NHWC memory: channels last
+        wh = w.permute(3, 2, 0, 1).half().contiguous(
+            memory_format=torch.channels_last)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            f32_ms = timed(torch, lambda: F.conv2d(xf, wf, **lib_args))
+            f16 = lambda: F.conv2d(xh, wh, **lib_args)  # noqa: E731
+            z16 = f16().permute(0, 2, 3, 1).to(torch.int32)
+            raw = K.ternary_conv2d(a, w, **conv)
+            sync(torch)
+            if not torch.equal(z16, raw):
+                raise RuntimeError(
+                    f"layer {li}: f16 F.conv2d differs from the kernel's raw "
+                    f"int32 output by {_err(torch, z16, raw)}: the yardstick "
+                    "does not compute the same integers")
+            f16_ms = timed(torch, f16)
+            f16_dev = device_ms(torch, f16, "")
+        lib["f16_ms"] += f16_ms
+        lib["f32_ms"] += f32_ms
+        lib["f16_device_ms"] = (None if f16_dev is None
+                                or lib["f16_device_ms"] is None
+                                else lib["f16_device_ms"] + f16_dev)
         calls = {
             "ternary_conv2d": (lambda: K.ternary_conv2d(a, w, **ep),
                                lambda: K.ternary_conv2d_plain(a, w, **ep),
@@ -865,41 +923,42 @@ def time_kernels(torch, F, K, codec, engine, mp, card: str,
                                                       **ep),
                 wp.numel()),
         }
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            lib_ms = timed(torch, lambda: F.conv2d(
-                xf, wf, stride=instr.stride, padding=k // 2 if
-                instr.padding else 0))
         for name, (kern, plain, wbytes) in calls.items():
             nbytes = a.numel() + wbytes + 11 * cout + n * ph * pw * cout
             t = totals[name]
             ms, pms = timed(torch, kern), timed(torch, plain)
+            dev = device_ms(torch, kern, "conv_")
             b_ms = nbytes / HBM_BYTES_PER_S * 1e3
             o_ms = ops / INT8_OPS_PER_S * 1e3
-            t["ms"] += ms
-            t["plain_ms"] += pms
-            t["library_ms"] += lib_ms
-            t["bytes_ms"] += b_ms
-            t["ops_ms"] += o_ms
-            t["bound_ms"] += max(b_ms, o_ms)
+            for key, v in (("ms", ms), ("device_ms", dev), ("plain_ms", pms),
+                           ("bytes_ms", b_ms), ("ops_ms", o_ms),
+                           ("bound_ms", max(b_ms, o_ms))):
+                t[key] = None if v is None or t[key] is None else t[key] + v
             log(f"  layer {li} {name}: {tuple(a.shape)} -> "
-                f"({n}, {ph}, {pw}, {cout}) ms {ms!r} plain_ms {pms!r} "
-                f"library_ms {lib_ms!r} bound_ms {max(b_ms, o_ms)!r} "
-                f"({ops} ops, {nbytes} B)")
+                f"({n}, {ph}, {pw}, {cout}) ms {ms!r} (device only {dev!r}) "
+                f"plain_ms {pms!r} library f16 ms {f16_ms!r} (device only "
+                f"{f16_dev!r}) f32 ms {f32_ms!r} bound_ms "
+                f"{max(b_ms, o_ms)!r} ({ops} ops, {nbytes} B)")
     out = []
     for name, t in totals.items():
         rec = _record(name, mp["launches"][name], worst[name], t["ms"],
                       t["plain_ms"], t["bytes_ms"], t["ops_ms"],
-                      t["library_ms"])
+                      lib["f16_ms"])
         rec["bound_ms"] = t["bound_ms"]       # 8 launches: sum of bounds
+        rec.update(device_ms=t["device_ms"],
+                   library_device_ms=lib["f16_device_ms"],
+                   library_f32_ms=lib["f32_ms"], library_call=LIBRARY_CONV)
         out.append(rec)
-        log(f"phase 5: {name} over the 8 layers: ms {t['ms']!r} "
-            f"plain_ms {t['plain_ms']!r} library_ms {t['library_ms']!r} "
-            f"bound_ms {rec['bound_ms']!r} ({card})")
-    return out, totals["ternary_conv2d"]["library_ms"]
+        log(f"phase 5: {name} over the 8 layers: ms {t['ms']!r} (device "
+            f"only {t['device_ms']!r}) plain_ms {t['plain_ms']!r} library "
+            f"f16 ms {lib['f16_ms']!r} (device only {lib['f16_device_ms']!r})"
+            f" f32 ms {lib['f32_ms']!r} bound_ms {rec['bound_ms']!r} "
+            f"({card})")
+    return out, lib
 
 
 def time_new_kernels(torch, FT, TC, mp, card: str, worst: dict,
-                     conv_library_ms: float) -> list[dict]:
+                     conv_lib: dict) -> list[dict]:
     """The trunk kernel on the whole program, the codec on the split's
     boundary and the thermometer on the CIFAR input, beside their bounds."""
     prog, x = mp["program"], mp["x"]
@@ -919,12 +978,15 @@ def time_new_kernels(torch, FT, TC, mp, card: str, worst: dict,
     out = [_record("fused_trunk", mp["launches"]["fused_trunk"],
                    worst["fused_trunk"], ms, pms,
                    nbytes / HBM_BYTES_PER_S * 1e3,
-                   ops / INT8_OPS_PER_S * 1e3, conv_library_ms)]
+                   ops / INT8_OPS_PER_S * 1e3, conv_lib["f16_ms"])]
+    out[-1].update(library_device_ms=conv_lib["f16_device_ms"],
+                   library_f32_ms=conv_lib["f32_ms"],
+                   library_call=LIBRARY_CONV)
     log(f"phase 5: fused_trunk, whole program in one launch at batch "
         f"{BATCH}: ms {ms!r} plain_ms {pms!r} bound_ms "
         f"{out[-1]['bound_ms']!r} ({ops} ops, {nbytes} B); library "
-        f"yardstick: 8 f32 F.conv2d calls, summed, {conv_library_ms!r} ms "
-        f"({card})")
+        f"yardsticks, 8 F.conv2d calls summed: f16 channels-last "
+        f"{conv_lib['f16_ms']!r} ms, f32 {conv_lib['f32_ms']!r} ms ({card})")
     b = mp["boundary"].reshape(1, -1)
     packed = TC.pack_trits(b)
     levels = torch.as_tensor(np.random.default_rng(SEED + 2).integers(
@@ -1201,6 +1263,14 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {n}: {line.strip()}")
     log(f"phase 2: built {names} in {time.perf_counter() - t0:.1f} s")
+    for li, c in enumerate(conv_cases()[:len(CIFAR_POOLS)]):
+        plan = K.conv_plan(c["n"], c["h"], c["w"], c["cin"], c["cout"], 3,
+                           (1, 1), True, c["pool"])
+        per_sm = K.blocks_per_sm(plan["smem"], plan["groups"])
+        log(f"  CIFAR layer {li} conv plan: tile {plan['th']}x{plan['tw']}, "
+            f"Cout slice {plan['ns']}, {plan['groups']} pipelines per "
+            f"block, grid {plan['slices'] * plan['gpb']}, {plan['smem']} B "
+            f"of dynamic shared memory, {per_sm} blocks per SM")
 
     worst = compare_kernels(torch, K, codec)
     compare_new_kernels(torch, FT, TC, worst)
@@ -1208,9 +1278,9 @@ def main() -> int:
     mp = main_path(torch, K, FT, TC, ops, engine, thermometer, compiler, P)
     llm = llm_main_path(torch, MM, TC, S, TF, DEC, C, configs)
     program_latency(torch, P, mp, card)
-    kernels, conv_lib_ms = time_kernels(torch, F, K, codec, engine, mp, card,
+    kernels, conv_lib = time_kernels(torch, F, K, codec, engine, mp, card,
                                         worst)
-    kernels += time_new_kernels(torch, FT, TC, mp, card, worst, conv_lib_ms)
+    kernels += time_new_kernels(torch, FT, TC, mp, card, worst, conv_lib)
     kernels += time_matmul_kernels(torch, MM, llm, card, worst)
     serving_numbers(torch, S, TF, llm, card)
     reset_launches(K, FT, TC, MM)          # timing launches are not counted

@@ -12,56 +12,171 @@
 // window-toggle) are added into a (3,) int32 vector with integer atomics,
 // which are order-free and so exact.
 //
-// Design.  One block of 256 threads per (image, tile of pooled output
-// pixels, tile of 32 output channels), running the tile body of
-// conv_tile.cuh (shared with the trunk megakernel, fused_trunk.cu): input
-// patch and the Cout tile's weights in shared memory, four __dp4a
-// accumulators per lane, the epilogue in registers.  The packed kernel
-// decodes the tile's byte rows in shared memory, so dense weights never
-// exist in device memory.
+// Bound on this card.  The CIFAR-10 program at batch 64 is 70.1 GOp of
+// int8 work in 8 launches, 0.0354 ms at the 1,979 TOP/s int8 tensor-core
+// peak, against 0.005 ms or less of bytes per layer at 3.35 TB/s (a 32 x
+// 32 layer reads 8.4 MB and 147 KB of weights and writes 8.4 MB): bound by
+// operations.  So the design puts the work on the tensor cores and keeps
+// the operands close to them:
+// * an implicit GEMM on mma.sync m16n8k32 s8 (the tile body of
+//   conv_mma.cuh): int32 sums of trits are exact in any order, so the
+//   output equals the plain version's bit for bit;
+// * a persistent grid, capped by the planner at the blocks that fit on
+//   the card at once: block b owns Cout slice b / gpb, stages (or decodes)
+//   that slice's weights once, and runs `groups` tile pipelines of 4 warps
+//   on them, each walking tiles gpb * groups apart;
+// * per pipeline, a two-buffer cp.async ring: the next tile's patch is in
+//   flight while this tile's MMAs and epilogue run;
+// * the epilogue in shared memory and registers; the counters from a
+//   grid-strided pass over x at the end.
+// The packed kernel differs from the dense one only in how the weights
+// are staged.  The planner (repro_torch/kernels/ternary_conv2d.py
+// `conv_plan`) picks the tile sides (multiples of the pool window), the
+// Cout slice (32 or 64 channels), the pipelines per block, the grid and
+// the shared-memory layout from the shape alone.
 //
-// Bound on this card.  Per CIFAR layer at batch 64 (32 x 32, 128 -> 128):
-// 2 * 64 * 1024 * 1152 * 128 = 19.3 GOp of int8 work, 9.8 us at the
-// 1,979 TOP/s int8 tensor-core peak, while the bytes (8.4 MB in, 8.4 MB
-// out, 147 KB of weights) take 5.0 us at 3.35 TB/s, so the work is bound
-// by operations.  __dp4a runs on the CUDA cores, far below the tensor-core
-// peak; wgmma s8 x s8 -> s32 with TMA staging is the later step that
-// closes that gap.
+// What bounds it now (PERF.md section 6): neither bytes nor the tensor
+// cores.  A pipeline's tile is a chain (copy wait, 36 dependent k steps,
+// two barriers, epilogue); the pipelines of one SM overlap those chains
+// but do not hide them.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "conv_tile.cuh"
+#include "conv_mma.cuh"
 
 namespace {
+
+constexpr int kMaxDevices = 64;
 
 struct Params {
   const int8_t* x;
   const void* w;          // dense weights or packed rows
-  TileEpi epi;
+  MmaEpi epi;
   void* out;
   int* stats;             // null: no counters
-  TileGeo geo;
+  ConvPlan g;
 };
 
-template <bool PACKED>
-__global__ void __launch_bounds__(kThreads) conv_kernel(Params p) {
-  extern __shared__ int smem[];
-  const int tr = blockIdx.x / p.geo.tiles_c, tcol = blockIdx.x % p.geo.tiles_c;
-  conv_tile<PACKED>(smem, p.geo, p.x, p.w, true, p.epi, p.out, p.stats,
-                    blockIdx.z, tr, tcol, blockIdx.y * kCoTile);
+__device__ __forceinline__ void group_sync(int gr) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(gr + 1), "r"(kGroupThreads)
+               : "memory");
 }
 
-template <bool PACKED>
-int launch(const Params& p, int n, void* stream) {
-  const TileGeo& g = p.geo;
-  const size_t smem = sizeof(int) * (size_t)tile_smem_words(g);
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_kernel<PACKED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(g.tiles_r * g.tiles_c, (g.cout + kCoTile - 1) / kCoTile, n);
-  conv_kernel<PACKED><<<grid, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(p);
+template <bool PACKED, int NT>
+__global__ void __launch_bounds__(4 * kGroupThreads, 1)
+    conv_mma_kernel(Params p) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const ConvPlan& g = p.g;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gr = warp >> 2, lt = tid & (kGroupThreads - 1);
+  const int wm = (warp >> 1) & 1, wn = warp & 1;  // 2 x 2 warps a group
+  const int slice = blockIdx.x / g.gpb;
+  const int first = (blockIdx.x - slice * g.gpb) * g.groups + gr;
+  const int step = g.gpb * g.groups;
+  const int co0 = slice * g.ns;
+  const int ntiles = g.n * g.tiles_r * g.tiles_c;
+  uint8_t* bs = smem;
+  uint8_t* epi = smem + g.off_epi;
+  uint8_t* grp = smem + g.off_grp + gr * g.grp_bytes;
+  uint8_t* const buf0 = grp + g.off_buf0;
+  uint8_t* const buf1 = grp + g.off_buf1;
+  uint8_t* unp = grp + g.off_unp;
+
+  auto start_copy = [&](int t, uint8_t* dst) {
+    if (g.direct)
+      copy_patch(g, p.x, tile_at(g, t), dst, lt);
+    else
+      copy_raw(g, p.x, tile_at(g, t), dst, lt);
+  };
+
+  // each group's first patch is in flight while the block stages the
+  // weights; the table of the packed decode borrows the compute buffer
+  // that group 0's first tile leaves alone
+  if (first < ntiles) start_copy(first, buf0);
+  cp_async_commit();
+  stage_weights_mma<PACKED>(
+      g, p.w, co0, bs,
+      smem + g.off_grp + (g.direct ? g.off_buf1 : g.off_unp));
+  stage_epilogue(g, p.epi, co0, epi);
+  __syncthreads();
+  Epilogue<16 * NT> ep;
+  ep.init(g, co0, epi, lt);
+  const Frag<NT> f = frag_offsets<NT>(g, wm, wn, lane);
+  const bool busy = wm * 32 < g.th * g.tw;
+
+  // the group's own pipeline: its tiles, its ring, its barrier
+  int zeros = 0;
+  bool odd = false;              // tile t's patch is in buf1
+  for (int t = first; t < ntiles; t += step, odd = !odd) {
+    uint8_t* const cur = odd ? buf1 : buf0;
+    cp_async_wait_all();
+    group_sync(gr);              // tile t's patch is in; tile t-1 is done
+    if (t + step < ntiles) start_copy(t + step, odd ? buf0 : buf1);
+    cp_async_commit();
+    uint8_t* a = cur;
+    if (!g.direct) {
+      repack(g, tile_at(g, t), cur, unp, lt);
+      a = unp;
+      group_sync(gr);
+    }
+    int acc[2][NT][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+    if (busy) mma_tile<NT>(acc, g, f, a, bs);
+    group_sync(gr);              // every warp is done reading the patch
+    if (busy) stage_sums<NT>(acc, wm, wn, lane, a);
+    group_sync(gr);
+    zeros += ep.run(g, tile_at(g, t), a, p.out, lt);
+  }
+  cp_async_wait_all();
+
+  // -- counters: in-zero over the whole batch and window toggles over
+  // image 0's raster, each cut into one range of rows per block ---------
+  if (p.stats == nullptr) return;                  // uniform over the grid
+  int r0, r1, n_in = 0, n_tg = 0;
+  chunk_range(g.n * g.h, gridDim.x, blockIdx.x, &r0, &r1);
+  n_in = zero_count(p.x, g.w, g.cin, g.stat_c, r0, r1, 0, g.w);
+  chunk_range(g.wh, gridDim.x, blockIdx.x, &r0, &r1);
+  n_tg = window_toggle_count(p.x, g.h, g.w, g.cin, g.stat_c, g.k, g.pad,
+                             g.wh, g.ww, r0, r1, 0, g.ww);
+  for (int off = 16; off > 0; off >>= 1) {
+    n_in += __shfl_down_sync(0xffffffffu, n_in, off);
+    zeros += __shfl_down_sync(0xffffffffu, zeros, off);
+    n_tg += __shfl_down_sync(0xffffffffu, n_tg, off);
+  }
+  if (lane == 0) {
+    if (n_in) atomicAdd(p.stats + 0, n_in);
+    if (zeros) atomicAdd(p.stats + 1, zeros);
+    if (n_tg) atomicAdd(p.stats + 2, n_tg);
+  }
+}
+
+template <bool PACKED, int NT>
+int launch(const Params& p, cudaStream_t stream) {
+  auto kern = conv_mma_kernel<PACKED, NT>;
+  // set the attributes once per card, and again only for a larger
+  // shared-memory need
+  static int smem_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t derr = cudaGetDevice(&dev);
+  if (derr != cudaSuccess) return (int)derr;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (p.g.smem > smem_set[dev]) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.g.smem);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dev] = p.g.smem;
+  }
+  kern<<<p.g.slices * p.g.gpb, p.g.groups * kGroupThreads, p.g.smem,
+         stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -69,13 +184,13 @@ int launch(const Params& p, int n, void* stream) {
 
 extern "C" {
 
-// geo holds TileGeo's int fields in declaration order (see
-// repro_torch/kernels/ternary_conv2d.py `tile_geometry`).  Returns the
+// plan holds ConvPlan's int fields in declaration order (see
+// repro_torch/kernels/ternary_conv2d.py `conv_plan`).  Returns the
 // cudaError_t of the launch (0 on success).
 int cutie_ternary_conv2d(int packed, const void* x, const void* w,
                          const void* t_lo, const void* t_hi, const void* flip,
                          const void* cnst, const void* is_const, void* out,
-                         void* stats, int n, const int* geo, void* stream) {
+                         void* stats, const int* plan, void* stream) {
   Params p;
   p.x = static_cast<const int8_t*>(x);
   p.w = w;
@@ -86,9 +201,17 @@ int cutie_ternary_conv2d(int packed, const void* x, const void* w,
   p.epi.is_const = static_cast<const int8_t*>(is_const);
   p.out = out;
   p.stats = static_cast<int*>(stats);
-  int* f = reinterpret_cast<int*>(&p.geo);
-  for (size_t i = 0; i < sizeof(TileGeo) / sizeof(int); ++i) f[i] = geo[i];
-  return packed ? launch<true>(p, n, stream) : launch<false>(p, n, stream);
+  int* f = reinterpret_cast<int*>(&p.g);
+  for (size_t i = 0; i < sizeof(ConvPlan) / sizeof(int); ++i) f[i] = plan[i];
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.g.groups < 1 || p.g.groups > 4) return (int)cudaErrorInvalidValue;
+  switch (p.g.ns * 2 + packed) {      // the slice: 16 NT channels
+    case 64: return launch<false, 2>(p, s);
+    case 65: return launch<true, 2>(p, s);
+    case 128: return launch<false, 4>(p, s);
+    case 129: return launch<true, 4>(p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* cutie_error_string(int err) {

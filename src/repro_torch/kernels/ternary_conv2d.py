@@ -22,6 +22,7 @@ over the output, toggle over image 0's stride-1 window raster.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -109,17 +110,9 @@ TILE_FIELDS = ("h", "w", "cin", "cout", "k", "sh", "sw", "pad", "win",
                "ww", "w_rows", "row_bytes", "stat_c")
 
 
-def tile_geometry(h: int, w: int, cin: int, cout: int, k: int, stride,
-                  padding: bool, pool, *, fuse: bool = True,
-                  w_rows: int | None = None, row_bytes: int = 0,
-                  stat_c: int | None = None) -> dict:
-    """One layer's TileGeo for the tile body of `csrc/conv_tile.cuh`.
-
-    Raises on what the kernels do not take: an unpadded kernel larger
-    than the map, a pool window larger than the conv output, or a tile
-    that needs more shared memory than a block has.
-    """
-    sh, sw = stride
+def _conv_dims(h, w, k, stride, padding, pool):
+    """(oh, ow, win, ph, pw), raising on a kernel or pool window that does
+    not fit the map."""
     oh, ow = conv_out_dims(k, stride, padding, h, w)
     if oh <= 0 or ow <= 0:
         raise ValueError(f"unpadded kernel {k} does not fit {h}x{w}")
@@ -128,6 +121,22 @@ def tile_geometry(h: int, w: int, cin: int, cout: int, k: int, stride,
     if ph == 0 or pw == 0:
         raise ValueError(f"pool window {win} exceeds the {oh}x{ow} conv "
                          "output")
+    return oh, ow, win, ph, pw
+
+
+def tile_geometry(h: int, w: int, cin: int, cout: int, k: int, stride,
+                  padding: bool, pool, *, fuse: bool = True,
+                  w_rows: int | None = None, row_bytes: int = 0,
+                  stat_c: int | None = None) -> dict:
+    """One layer's TileGeo for the `__dp4a` tile body of
+    `csrc/conv_tile.cuh`, which the trunk megakernel runs.
+
+    Raises on what the kernel does not take: an unpadded kernel larger
+    than the map, a pool window larger than the conv output, or a tile
+    that needs more shared memory than a block has.
+    """
+    sh, sw = stride
+    _, _, win, ph, pw = _conv_dims(h, w, k, stride, padding, pool)
     tp = max(1, 8 // win)              # pooled pixels per tile side
     tc = tp * win
     cw = -(-cin // 4)
@@ -146,33 +155,194 @@ def tile_geometry(h: int, w: int, cin: int, cout: int, k: int, stride,
                 row_bytes=row_bytes, stat_c=cin if stat_c is None else stat_c)
 
 
-def geo_array(rows) -> ctypes.Array:
-    """TileGeo rows as the flat C int array the kernels read."""
-    flat = [int(g[f]) for g in rows for f in TILE_FIELDS]
+#: The int fields of `csrc/conv_mma.cuh` ConvPlan, in declaration order.
+PLAN_FIELDS = ("n", "h", "w", "cin", "cout", "k", "sh", "sw", "pad", "win",
+               "kind", "ph", "pw", "fuse", "wh", "ww", "row_bytes",
+               "stat_c", "th", "tw", "tiles_r", "tiles_c", "ns", "slices",
+               "gpb", "cp", "pr", "pc", "ps", "direct", "raw_row",
+               "b_stride", "groups", "off_epi", "off_grp", "grp_bytes",
+               "off_buf0", "off_buf1", "off_unp", "smem")
+
+SM_COUNT = 132            # streaming multiprocessors of an H100 SXM
+_SM_SMEM = 233472         # shared memory of one SM
+_BLOCK_RESERVED = 1024    # shared memory the runtime keeps per block
+_MAX_GROUPS = 4           # tile pipelines of 4 warps in one block
+_MIN_TILE_PIXELS = 16     # the planner shrinks tiles no further
+_ROWS = 64                # GEMM rows of a tile: its pixels, padded
+_SLICE = 64               # output channels per block where Cout > 32
+_FILL = 0.95              # least share of the SMs a plan must occupy
+
+
+def _r16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def _layout(*, cin, k, sh, sw, th, tw, ns, groups) -> dict:
+    """Tile geometry and shared-memory layout of the tile body for conv
+    tile sides (th, tw), a Cout slice of ns channels and ``groups`` tile
+    pipelines: the slice's weights, its epilogue vectors, then each
+    pipeline's buffers."""
+    cp = -(-cin // 32) * 32
+    ps = cp + 16                       # odd multiple of 16: no bank clash
+    pr, pc = (th - 1) * sh + k, (tw - 1) * sw + k
+    b_stride = k * k * cp + 16
+    # the compute buffer holds the patch, then the int16 sums
+    slot = _r16(max(pr * pc * ps, _ROWS * (ns + 8) * 2))
+    direct = cin % 16 == 0
+    if direct:                         # ring: two compute buffers
+        raw_row, buf1, unp, grp = 0, slot, 0, 2 * slot
+    else:                              # ring: two raw buffers; one compute
+        raw_row = _r16(pc * cin + 15)
+        raw = _r16(pr * raw_row)
+        buf1, unp, grp = raw, 2 * raw, 2 * raw + slot
+    off_epi = ns * b_stride
+    off_grp = off_epi + _r16(11 * ns)
+    return dict(th=th, tw=tw, ns=ns, cp=cp, pr=pr, pc=pc, ps=ps,
+                direct=int(direct), raw_row=raw_row, b_stride=b_stride,
+                groups=groups, off_epi=off_epi, off_grp=off_grp,
+                grp_bytes=grp, off_buf0=0, off_buf1=buf1, off_unp=unp,
+                smem=off_grp + groups * grp)
+
+
+def blocks_per_sm(smem: int, groups: int) -> int:
+    """Blocks of the tile body that fit on one SM: by shared memory, and
+    by registers, of which the kernel takes up to 128 a thread, so that
+    _MAX_GROUPS pipelines of 128 threads fill an SM's 65,536."""
+    return max(1, min(_MAX_GROUPS // groups,
+                      _SM_SMEM // (smem + _BLOCK_RESERVED)))
+
+
+def conv_plan(n: int, h: int, w: int, cin: int, cout: int, k: int, stride,
+              padding: bool, pool, *, fuse: bool = True, row_bytes: int = 0,
+              stat_c: int | None = None) -> dict:
+    """One layer's ConvPlan for the implicit-GEMM tile body of
+    `csrc/conv_mma.cuh`, from the shape alone.
+
+    * The tile is th x tw conv outputs, at most 8 x 8, whose sides are
+      multiples of the pool window, so that a window never spans two
+      tiles (6 x 6 for a window of 3).
+    * The Cout slice is _SLICE (64) channels, or 32 where Cout <= 32.
+    * Where (tiles x slices) would give fewer blocks than the card's
+      SM_COUNT, the slice drops to 32, then the tile's longer side halves
+      (in pooled pixels) down to _MIN_TILE_PIXELS conv outputs.
+    * A block runs ``groups`` tile pipelines of 4 warps on one copy of the
+      slice's weights: the most (up to 4) that fit its shared memory and
+      still give blocks for _FILL of the SMs, else 1.
+    * The grid is persistent: each slice gets gpb = ceil(tiles / groups)
+      blocks, raised to SM_COUNT / slices where there are as many tiles,
+      and capped at slots // slices, slots being the blocks that fit on
+      the card at once.
+
+    Raises on what the kernel does not take: an unpadded kernel larger
+    than the map, a pool window larger than the conv output, pooled sums
+    that may not fit the kernel's int16 lanes (win*win*k*k*Cin >= 32767),
+    or a tile that needs more shared memory than a block has.
+    """
+    sh, sw = stride
+    _, _, win, ph, pw = _conv_dims(h, w, k, stride, padding, pool)
+    if win * win * k * k * cin >= 32767:
+        raise ValueError(f"win*win*k*k*Cin = {win * win * k * k * cin} >= "
+                         "32767: the pooled sums may not fit the kernel's "
+                         "int16 lanes")
+    tph, tpw = min(max(1, 8 // win), ph), min(max(1, 8 // win), pw)
+    ns = 32 if cout <= 32 else _SLICE
+
+    def tiles(a, b):
+        return n * -(-ph // a) * -(-pw // b)
+
+    def shrink(a, b):                  # halve the longer side, or None
+        if a * b * win * win <= _MIN_TILE_PIXELS:
+            return None
+        if a >= b and a > 1:
+            return -(-a // 2), b
+        return (a, -(-b // 2)) if b > 1 else None
+
+    while tiles(tph, tpw) * -(-cout // ns) < SM_COUNT:
+        if ns > 32:
+            ns = 32
+        elif (smaller := shrink(tph, tpw)) is not None:
+            tph, tpw = smaller
+        else:
+            break
+    while True:
+        slices, nt = -(-cout // ns), tiles(tph, tpw)
+        fits = []
+        for groups in range(_MAX_GROUPS, 0, -1):
+            lay = _layout(cin=cin, k=k, sh=sh, sw=sw, th=tph * win,
+                          tw=tpw * win, ns=ns, groups=groups)
+            if lay["smem"] > _SMEM_LIMIT:
+                continue
+            slots = blocks_per_sm(lay["smem"], groups) * SM_COUNT
+            gpb = min(-(-nt // groups), max(1, slots // slices))
+            fits.append((lay, max(1, slots // slices)))
+            if slices * gpb >= min(_FILL * SM_COUNT, slices * nt):
+                break
+        if fits:
+            lay, cap = fits[-1]
+            # at least SM_COUNT blocks where the tiles allow: a block whose
+            # pipelines find no tile stages its weights and ends
+            gpb = min(max(-(-nt // lay["groups"]), -(-SM_COUNT // slices)),
+                      nt, cap)
+            break
+        if ns > 32:
+            ns = 32
+        elif (smaller := shrink(tph, tpw)) is not None:
+            tph, tpw = smaller
+        else:
+            raise ValueError(f"layer needs {lay['smem']} B of shared "
+                             f"memory per block, more than {_SMEM_LIMIT}")
+    return dict(lay, n=n, h=h, w=w, cin=cin, cout=cout, k=k, sh=sh, sw=sw,
+                pad=k // 2 if padding else 0, win=win,
+                kind=_POOL_KIND[pool[0] if pool else None], ph=ph, pw=pw,
+                fuse=int(fuse), wh=h if padding else h - k + 1,
+                ww=w if padding else w - k + 1, row_bytes=row_bytes,
+                stat_c=cin if stat_c is None else stat_c,
+                tiles_r=-(-ph // tph), tiles_c=-(-pw // tpw), slices=slices,
+                gpb=gpb)
+
+
+def geo_array(rows, fields=TILE_FIELDS) -> ctypes.Array:
+    """TileGeo (or ConvPlan) rows as the flat C int array the kernels
+    read."""
+    flat = [int(g[f]) for g in rows for f in fields]
     return (ctypes.c_int * len(flat))(*flat)
 
 
 def epilogue_vectors(dev, shape, t_lo, t_hi, flip, const, is_const):
-    """Thresholds as contiguous float32 / int8 tensors of ``shape`` on
-    ``dev``: the pointers the kernels read.  Tensors that already are
-    pass through without a copy."""
-    def vec(v, dtype):
-        if not (isinstance(v, torch.Tensor) and v.dtype == dtype
-                and v.device == dev and v.is_contiguous()):
-            v = torch.as_tensor(v, device=dev).to(dtype).contiguous()
-        return v.reshape(shape)
-    out = [vec(t_lo, torch.float32), vec(t_hi, torch.float32),
-           vec(flip, torch.int8)]
+    """Thresholds as contiguous tensors of ``shape`` on ``dev``, float32
+    (t_lo, t_hi) or one byte per channel (flip, const, is_const: int8, or
+    bool, whose bytes are the same 0 and 1): the pointers the kernels read.
+    Tensors that already are pass through without a copy."""
+    def vec(v, dtypes):
+        if not (isinstance(v, torch.Tensor) and v.dtype in dtypes
+                and v.device == dev and v.is_contiguous()
+                and v.shape == shape):
+            v = torch.as_tensor(v, device=dev).to(dtypes[0]).contiguous()
+            v = v.reshape(shape)
+        return v
+    f32, byte = (torch.float32,), (torch.int8, torch.bool)
+    out = [vec(t_lo, f32), vec(t_hi, f32), vec(flip, byte)]
     if const is not None:
-        out += [vec(const, torch.int8), vec(is_const, torch.int8)]
+        out += [vec(const, byte), vec(is_const, byte)]
     return out
 
 
 def aligned(x: torch.Tensor) -> torch.Tensor:
-    """Contiguous, on a 16-byte boundary: the patch load reads int32
-    words."""
+    """Contiguous, on a 16-byte boundary: the patch copies read 16-byte
+    chunks and the dense weights 4-byte words."""
     x = x.contiguous()
     return x.clone() if x.data_ptr() % 16 else x
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_array(n, h, w, cin, cout, k, stride, padding, pool, fuse,
+                row_bytes) -> tuple[int, int, ctypes.Array]:
+    """(PH, PW, the ConvPlan as the kernel reads it), planned once per
+    shape: the plan is pure Python and would cost tens of microseconds of
+    host time on every call."""
+    g = conv_plan(n, h, w, cin, cout, k, stride, padding, pool, fuse=fuse,
+                  row_bytes=row_bytes)
+    return g["ph"], g["pw"], geo_array([g], PLAN_FIELDS)
 
 
 def _library() -> ctypes.CDLL:
@@ -180,8 +350,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.cutie_ternary_conv2d
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
-                       + [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                          ctypes.c_void_p])
+                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
@@ -202,12 +371,13 @@ def _launch(name: str, x, w, *, packed: bool, k: int, cin: int, cout: int,
     n, h, wd, _ = x.shape
     if not 1 <= n <= 65535:
         raise ValueError(f"batch {n} outside 1..65535")
-    g = tile_geometry(h, wd, cin, cout, k, stride, padding, pool, fuse=fuse,
-                      row_bytes=row_bytes)
-    x, w = aligned(x), w.contiguous()
+    ph, pw, plan = _plan_array(n, h, wd, cin, cout, k, tuple(stride),
+                               bool(padding), tuple(pool) if pool else None,
+                               fuse, row_bytes)
+    x, w = aligned(x), aligned(w)
     vecs = (epilogue_vectors(dev, (cout,), t_lo, t_hi, flip, const,
                              is_const) if fuse else [])
-    out = torch.empty((n, g["ph"], g["pw"], cout),
+    out = torch.empty((n, ph, pw, cout),
                       dtype=torch.int8 if fuse else torch.int32, device=dev)
     stats = (torch.zeros(3, dtype=torch.int32, device=dev) if emit_stats
              else None)
@@ -216,8 +386,8 @@ def _launch(name: str, x, w, *, packed: bool, k: int, cin: int, cout: int,
     lib = _library()
     err = lib.cutie_ternary_conv2d(
         int(packed), x.data_ptr(), w.data_ptr(), *ptrs, out.data_ptr(),
-        stats.data_ptr() if stats is not None else None, n, geo_array([g]),
-        torch.cuda.current_stream(dev).cuda_stream)
+        stats.data_ptr() if stats is not None else None, plan,
+        torch._C._cuda_getCurrentRawStream(dev.index))
     _build.check(lib, err, name)
     LAUNCHES[name] += 1
     return (out, stats) if emit_stats else out

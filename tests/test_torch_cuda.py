@@ -32,6 +32,8 @@ def cuda():
     return torch.device("cuda")
 
 
+CIFAR_POOLS = (None, None, ("max", 2), None, ("max", 2), None, ("max", 2),
+               ("avg", 4))
 CASES = [
     dict(n=4, h=32, w=32, cin=126, cout=128),
     dict(n=4, h=16, w=16, cin=128, cout=128, pool=("max", 2)),
@@ -86,6 +88,52 @@ def test_raw_int32_matches_plain_on_card(cuda):
     assert torch.equal(K.ternary_conv2d(x, w), K.ternary_conv2d_plain(x, w))
 
 
+# The edges of the conv kernels' planner (`K.conv_plan`): every CIFAR
+# layer shape at batch 64, maps that are not multiples of the pixel tile,
+# Cout over several slices and ragged, stride 3 with avg 3, avg 4 on a
+# 4 x 4 map, packed rows whose length (k*k*Cin trits) is not a multiple
+# of 5.
+PLAN_CASES = {
+    f"cifar-layer{i}": dict(n=64, h=hw, w=hw, cin=126 if i == 0 else 128,
+                            cout=128, pool=pool)
+    for i, (hw, pool) in enumerate(zip(
+        (32, 32, 32, 16, 16, 8, 8, 4), CIFAR_POOLS))
+}
+PLAN_CASES.update({
+    "map11x9-cout33": dict(n=3, h=11, w=9, cin=16, cout=33,
+                           pool=("max", 2)),
+    "map17x17-cout160": dict(n=2, h=17, w=17, cin=32, cout=160),
+    "stride3-avg3": dict(n=3, h=12, w=12, cin=16, cout=20, stride=(3, 3),
+                         pool=("avg", 3)),
+    "avg4-map4": dict(n=5, h=4, w=4, cin=64, cout=33, pool=("avg", 4)),
+    "rows-not-x5": dict(n=2, h=7, w=12, cin=7, cout=9, pool=("max", 2)),
+})
+
+
+@pytest.mark.parametrize("name", sorted(PLAN_CASES))
+def test_planner_edges_match_plain_on_card(cuda, name):
+    x, w, kw = _case(np.random.default_rng(30), cuda, **PLAN_CASES[name])
+    want_y, want_s = K.ternary_conv2d_plain(x, w, emit_stats=True, **kw)
+    wp = codec.pack_filter_rows(w)
+    before = dict(K.LAUNCHES)
+    got = {"ternary_conv2d": K.ternary_conv2d(x, w, emit_stats=True, **kw),
+           "ternary_conv2d_packed": K.ternary_conv2d_packed(
+               x, wp, k=3, cin=w.shape[2], emit_stats=True, **kw)}
+    torch.cuda.synchronize()
+    for kname, (y, s) in got.items():
+        assert K.LAUNCHES[kname] == before[kname] + 1
+        assert torch.equal(y, want_y) and torch.equal(s, want_s), kname
+
+
+def test_raw_int32_cin126_matches_plain_on_card(cuda):
+    x, w, _ = _case(np.random.default_rng(31), cuda, n=8, h=32, w=32,
+                    cin=126, cout=128)
+    want = K.ternary_conv2d_plain(x, w)
+    assert torch.equal(K.ternary_conv2d(x, w), want)
+    assert torch.equal(K.ternary_conv2d_packed(
+        x, codec.pack_filter_rows(w), k=3, cin=126), want)
+
+
 @pytest.mark.parametrize("backend", ["cuda", "packed"])
 def test_pipeline_matches_ref_on_card(cuda, backend):
     rng = np.random.default_rng(8)
@@ -109,8 +157,6 @@ def test_pipeline_matches_ref_on_card(cuda, backend):
 
 # -- the trunk megakernel ----------------------------------------------------
 
-CIFAR_POOLS = (None, None, ("max", 2), None, ("max", 2), None, ("max", 2),
-               ("avg", 4))
 TRUNKS = {
     "cifar-width": dict(n=2, hw=(32, 32), cin=126, c=128,
                         metas=[((1, 1), p) for p in CIFAR_POOLS]),

@@ -203,3 +203,79 @@ def test_conv_wrappers_refuse_what_they_cannot_run():
                                 k=3, cin=3)
     with pytest.raises(ValueError, match="no kernel for device"):
         K.ternary_conv2d(x.to("meta"), w.to("meta"))
+
+
+# -- the conv kernels' planner (pure Python: no card) ------------------------
+
+
+def _phase3_cases():
+    """The conv cases `chip_smoke.py` phase 3 runs on the card."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("_chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.conv_cases()
+
+
+PHASE3 = _phase3_cases()
+
+
+def _plan(c):
+    return K.conv_plan(c["n"], c["h"], c["w"], c["cin"], c["cout"], 3,
+                       c.get("stride", (1, 1)), c.get("padding", True),
+                       c.get("pool"), fuse=c.get("fuse", True))
+
+
+@pytest.mark.parametrize("i", range(len(PHASE3)))
+def test_conv_plan_tiles_cover_each_output_once(i):
+    c = PHASE3[i]
+    g = _plan(c)
+    win = g["win"]
+    assert g["th"] % win == 0 and g["tw"] % win == 0
+    assert g["smem"] <= 232448
+    assert g["smem"] == K._layout(cin=c["cin"], k=3, sh=g["sh"], sw=g["sw"],
+                                  th=g["th"], tw=g["tw"], ns=g["ns"],
+                                  groups=g["groups"])["smem"]
+    # the blocks' walk (csrc/ternary_conv2d.cu): block b owns slice
+    # b // gpb; its pipeline r takes tiles q, q + step, ... with q =
+    # (b % gpb) * groups + r and step = gpb * groups
+    seen = np.zeros((g["n"], g["ph"], g["pw"], g["cout"]), np.int32)
+    ntiles = g["n"] * g["tiles_r"] * g["tiles_c"]
+    tph, tpw = g["th"] // win, g["tw"] // win
+    step = g["gpb"] * g["groups"]
+    firsts = [(b, (b % g["gpb"]) * g["groups"] + r)
+              for b in range(g["slices"] * g["gpb"])
+              for r in range(g["groups"])]
+    for b, first in firsts:
+        co0 = (b // g["gpb"]) * g["ns"]
+        for t in range(first, ntiles, step):
+            img, r = divmod(t, g["tiles_r"] * g["tiles_c"])
+            tr, tc = divmod(r, g["tiles_c"])
+            seen[img, tr * tph:(tr + 1) * tph, tc * tpw:(tc + 1) * tpw,
+                 co0:co0 + g["ns"]] += 1
+    assert (seen == 1).all()
+
+
+def test_conv_plan_fills_the_card_on_cifar():
+    for c in PHASE3[:8]:                     # the CIFAR layers at batch 64
+        g = _plan(c)
+        grid = g["slices"] * g["gpb"]
+        pairs = g["slices"] * g["n"] * g["tiles_r"] * g["tiles_c"]
+        assert grid >= K.SM_COUNT or grid == pairs, c
+        slots = K.blocks_per_sm(g["smem"], g["groups"]) * K.SM_COUNT
+        assert grid <= g["slices"] * (slots // g["slices"]), c
+
+
+def test_conv_plan_raises_on_what_does_not_fit():
+    with pytest.raises(ValueError, match="shared memory"):
+        K.conv_plan(1, 8, 8, 1024, 64, 3, (1, 1), True, None)
+    with pytest.raises(ValueError, match="int16"):
+        K.conv_plan(1, 8, 8, 4000, 64, 3, (1, 1), True, None)
+    with pytest.raises(ValueError, match="int16"):
+        K.conv_plan(1, 8, 8, 256, 64, 3, (1, 1), True, ("avg", 4))
+    with pytest.raises(ValueError, match="does not fit"):
+        K.conv_plan(1, 2, 2, 8, 8, 3, (1, 1), False, None)
+    with pytest.raises(ValueError, match="exceeds"):
+        K.conv_plan(1, 3, 3, 8, 8, 3, (1, 1), True, ("avg", 4))

@@ -289,8 +289,14 @@ def test_validation_errors(model):
 
 def test_unported_surfaces_name_their_roadmap_item(model):
     _, _, p, cfg = model
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 10") as e:
         configs.get("mamba2-780m")
+    assert "its family waits" in str(e.value)
+    for arch in ("internlm2-1.8b", "codeqwen1.5-7b", "qwen2.5-32b"):
+        with pytest.raises(NotImplementedError, match="item 10") as e:
+            configs.get(arch)
+        assert "config file is not ported yet" in str(e.value)
+        assert "family" not in str(e.value)
     with pytest.raises(NotImplementedError, match="item 10"):
         TF.init_params(cfg.replace(family="moe"), torch.Generator())
     with pytest.raises(NotImplementedError, match="item 10"):
