@@ -7,15 +7,21 @@ Phases, each of which fails the script (no result line) when it fails:
 
 1. the card's name and power limit, from nvidia-smi;
 2. build every kernel from `src/repro_torch/csrc/` with nvcc (sm_90a),
-   printing ptxas's registers and spills and, for each CIFAR layer, the
-   conv kernels' plan (tile, Cout slice, pipelines, grid, shared memory);
+   printing ptxas's registers and spills per entry function and, for each
+   CIFAR layer, the conv kernels' plan (tile, Cout slice, pipelines, grid,
+   shared memory), then the trunk kernel's plan of the CIFAR trunk (its
+   block size, shared memory and grid, and each layer's tile, slice,
+   blocks per slice and patch-copy path);
 3. hold each kernel against its plain PyTorch version on the card: the
    conv kernels on the full-width CIFAR layer shapes plus odd-channel,
    stride-2/3, unpadded, raw-int32 and const-channel cases and the edges
    of their planner (`conv_cases`);
    the trunk megakernel on the full CIFAR trunk at batch 64, its two-trunk
-   split through a packed boundary, odd C = 13 with a head Cin of 6, and
-   stride 2 + avg pool; the codec and thermometer kernels at the main
+   split through a packed boundary and the edges of its planner
+   (`trunk_cases`: C = 13 behind a head Cin of 6, stride 2 + avg pool,
+   avg 4 on 4 x 4 into a 1 x 1 layer, N = 1, 16 layers), and a trunk past
+   the tile body's int16 limit, which must raise; the codec and
+   thermometer kernels at the main
    path's shapes and at lengths that are not a multiple of 5 x 128;
    counters included; the packed ternary matmul (every epilogue, int8 and
    bf16 x, M in {1, 4, 37, 128}, ragged N, a logical K that is not a
@@ -45,16 +51,20 @@ Phases, each of which fails the script (no result line) when it fails:
    packed matmul kernel must launch 7 x 16 times per model forward
    (prefill or decode step), the same requests served contiguous must give
    the same tokens, and one prefill's logits with the plain matmul must
-   agree with the kernel's within ``LOGIT_TOL``;
+   agree with the kernel's within ``LOGIT_TOL``; then the same requests
+   with ``kv_codec="trit"`` (kernels 4 and 5 in every decode step) must
+   give the same tokens as with the codec's plain versions, and their
+   agreement with the raw serve is reported;
 5. time the whole program (`run`, `measure`) per backend on the host
    clock, then each kernel at the main path's shapes beside its bound, its
    plain version and, where one PyTorch call computes the same function,
    that call as a library yardstick (f16 channels-last `F.conv2d`, whose
    int32 cast must equal the conv kernel's raw output, with f32
    `F.conv2d` beside it; bf16 `torch.matmul` on pre-decoded weights;
-   `torch._int_mm`); kernels 1, 2, 7 and 8 also with their device-only
-   time and the library call's (torch.profiler); kernels 7 and 8 with
-   the wrapper's host microseconds per call, kernel 7 at the decode M
+   `torch._int_mm`); kernels 1, 2, 3, 7 and 8 also with their device-only
+   time and the library call's (torch.profiler); kernel 3 with its
+   per-layer timeline (the kernel's own clock stamps); kernels 3, 7 and 8
+   with the wrapper's host microseconds per call, kernel 7 at the decode M
    and at the prefill M; then the serving times
    (decode step, prefill, tokens/s, latency p50/p99) of the LLM path and
    of the same requests on ``quant="none"``, the bf16 baseline.
@@ -238,7 +248,6 @@ def _trunk_case(rng, torch, *, n, hw, cin, c, pools, strides=None):
     """Random trunk operands: x, w_stack (head rows zero-padded), the five
     stacked epilogue vectors and the metas."""
     nl, cu, dev = len(pools), max(cin, c), DEVICE
-    strides = strides or [(1, 1)] * nl
     w = rng.integers(-1, 2, (nl, 3, 3, cu, c)).astype(np.int8)
     w[0, :, :, cin:] = 0
     scale = np.array([p[1] ** 2 if p and p[0] == "avg" else 1
@@ -254,20 +263,45 @@ def _trunk_case(rng, torch, *, n, hw, cin, c, pools, strides=None):
           torch.as_tensor(rng.random((nl, c)) < 0.2, device=dev)]
     x = torch.as_tensor(rng.integers(-1, 2, (n, *hw, cin)), dtype=torch.int8,
                         device=dev)
-    return x, torch.as_tensor(w, device=dev), th, tuple(zip(strides, pools))
+    return x, torch.as_tensor(w, device=dev), th, trunk_metas(
+        dict(pools=pools, strides=strides))
+
+
+def trunk_cases() -> list[dict]:
+    """Phase 3's trunk cases: the full CIFAR trunk at batch 64 (its head,
+    Cin 126, on the raw-copy path), then the edges of the trunk planner
+    (`trunk_plan`): C = 13 (a partial slice) behind a head of 6, stride 2
+    with avg 2, avg 4 on a 4 x 4 map into a 1 x 1 layer (C = 33 behind a
+    head of 64: weight rows at Cu = 64, the second layer on the raw path),
+    N = 1 with fewer tiles than blocks, and a 16-layer trunk."""
+    return [dict(n=BATCH, hw=(CIFAR_HW, CIFAR_HW), cin=CIFAR_CIN,
+                 c=CIFAR_WIDTH, pools=CIFAR_POOLS),
+            dict(n=3, hw=(11, 9), cin=6, c=13,
+                 pools=(None, ("max", 2), None)),
+            dict(n=2, hw=(17, 15), cin=16, c=16,
+                 pools=(None, ("avg", 2), None),
+                 strides=[(2, 2), (1, 1), (1, 1)]),
+            dict(n=5, hw=(4, 4), cin=64, c=33, pools=(("avg", 4), None)),
+            dict(n=1, hw=(8, 8), cin=16, c=32,
+                 pools=(None, ("max", 2), None)),
+            dict(n=2, hw=(16, 16), cin=8, c=16,
+                 pools=(None, None, None, ("max", 2)) + (None,) * 3
+                 + (("max", 2),) + (None,) * 8)]
+
+
+def trunk_metas(spec) -> tuple:
+    """A trunk case's (stride, pool) per layer."""
+    strides = spec.get("strides") or [(1, 1)] * len(spec["pools"])
+    return tuple(zip(strides, spec["pools"]))
 
 
 def compare_new_kernels(torch, FT, TC, worst: dict) -> None:
     """The trunk, codec and thermometer kernels against their plain
-    versions on the card, counters included."""
+    versions on the card, counters included; a trunk past the tile body's
+    int16 limit must raise."""
     rng = np.random.default_rng(SEED + 3)
-    full = dict(n=BATCH, hw=(CIFAR_HW, CIFAR_HW), cin=CIFAR_CIN,
-                c=CIFAR_WIDTH, pools=CIFAR_POOLS)
-    small = [dict(n=3, hw=(11, 9), cin=6, c=13,
-                  pools=(None, ("max", 2), None)),
-             dict(n=2, hw=(17, 15), cin=16, c=16,
-                  pools=(None, ("avg", 2), None),
-                  strides=[(2, 2), (1, 1), (1, 1)])]
+    cases = trunk_cases()
+    full = cases[0]
     n_cases = 0
 
     def check(got, want, what):
@@ -281,12 +315,23 @@ def compare_new_kernels(torch, FT, TC, worst: dict) -> None:
             raise RuntimeError(f"{what} disagrees with its plain version: "
                                f"max |err| {err}")
 
-    for spec in [full] + small:
+    for spec in cases:
         x, w, th, metas = _trunk_case(rng, torch, **spec)
         kw = dict(metas=metas, emit_stats=True)
         check(FT.fused_trunk(x, w, *th, **kw),
               FT.fused_trunk_plain(x, w, *th, **kw),
-              f"fused_trunk on {tuple(x.shape)} -> C {spec['c']}")
+              f"fused_trunk on {tuple(x.shape)} -> C {spec['c']}, "
+              f"{len(metas)} layers")
+    x, w, th, metas = _trunk_case(rng, torch, n=2, hw=(12, 12), cin=128,
+                                  c=128, pools=(("avg", 6),))
+    try:
+        FT.fused_trunk(x, w, *th, metas=metas)
+    except ValueError as e:
+        if "int16" not in str(e):
+            raise
+    else:
+        raise RuntimeError("fused_trunk ran avg 6 at 128 channels, past the "
+                           "tile body's int16 limit")
     # the main path's split: [0, SPLIT_AT) packs, [SPLIT_AT, 8) unpacks
     x, w, th, metas = _trunk_case(rng, torch, **full)
     a = dict(metas=metas[:SPLIT_AT], pack_out=True, emit_stats=True)
@@ -320,7 +365,8 @@ def compare_new_kernels(torch, FT, TC, worst: dict) -> None:
               f"thermometer {'ternary' if ternary else 'binary'} on "
               f"{tuple(lv.shape)}")
     log(f"phase 3: {n_cases} trunk, codec and thermometer cases "
-        "bit-identical to the plain versions (outputs and counters)")
+        "bit-identical to the plain versions (outputs and counters); a "
+        "trunk past the int16 limit raised")
 
 
 def _mm_case(rng, torch, m, k, n, xdt, ep):
@@ -483,6 +529,27 @@ def round_scale_exact(torch, MM, rng) -> None:
         f"rounded beforehand, and different from scale unrounded ({checked} "
         "cases: bf16 and f16 x, the seven llama projections at M = "
         f"{DECODE_M} and {PREFILL_M})")
+
+
+def log_trunk_plan(FT, spec) -> None:
+    """Phase 2: the trunk planner's launch and per-layer plan of a trunk
+    case."""
+    metas = trunk_metas(spec)
+    h, w = spec["hw"]
+    cu = max(spec["cin"], spec["c"])
+    plan = FT.trunk_plan(spec["n"], h, w, spec["cin"], spec["c"], cu, 3,
+                         metas, spec["cin"])
+    log(f"  trunk plan, batch {spec['n']}, {len(metas)} layers: "
+        f"{plan['groups']} pipelines per block ({plan['threads']} threads), "
+        f"{plan['smem']} B of dynamic shared memory, grid {plan['grid']}")
+    for li, g in enumerate(plan["layers"]):
+        tiles = g["n"] * g["tiles_r"] * g["tiles_c"]
+        log(f"    layer {li}: {g['h']}x{g['w']}x{g['cin']} (weight rows "
+            f"{g['w_rows']}), tile {g['th']}x{g['tw']}, Cout slice "
+            f"{g['ns']} x {g['slices']}, {g['gpb']} blocks per slice, "
+            f"{tiles * g['slices']} (tile, slice) pairs, "
+            f"{'direct' if g['direct'] else 'raw'} patch copy, "
+            f"{g['smem']} B")
 
 
 # -- phase 4: the main path --------------------------------------------------
@@ -672,12 +739,42 @@ def llm_params(torch, TF, cfg):
     return TF.init_params(cfg, gen)
 
 
-def serve(torch, S, params, cfg, prompts, **scfg) -> dict:
+def _record_margins(ex) -> dict:
+    """Wrap an executor so that it keeps, per request uid, the top-2 logit
+    margin of each row it samples a token from (prefill, then each decode
+    step)."""
+    margins: dict = {}
+    admitting: list = []
+    prefill, sample = ex.prefill, ex._sample
+
+    def prefill_(uid, tokens):
+        admitting.append(uid)
+        return prefill(uid, tokens)
+
+    def sample_(lg):
+        top = lg[:, :ex.cfg.vocab].float().topk(2, dim=-1).values
+        gap = (top[:, 0] - top[:, 1]).tolist()
+        if admitting:                             # a prefill's first token
+            margins.setdefault(admitting.pop(), []).append(gap[0])
+        else:                                     # one decode step
+            for i, r in enumerate(ex.slots):
+                if r is not None:
+                    margins[r.uid].append(gap[i])
+        return sample(lg)
+
+    ex.prefill, ex._sample = prefill_, sample_
+    return margins
+
+
+def serve(torch, S, params, cfg, prompts, margins=False, **scfg) -> dict:
     """The requests through CutieEngine + LLMExecutor; returns tokens,
-    stats, host-clock seconds and the trace's prefill/decode spans."""
+    stats, host-clock seconds and the trace's prefill/decode spans (and,
+    with ``margins``, each sampled row's top-2 logit margin per request,
+    in request order)."""
     eng = S.CutieEngine("fcfs")
     ex = S.LLMExecutor(params, cfg, S.ServerConfig(max_new_tokens=LLM_NEW,
                                                    **scfg))
+    gaps = _record_margins(ex) if margins else None
     eng.register("llm", ex)
     hs = [eng.submit(pr, model="llm") for pr in prompts]
     sync(torch)
@@ -696,10 +793,57 @@ def serve(torch, S, params, cfg, prompts, **scfg) -> dict:
         elif ev["ph"] == "E":
             spans[ev["name"]].append((ev["ts"] - open_.pop(key)) / 1e3)
     return {"tokens": [out[h.uid] for h in hs], "executor": ex,
-            "stats": eng.stats(), "seconds": secs, "spans": spans}
+            "stats": eng.stats(), "seconds": secs, "spans": spans,
+            "margins": gaps and [gaps[h.uid] for h in hs]}
 
 
-def llm_main_path(torch, MM, TC, S, TF, DEC, C, configs) -> dict:
+def trit_kv_serve(torch, TC, S, codec, params, cfg, prompts, raw) -> dict:
+    """The same requests with the paged KV rows stored ternarized, 5 trits
+    per byte (``kv_codec="trit"``): the codec kernels pack every written
+    row and unpack every gathered page.  The codec is exact, so the serve
+    with the codec's plain versions on the card must give the same tokens,
+    as the reduced-config CPU tests hold the port's trit serve against the
+    reference's.  Ternarized KV rows are lossy by design, so against
+    ``raw``, a paged serve with the default codec that recorded its top-2
+    logit margins, the agreement is reported, not required: per request,
+    the first step that differs and the raw margin there."""
+    reset_launches(TC)
+    trit = serve(torch, S, params, cfg, prompts, kv_codec="trit")
+    sync(torch)
+    launches = dict(TC.LAUNCHES)
+    if DEVICE == "cuda" and not (launches["pack_trits"]
+                                 and launches["unpack_trits"]):
+        raise RuntimeError(f"llm trit: codec launches {launches}")
+
+    class _Plain:                  # the store's codec reaches the plain twins
+        TRITS_PER_BYTE = TC.TRITS_PER_BYTE
+        pack_trits = staticmethod(TC.pack_trits_plain)
+        unpack_trits = staticmethod(TC.unpack_trits_plain)
+
+    saved, codec._tc = codec._tc, _Plain
+    try:
+        plain = serve(torch, S, params, cfg, prompts, kv_codec="trit")
+    finally:
+        codec._tc = saved
+    if plain["tokens"] != trit["tokens"]:
+        raise RuntimeError("llm trit: tokens with the codec kernels differ "
+                           "from those with the plain codec")
+    first = []
+    for t, r, gaps in zip(trit["tokens"], raw["tokens"], raw["margins"]):
+        j = next((j for j, (a, b) in enumerate(zip(t, r)) if a != b), None)
+        first.append(None if j is None else (j, gaps[j]))
+    same = sum(a == b for t, r in zip(trit["tokens"], raw["tokens"])
+               for a, b in zip(t, r))
+    log(f"phase 4: llm kv_codec='trit' paged: pack_trits launched "
+        f"{launches['pack_trits']} times, unpack_trits "
+        f"{launches['unpack_trits']}; tokens identical with the plain codec "
+        f"on the card; against the raw serve {same} of "
+        f"{LLM_REQUESTS * LLM_NEW} tokens equal, first difference per "
+        f"request (step, raw top-2 margin there): {first}")
+    return {"launches": launches, "first": first}
+
+
+def llm_main_path(torch, MM, TC, S, TF, DEC, C, codec, configs) -> dict:
     """llama3.2-1B, ternary_packed, full width and depth, served through
     CutieEngine + LLMExecutor on the card: tokens, prefix hits and kernel
     7's launch count, then paged against contiguous, then one prefill
@@ -739,6 +883,10 @@ def llm_main_path(torch, MM, TC, S, TF, DEC, C, configs) -> dict:
         raise RuntimeError("llm: paged and contiguous tokens differ")
     log("phase 4: llm paged and contiguous serving: tokens identical "
         f"(first request {paged['tokens'][0]})")
+    raw = serve(torch, S, params, cfg, prompts, margins=True)
+    if raw["tokens"] != paged["tokens"]:
+        raise RuntimeError("llm: a second paged serve gave other tokens")
+    trit_kv_serve(torch, TC, S, codec, params, cfg, prompts, raw)
     # one prefill with the plain matmul on the card against the kernel
     toks = torch.as_tensor(np.pad(prompts[0], (0, PREFILL_M - LLM_PROMPT))
                            [None], device=DEVICE)
@@ -975,18 +1123,25 @@ def time_new_kernels(torch, FT, TC, mp, card: str, worst: dict,
     nbytes = (x.numel() + ops_args[0].numel() + 11 * nl * CIFAR_WIDTH
               + BATCH * CIFAR_WIDTH)
     ms, pms = timed(torch, trunk), timed(torch, plain)
+    dev = device_ms(torch, trunk, "trunk")
     out = [_record("fused_trunk", mp["launches"]["fused_trunk"],
                    worst["fused_trunk"], ms, pms,
                    nbytes / HBM_BYTES_PER_S * 1e3,
                    ops / INT8_OPS_PER_S * 1e3, conv_lib["f16_ms"])]
-    out[-1].update(library_device_ms=conv_lib["f16_device_ms"],
+    out[-1].update(device_ms=dev,
+                   library_device_ms=conv_lib["f16_device_ms"],
                    library_f32_ms=conv_lib["f32_ms"],
                    library_call=LIBRARY_CONV)
     log(f"phase 5: fused_trunk, whole program in one launch at batch "
-        f"{BATCH}: ms {ms!r} plain_ms {pms!r} bound_ms "
-        f"{out[-1]['bound_ms']!r} ({ops} ops, {nbytes} B); library "
+        f"{BATCH}: ms {ms!r} (device only {dev!r}) plain_ms {pms!r} "
+        f"bound_ms {out[-1]['bound_ms']!r} ({ops} ops, {nbytes} B); library "
         f"yardsticks, 8 F.conv2d calls summed: f16 channels-last "
-        f"{conv_lib['f16_ms']!r} ms, f32 {conv_lib['f32_ms']!r} ms ({card})")
+        f"{conv_lib['f16_ms']!r} ms (device only "
+        f"{conv_lib['f16_device_ms']!r}), f32 {conv_lib['f32_ms']!r} ms "
+        f"({card})")
+    for stats in (False, True):
+        trunk_timeline(torch, FT, x, ops_args, metas, stats, card)
+    trunk_host_breakdown(torch, FT, x, ops_args, metas, card)
     b = mp["boundary"].reshape(1, -1)
     packed = TC.pack_trits(b)
     levels = torch.as_tensor(np.random.default_rng(SEED + 2).integers(
@@ -1014,6 +1169,43 @@ def time_new_kernels(torch, FT, TC, mp, card: str, worst: dict,
     return out
 
 
+def trunk_timeline(torch, FT, x, ops_args, metas, stats: bool,
+                   card: str, reps: int = 5) -> None:
+    """Where one trunk launch's time goes, layer by layer, from the
+    kernel's own %globaltimer stamps (`fused_trunk_timeline`; medians over
+    ``reps`` launches): the span from the layer's first block start to its
+    last block's end of tiles, the mean time a block spends on its tiles,
+    the counters' pass (with ``stats``), the mean wait of a block at the
+    grid barrier for the last one, and the barrier's release after the last
+    arrival."""
+    fn = lambda: FT.fused_trunk_timeline(  # noqa: E731
+        x, *ops_args, metas=metas, emit_stats=stats)
+    fn()
+    runs = []
+    for _ in range(reps):
+        _, marks = fn()
+        sync(torch)
+        runs.append((marks.double() / 1e3).cpu().numpy())   # us
+    m = np.median(np.stack(runs), axis=0)    # (L, grid, 3), per stamp
+    t0 = m[:, :, 0].min(axis=1)              # the layer's first start
+    busy = m[:, :, 1] - m[:, :, 0]
+    parts = []
+    for li in range(m.shape[0]):
+        arrive = m[li, :, 2]
+        release = (f"{t0[li + 1] - arrive.max():.2f}" if li + 1 < m.shape[0]
+                   else "-")
+        parts.append(
+            f"layer {li}: span {m[li, :, 1].max() - t0[li]:.2f}, tiles "
+            f"{busy[li].mean():.2f} per block (max {busy[li].max():.2f}), "
+            f"counters {(m[li, :, 2] - m[li, :, 1]).mean():.2f}, barrier "
+            f"wait {(arrive.max() - arrive).mean():.2f}, release {release}")
+    total = m[-1, :, 2].max() - t0[0]
+    log(f"phase 5: fused_trunk timeline ({'emit_stats' if stats else 'run'}"
+        f", us, median of {reps} launches, stamps add 3 block barriers per "
+        f"layer; first layer start to last arrival {total:.2f}; {card}): "
+        + "; ".join(parts))
+
+
 def host_us(torch, fn, reps: int = 50) -> float:
     """Host microseconds per call of ``fn`` until it returns, before a
     synchronize: the wrapper's own cost where the device keeps up."""
@@ -1025,6 +1217,26 @@ def host_us(torch, fn, reps: int = 50) -> float:
     secs = time.perf_counter() - t0
     torch.cuda.synchronize()
     return secs / reps * 1e6
+
+
+def trunk_host_breakdown(torch, FT, x, ops_args, metas, card: str) -> None:
+    """Where kernel 3's host microseconds per call go, on the whole CIFAR
+    trunk: the whole wrapper, its checks, plan lookup and allocations
+    alone, and the ctypes launch alone with its arguments made
+    beforehand.  The launch is the program's last host step on `fused`, so
+    what comes before it adds to `run` one for one."""
+    args, _outs, _held = FT._launch_args(x, *ops_args, metas=metas)
+    fn = FT._library().cutie_fused_trunk
+    parts = {
+        "wrapper": lambda: FT.fused_trunk(x, *ops_args, metas=metas),
+        "checks, plan lookup and allocations": lambda: FT._launch_args(
+            x, *ops_args, metas=metas),
+        "ctypes launch alone": lambda: fn(*args),
+    }
+    log("phase 5: fused_trunk host us per call on the CIFAR trunk: "
+        + "; ".join(f"{what} {host_us(torch, f)!r}"
+                    for what, f in parts.items())
+        + f" (host clock, 50 calls, no synchronize; {card})")
 
 
 def host_breakdown(torch, MM, x, wp, scale, card: str) -> None:
@@ -1260,7 +1472,8 @@ def main() -> int:
     names = _build.build_all()
     for n in names:
         for line in _build.BUILD_LOGS.get(n, "").splitlines():
-            if "registers" in line or "spill" in line:
+            if any(key in line for key in ("registers", "spill",
+                                           "entry function")):
                 log(f"  ptxas {n}: {line.strip()}")
     log(f"phase 2: built {names} in {time.perf_counter() - t0:.1f} s")
     for li, c in enumerate(conv_cases()[:len(CIFAR_POOLS)]):
@@ -1271,12 +1484,13 @@ def main() -> int:
             f"Cout slice {plan['ns']}, {plan['groups']} pipelines per "
             f"block, grid {plan['slices'] * plan['gpb']}, {plan['smem']} B "
             f"of dynamic shared memory, {per_sm} blocks per SM")
+    log_trunk_plan(FT, trunk_cases()[0])
 
     worst = compare_kernels(torch, K, codec)
     compare_new_kernels(torch, FT, TC, worst)
     compare_matmul_kernels(torch, MM, worst)
     mp = main_path(torch, K, FT, TC, ops, engine, thermometer, compiler, P)
-    llm = llm_main_path(torch, MM, TC, S, TF, DEC, C, configs)
+    llm = llm_main_path(torch, MM, TC, S, TF, DEC, C, codec, configs)
     program_latency(torch, P, mp, card)
     kernels, conv_lib = time_kernels(torch, F, K, codec, engine, mp, card,
                                         worst)

@@ -31,10 +31,12 @@ device memory and reads more than once:
                                          flip, const, is_const (int8)
                    + 2*N*H*W*Cu          the two unpadded int8 ping-pong
                                          buffers, sized by the first layer
-                                         (written by one layer, read by
-                                         the next once per Cout tile)
-                   + N*H*W*Cin           the input (read once per Cout
-                                         tile)
+                                         (written once by one layer; read
+                                         by the next once per Cout slice,
+                                         32 or 64 channels, of each tile
+                                         whose patch, halo included,
+                                         holds the pixel)
+                   + N*H*W*Cin           the input (read the same way)
 
 with Cu = max(Cin, C) and (H, W) the trunk's input dims.  The output is
 written once and never read inside the trunk, so it is not priced; were

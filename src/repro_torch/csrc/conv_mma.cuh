@@ -1,5 +1,7 @@
 // The implicit-GEMM tile body of a ternary K x K conv on Hopper's int8
-// tensor cores, with the fused OCU epilogue (ternary_conv2d.cu).
+// tensor cores, with the fused OCU epilogue: the one body that the
+// per-layer conv kernel (ternary_conv2d.cu) and the trunk megakernel
+// (fused_trunk.cu, once per layer) both run, as `conv_tiles`.
 //
 // A tile is (image, th x tw conv outputs, a slice of ns output channels)
 // viewed as a GEMM: M = the tile's conv outputs (at most 64, padded to
@@ -8,7 +10,8 @@
 // reads both operands from shared memory by ldmatrix:
 // * B, the slice's weights, as [ns][k*k*cp] bytes (row stride b_stride =
 //   k*k*cp + 16, so 8 rows of one ldmatrix fall in 8 different 16-byte
-//   bank groups), staged once per block: dense (K, K, Cin, Cout) bytes
+//   bank groups), staged once per block: dense (K, K, w_rows, Cout) bytes
+//   (w_rows >= Cin input-channel rows per tap: a trunk's common width)
 //   transposed in 4 x 4 blocks, or packed (Cout, G) rows decoded through a
 //   256-entry table of 5 trits, 16 channels per 16-byte store, one
 //   division per 16 trits and none per trit;
@@ -19,18 +22,19 @@
 //   kw).  No im2col copy exists.
 // The patch arrives by cp.async (16 B).  Where Cin is a multiple of 16 a
 // pixel's chunks copy straight into the padded layout, the halo and the
-// tail zero-filled by the copy itself (src-size 0).  Otherwise (Cin = 126
-// of a thermometer-encoded input) a pixel is not 16-byte aligned in
-// device memory, so each patch row's contiguous span of x is copied raw
-// (16-byte chunks, the last one short) and repacked in shared memory by
-// funnel shifts.
+// tail zero-filled by the copy itself (src-size 0), through a two-buffer
+// ring.  Otherwise (Cin = 126 of a thermometer-encoded input) a pixel is
+// not 16-byte aligned in device memory, so each patch row's contiguous
+// span of x is copied raw (16-byte chunks, the last one short) into one
+// raw buffer and repacked in shared memory by funnel shifts; the next
+// tile's raw copy starts as soon as the repack has freed the buffer.
 //
 // A tile pipeline is 4 warps with a barrier of its own (bar.sync 1 + its
 // index): warp (wm, wn) computes rows 32wm.. (2 m16 tiles) x channels
 // wn*ns/2.. (NT = ns/16 n8 tiles), 2 + NT/2 ldmatrix.x4 for 2 NT MMAs per
 // 32-byte k step.  A block runs up to 4 pipelines on one copy of the
-// weights; each walks its own tiles with its own two-buffer ring, so one
-// pipeline's epilogue and barriers overlap the others' MMAs.
+// weights; each walks its own tiles with its own ring, so one pipeline's
+// epilogue and barriers overlap the others' MMAs.
 //
 // Epilogue.  The int32 sums go to shared memory as int16 (the planner
 // requires |pooled sum| <= win*win*k*k*Cin < 32767), over the patch just
@@ -51,13 +55,15 @@
 constexpr int kGroupThreads = 128;   // one tile pipeline: 4 warps
 
 // One layer's plan, as repro_torch/kernels/ternary_conv2d.py `conv_plan`
-// computes it (PLAN_FIELDS, in this order).
+// (or repro_torch/kernels/fused_trunk.py `trunk_plan`, per layer) computes
+// it (PLAN_FIELDS, in this order).
 struct ConvPlan {
   int n, h, w, cin, cout, k, sh, sw, pad;
   int win, kind, ph, pw;   // merged pool window and kind; pooled dims
   int fuse;                // 1: thresholds, int8 trits out; 0: raw int32
   int wh, ww;              // the counters' stride-1 window raster
   int row_bytes;           // packed weights: bytes per output channel
+  int w_rows;              // dense weights: input-channel rows per tap
   int stat_c;              // channels the in-zero/toggle counters see
   int th, tw;              // conv outputs per tile side
   int tiles_r, tiles_c;    // tile grid of one image
@@ -69,6 +75,7 @@ struct ConvPlan {
   int groups;              // tile pipelines (4 warps each) in a block
   int off_epi, off_grp, grp_bytes;  // shared layout (bytes): B at 0, the
   int off_buf0, off_buf1, off_unp;  // vectors, then each group's buffers
+                                    // (direct == 0: raw buffer at off_buf0)
   int smem;
 };
 
@@ -300,7 +307,8 @@ __device__ void stage_weights_mma(const ConvPlan& g, const void* w, int co0,
       for (int b = 0; b < 4; ++b) {
         r[b] = 0u;
         if (ci + b < cin && co < cout) {
-          const int8_t* src = wd + ((size_t)tap * cin + ci + b) * cout + co;
+          const int8_t* src =
+              wd + ((size_t)tap * g.w_rows + ci + b) * cout + co;
           if ((cout & 3) == 0) {
             r[b] = *reinterpret_cast<const uint32_t*>(src);
           } else {
@@ -547,3 +555,114 @@ struct Epilogue {
     return zeros;
   }
 };
+
+// -- a block's share of one layer -----------------------------------------
+
+__device__ __forceinline__ void group_sync(int gr) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(gr + 1), "r"(kGroupThreads)
+               : "memory");
+}
+
+// Stage Cout slice `slice`'s weights and epilogue, then run this thread's
+// tile pipeline over tiles first, first + step, ... (first and step are
+// the caller's deal of tiles to pipelines).  Every thread of the block
+// calls it: it holds block-wide barriers.  Returns with no copy in flight
+// and the thread's count of zero trits written.
+template <bool PACKED, int NT>
+__device__ __forceinline__ int conv_tiles(const ConvPlan& g, const int8_t* x,
+                                          const void* w, const MmaEpi& e,
+                                          void* out, uint8_t* smem,
+                                          int slice, int first, int step) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gr = warp >> 2, lt = tid & (kGroupThreads - 1);
+  const int wm = (warp >> 1) & 1, wn = warp & 1;  // 2 x 2 warps a group
+  const int co0 = slice * g.ns;
+  const int ntiles = g.n * g.tiles_r * g.tiles_c;
+  uint8_t* bs = smem;
+  uint8_t* epi = smem + g.off_epi;
+  uint8_t* grp = smem + g.off_grp + gr * g.grp_bytes;
+  uint8_t* const buf0 = grp + g.off_buf0;
+  uint8_t* const buf1 = grp + g.off_buf1;
+  uint8_t* unp = grp + g.off_unp;
+
+  auto start_copy = [&](int t, uint8_t* dst) {
+    if (t < ntiles) {
+      if (g.direct)
+        copy_patch(g, x, tile_at(g, t), dst, lt);
+      else
+        copy_raw(g, x, tile_at(g, t), dst, lt);
+    }
+    cp_async_commit();
+  };
+
+  // each group's first patch is in flight while the block stages the
+  // weights; the table of the packed decode borrows the compute buffer
+  // that group 0's first tile leaves alone
+  start_copy(first, buf0);
+  stage_weights_mma<PACKED>(
+      g, w, co0, bs, smem + g.off_grp + (g.direct ? g.off_buf1 : g.off_unp));
+  stage_epilogue(g, e, co0, epi);
+  __syncthreads();
+  Epilogue<16 * NT> ep;
+  ep.init(g, co0, epi, lt);
+  const Frag<NT> f = frag_offsets<NT>(g, wm, wn, lane);
+  const bool busy = wm * 32 < g.th * g.tw;
+
+  // the group's own pipeline: its tiles, its ring, its barrier
+  int zeros = 0;
+  bool odd = false;              // direct: tile t's patch is in buf1
+  for (int t = first; t < ntiles; t += step, odd = !odd) {
+    cp_async_wait_all();
+    group_sync(gr);              // tile t's patch is in; tile t-1 is done
+    uint8_t* a;
+    if (g.direct) {
+      a = odd ? buf1 : buf0;
+      start_copy(t + step, odd ? buf0 : buf1);
+    } else {
+      repack(g, tile_at(g, t), buf0, unp, lt);
+      group_sync(gr);            // the raw buffer is free
+      start_copy(t + step, buf0);
+      a = unp;
+    }
+    int acc[2][NT][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][j][c] = 0;
+    if (busy) mma_tile<NT>(acc, g, f, a, bs);
+    group_sync(gr);              // every warp is done reading the patch
+    if (busy) stage_sums<NT>(acc, wm, wn, lane, a);
+    group_sync(gr);
+    zeros += ep.run(g, tile_at(g, t), a, out, lt);
+  }
+  cp_async_wait_all();
+  return zeros;
+}
+
+// A layer's counters, added into stats (in-zero, out-zero, window-toggle)
+// with integer atomics: in-zero over the whole batch of x and window
+// toggles over image 0's raster, each cut into one range of rows per
+// block, and the zeros the block's epilogues counted.  x has g.cin
+// channels per pixel, of which the counters see the first g.stat_c.
+__device__ __forceinline__ void layer_counters(const ConvPlan& g,
+                                               const int8_t* x, int zeros,
+                                               int* stats) {
+  int r0, r1;
+  chunk_range(g.n * g.h, gridDim.x, blockIdx.x, &r0, &r1);
+  int n_in = zero_count(x, g.w, g.cin, g.stat_c, r0, r1, 0, g.w);
+  chunk_range(g.wh, gridDim.x, blockIdx.x, &r0, &r1);
+  int n_tg = window_toggle_count(x, g.h, g.w, g.cin, g.stat_c, g.k, g.pad,
+                                 g.wh, g.ww, r0, r1, 0, g.ww);
+  for (int off = 16; off > 0; off >>= 1) {
+    n_in += __shfl_down_sync(0xffffffffu, n_in, off);
+    zeros += __shfl_down_sync(0xffffffffu, zeros, off);
+    n_tg += __shfl_down_sync(0xffffffffu, n_tg, off);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    if (n_in) atomicAdd(stats + 0, n_in);
+    if (zeros) atomicAdd(stats + 1, zeros);
+    if (n_tg) atomicAdd(stats + 2, n_tg);
+  }
+}

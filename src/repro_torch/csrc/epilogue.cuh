@@ -1,46 +1,14 @@
-// The OCU writeback and switching counters on the device: the twins of
-// repro_torch/kernels/epilogue.py (pool_int, two_threshold, const_fixup,
-// zero_count, window_toggle_count), shared by every CNN kernel through
-// conv_tile.cuh.
-//
-// Merged pooling runs on the int32 accumulator before the compare: avg
-// sums the window (thresholds were pre-scaled), max keeps the max of
-// sign(g)*z so that it commutes with a flipped compare.  The compare is
-// float32, as in the reference: (float)z > t_hi, and so on.
+// The switching counters on the device, the twins of
+// repro_torch/kernels/epilogue.py (zero_count, window_toggle_count), and
+// the pool kinds, shared by every CNN kernel through conv_mma.cuh (whose
+// `Epilogue` holds the OCU writeback: merged pooling, the two-threshold
+// compare and the const fixup).
 #pragma once
 
 #include <stdint.h>
 #include <limits.h>
 
 enum { POOL_NONE = 0, POOL_MAX = 1, POOL_AVG = 2 };
-
-__device__ __forceinline__ int pool_init(int kind) {
-  return kind == POOL_MAX ? INT_MIN : 0;
-}
-
-// Fold one conv output z into a window's running value (sgn = -1 where
-// the channel's compare is flipped, else +1).
-__device__ __forceinline__ int pool_fold(int kind, int run, int z, int sgn) {
-  return kind == POOL_MAX ? max(run, z * sgn) : run + z;
-}
-
-__device__ __forceinline__ int pool_final(int kind, int run, int sgn) {
-  return kind == POOL_MAX ? run * sgn : run;
-}
-
-__device__ __forceinline__ int8_t two_threshold(int z, float t_lo, float t_hi,
-                                                bool flip) {
-  const float zf = (float)z;
-  const bool pos = flip ? (zf < t_hi) : (zf > t_hi);
-  const bool neg = flip ? (zf > t_lo) : (zf < t_lo);
-  return (int8_t)((int)pos - (int)neg);
-}
-
-// Degenerate (g == 0) channels take their stored constant trit.
-__device__ __forceinline__ int8_t const_fixup(int8_t y, int8_t c,
-                                              bool is_const) {
-  return is_const ? c : y;
-}
 
 // Trit (row r, col c, channel ch) of one (h, w, cin) image zero-padded by
 // `pad` on every side; r and c are padded coordinates.

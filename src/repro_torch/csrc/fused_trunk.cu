@@ -12,38 +12,52 @@
 //
 // Design.  One persistent cooperative launch (cudaLaunchCooperativeKernel)
 // with no more blocks than can be resident at once, so the grid-wide
-// barrier cannot deadlock.  Per layer, the blocks take the layer's
-// (Cout tile, image, pixel tile) work items in order from an atomic
-// counter and run each with the tile body of conv_tile.cuh, the same as
-// the per-layer kernel.  Taking items as blocks free up balances the load
-// as the hardware's block scheduler does for the per-layer kernel: the
-// tiles that also count window toggles (image 0, Cout tile 0) take longer
-// than the rest.  A block keeps its staged weights while its items share
-// a Cout tile.  grid.sync() separates the layers.  Activations ping-pong
-// between two unpadded (N, H, W, max(Cx, C)) device buffers that the
-// trunk planner (repro_torch.compiler.trunks) sizes to stay inside the
-// card's 50 MiB L2, so a layer's output is the next layer's input without
-// a round trip to HBM.  A packed input is decoded into the first buffer
-// before the first barrier; a packed output is encoded after the last
-// one, each byte reading five trits that may straddle pixels and channels.
+// barrier cannot deadlock.  Each layer runs the implicit-GEMM tile body of
+// conv_mma.cuh (`conv_tiles`, the same code the per-layer conv kernel
+// runs: mma.sync s8, a cp.async patch ring, int16 staging and the fused
+// epilogue) on its own plan from the trunk planner
+// (repro_torch/kernels/fused_trunk.py `trunk_plan`): the block size and
+// the shared-memory size are the trunk's, while the Cout slice (32 or 64
+// channels, NT = 2 or 4, both instantiated here and picked per layer) and
+// the tile sides are the layer's.  Block b < slices * gpb owns slice
+// b / gpb of the layer and stages its weights (the stack's rows at the
+// trunk's common width Cu, of which the layer reads its Cin); tiles are
+// dealt to pipelines so that consecutive tiles go to different blocks
+// (pipeline r of block q of a slice takes tiles q + r*gpb, q + r*gpb +
+// gpb*groups, ...), which spreads a small layer over the SMs; a block with
+// no tile goes straight to the counters and the barrier.  A layer's
+// counters are taken from its input before the barrier that ends the
+// layer, since the next layer overwrites that buffer.  grid.sync()
+// separates the layers, after every copy has landed.  Activations
+// ping-pong between two unpadded (N, H, W, max(Cx, C)) device buffers that
+// the trunk planner (repro_torch.compiler.trunks) sizes to stay inside the
+// card's 50 MiB L2: a layer writes each output pixel once, and the next
+// layer reads each input pixel once per (tile, Cout slice) whose patch
+// holds it, halo included, without a round trip to HBM.  A packed input is
+// decoded into the first buffer before the first barrier; a packed output
+// is encoded after the last one, each byte reading five trits that may
+// straddle pixels and channels.
 //
 // Bound on this card.  The CIFAR-10 trunk at batch 64 (8 layers, 126 ->
 // 128 channels, 32 x 32) is 70.2 GOp of int8 work, 35.5 us at the
 // 1,979 TOP/s int8 tensor-core peak, against 8.4 MB of input, 1.2 MB of
 // weights and 8 KB of output, 2.8 us at 3.35 TB/s: bound by operations.
-// The tile body runs __dp4a on the CUDA cores, far below that peak.
+// The work runs on the tensor cores; what is left over the bound is each
+// tile's chain of copy wait, dependent k steps, barriers and epilogue (as
+// in the per-layer kernel), plus one grid barrier per layer.
 #include <cooperative_groups.h>
-#include <algorithm>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "conv_tile.cuh"
+#include "conv_mma.cuh"
+#include "trit_codec.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxLayers = 16;
+constexpr int kMaxDevices = 64;
 
 struct TrunkParams {
   const int8_t* x;        // dense input, or
@@ -51,23 +65,34 @@ struct TrunkParams {
   long long in_bytes, in_numel;
   const int8_t* w;        // (L, K, K, Cu, C)
   long long w_layer;      // K * K * Cu * C
-  TileEpi epi;            // (L, C) vectors; layer l at offset l * C
+  MmaEpi epi;             // (L, C) vectors; layer l at offset l * C
   int8_t* buf[2];         // ping-pong activation buffers
   void* out;              // int8 trits, or packed uint8 bytes
   long long out_numel;    // trits of the last layer's output
   int pack_out;
   int* stats;             // (L, 3) int32, or null
-  int* next_item;         // (L,) int32 work counters, zeroed by the caller
-  int n, n_layers;
-  TileGeo geo[kMaxLayers];
+  unsigned long long* marks;  // (L, grid, 3) %globaltimer ns, or null
+  int n_layers;
+  ConvPlan plan[kMaxLayers];
 };
 
-__global__ void __launch_bounds__(kThreads) trunk_kernel(TrunkParams p) {
+__device__ __forceinline__ void mark(const TrunkParams& p, int l, int k) {
+  if (p.marks == nullptr) return;    // uniform over the grid
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    p.marks[((size_t)l * gridDim.x + blockIdx.x) * 3 + k] = t;
+  }
+}
+
+__global__ void __launch_bounds__(4 * kGroupThreads, 1)
+    trunk_kernel(TrunkParams p) {
   cg::grid_group grid = cg::this_grid();
-  extern __shared__ int smem[];
-  __shared__ int item;
+  extern __shared__ __align__(16) uint8_t smem[];
   const long long gtid = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   const long long gstride = (long long)gridDim.x * blockDim.x;
+  const int gr = threadIdx.x / kGroupThreads;
 
   // -- packed input: decode into buf[0] -------------------------------------
   const int8_t* src = p.x;
@@ -85,33 +110,31 @@ __global__ void __launch_bounds__(kThreads) trunk_kernel(TrunkParams p) {
 
   // -- the layers --------------------------------------------------------
   for (int l = 0; l < p.n_layers; ++l) {
-    const TileGeo& g = p.geo[l];
+    const ConvPlan& g = p.plan[l];
     const bool last = l == p.n_layers - 1;
     void* dst = (last && !p.pack_out) ? p.out : (void*)p.buf[(l + 1) & 1];
     const int c = g.cout;
-    TileEpi e = p.epi;
+    MmaEpi e = p.epi;
     e.t_lo += l * c;
     e.t_hi += l * c;
     e.flip += l * c;
     e.cnst += l * c;
     e.is_const += l * c;
-    const int tiles = g.tiles_r * g.tiles_c;
-    const int per_cot = p.n * tiles;
-    const int items = per_cot * ((c + kCoTile - 1) / kCoTile);
-    int staged = -1;                     // Cout tile in shared memory
-    for (;;) {
-      if (threadIdx.x == 0) item = atomicAdd(p.next_item + l, 1);
-      __syncthreads();
-      const int it = item;               // read before the tile's barrier
-      if (it >= items) break;            // uniform over the block
-      const int cot = it / per_cot, rem = it % per_cot;
-      const int img = rem / tiles, t = rem % tiles;
-      conv_tile<false>(smem, g, src, p.w + l * p.w_layer, cot != staged, e,
-                       dst, p.stats ? p.stats + 3 * l : nullptr, img,
-                       t / g.tiles_c, t % g.tiles_c, cot * kCoTile);
-      staged = cot;
-      __syncthreads();                   // before the next item and staging
+    mark(p, l, 0);
+    int zeros = 0;
+    const int b = blockIdx.x;
+    if (b < g.slices * g.gpb) {          // uniform over the block
+      const int slice = b / g.gpb, q = b - slice * g.gpb;
+      const int first = q + gr * g.gpb, step = g.gpb * g.groups;
+      const int8_t* wl = p.w + l * p.w_layer;
+      zeros = g.ns == 64
+          ? conv_tiles<false, 4>(g, src, wl, e, dst, smem, slice, first, step)
+          : conv_tiles<false, 2>(g, src, wl, e, dst, smem, slice, first,
+                                 step);
     }
+    mark(p, l, 1);
+    if (p.stats != nullptr) layer_counters(g, src, zeros, p.stats + 3 * l);
+    mark(p, l, 2);
     grid.sync();
     src = static_cast<const int8_t*>(dst);
   }
@@ -135,17 +158,21 @@ __global__ void __launch_bounds__(kThreads) trunk_kernel(TrunkParams p) {
 
 extern "C" {
 
-// Launch one trunk.  geo holds n_layers rows of TileGeo's int fields in
-// declaration order.  Returns the cudaError_t (0 on success); a grid that
-// cannot be co-resident is cudaErrorCooperativeLaunchTooLarge.
+// Launch one trunk of n_layers layers on grid blocks of `threads` threads
+// with smem bytes of dynamic shared memory.  plan holds n_layers rows of
+// ConvPlan's int fields in declaration order.  Returns the cudaError_t (0
+// on success); a grid that cannot be co-resident is
+// cudaErrorCooperativeLaunchTooLarge.
 int cutie_fused_trunk(const void* x, long long in_bytes, long long in_numel,
                       const void* w, long long w_layer, const void* t_lo,
                       const void* t_hi, const void* flip, const void* cnst,
                       const void* is_const, void* buf0, void* buf1, void* out,
                       long long out_numel, int pack_out, void* stats,
-                      void* next_item, int n, int n_layers, const int* geo,
-                      void* stream) {
-  if (n_layers < 1 || n_layers > kMaxLayers)
+                      void* marks, int n_layers, int grid, int threads,
+                      int smem, const int* plan, void* stream) {
+  if (n_layers < 1 || n_layers > kMaxLayers || grid < 1 ||
+      threads < kGroupThreads || threads > 4 * kGroupThreads ||
+      threads % kGroupThreads != 0)
     return (int)cudaErrorInvalidValue;
   TrunkParams p;
   p.x = static_cast<const int8_t*>(x);
@@ -165,41 +192,47 @@ int cutie_fused_trunk(const void* x, long long in_bytes, long long in_numel,
   p.out_numel = out_numel;
   p.pack_out = pack_out;
   p.stats = static_cast<int*>(stats);
-  p.next_item = static_cast<int*>(next_item);
-  p.n = n;
+  p.marks = static_cast<unsigned long long*>(marks);
   p.n_layers = n_layers;
-  constexpr int kFields = sizeof(TileGeo) / sizeof(int);
-  int smem_words = 0, max_items = 1;
+  constexpr int kFields = sizeof(ConvPlan) / sizeof(int);
   for (int l = 0; l < n_layers; ++l) {
-    int* f = reinterpret_cast<int*>(&p.geo[l]);
-    for (int i = 0; i < kFields; ++i) f[i] = geo[l * kFields + i];
-    const TileGeo& g = p.geo[l];
-    smem_words = std::max(smem_words, tile_smem_words(g));
-    max_items = std::max(max_items, n * g.tiles_r * g.tiles_c
-                                        * ((g.cout + kCoTile - 1) / kCoTile));
+    int* f = reinterpret_cast<int*>(&p.plan[l]);
+    for (int i = 0; i < kFields; ++i) f[i] = plan[l * kFields + i];
+    if (p.plan[l].groups * kGroupThreads != threads ||
+        (p.plan[l].ns != 32 && p.plan[l].ns != 64))
+      return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = sizeof(int) * (size_t)smem_words;
 
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  // cooperative support is read, and the kernel's shared-memory
+  // attributes set, once per card (again for a larger need); the launch
+  // itself refuses a grid that cannot be co-resident
+  static bool coop_ok[kMaxDevices] = {};
+  static int smem_set[kMaxDevices] = {};
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!coop_ok[dev]) {
+    int coop = 0;
     err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
+    if (err != cudaSuccess) return (int)err;
+    if (!coop) return (int)cudaErrorNotSupported;
+    coop_ok[dev] = true;
+  }
+  if (smem > smem_set[dev]) {
     err = cudaFuncSetAttribute(trunk_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, trunk_kernel,
-                                                        kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int grid = std::min(per_sm * sms, max_items);
+                               smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          trunk_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+          (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dev] = smem;
+  }
   void* args[] = {&p};
   err = cudaLaunchCooperativeKernel((const void*)trunk_kernel, dim3(grid),
-                                    dim3(kThreads), args, smem,
+                                    dim3(threads), args, (size_t)smem,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

@@ -25,8 +25,8 @@
 //   the card at once: block b owns Cout slice b / gpb, stages (or decodes)
 //   that slice's weights once, and runs `groups` tile pipelines of 4 warps
 //   on them, each walking tiles gpb * groups apart;
-// * per pipeline, a two-buffer cp.async ring: the next tile's patch is in
-//   flight while this tile's MMAs and epilogue run;
+// * per pipeline, a cp.async ring: the next tile's patch is in flight
+//   while this tile's MMAs and epilogue run;
 // * the epilogue in shared memory and registers; the counters from a
 //   grid-strided pass over x at the end.
 // The packed kernel differs from the dense one only in how the weights
@@ -57,102 +57,20 @@ struct Params {
   ConvPlan g;
 };
 
-__device__ __forceinline__ void group_sync(int gr) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(gr + 1), "r"(kGroupThreads)
-               : "memory");
-}
-
+// A persistent block owns Cout slice blockIdx.x / gpb; its pipeline r
+// walks that slice's tiles q, q + gpb*groups, ... from q = (its index
+// within the slice) * groups + r.
 template <bool PACKED, int NT>
 __global__ void __launch_bounds__(4 * kGroupThreads, 1)
     conv_mma_kernel(Params p) {
   extern __shared__ __align__(16) uint8_t smem[];
   const ConvPlan& g = p.g;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gr = warp >> 2, lt = tid & (kGroupThreads - 1);
-  const int wm = (warp >> 1) & 1, wn = warp & 1;  // 2 x 2 warps a group
+  const int gr = threadIdx.x / kGroupThreads;
   const int slice = blockIdx.x / g.gpb;
-  const int first = (blockIdx.x - slice * g.gpb) * g.groups + gr;
-  const int step = g.gpb * g.groups;
-  const int co0 = slice * g.ns;
-  const int ntiles = g.n * g.tiles_r * g.tiles_c;
-  uint8_t* bs = smem;
-  uint8_t* epi = smem + g.off_epi;
-  uint8_t* grp = smem + g.off_grp + gr * g.grp_bytes;
-  uint8_t* const buf0 = grp + g.off_buf0;
-  uint8_t* const buf1 = grp + g.off_buf1;
-  uint8_t* unp = grp + g.off_unp;
-
-  auto start_copy = [&](int t, uint8_t* dst) {
-    if (g.direct)
-      copy_patch(g, p.x, tile_at(g, t), dst, lt);
-    else
-      copy_raw(g, p.x, tile_at(g, t), dst, lt);
-  };
-
-  // each group's first patch is in flight while the block stages the
-  // weights; the table of the packed decode borrows the compute buffer
-  // that group 0's first tile leaves alone
-  if (first < ntiles) start_copy(first, buf0);
-  cp_async_commit();
-  stage_weights_mma<PACKED>(
-      g, p.w, co0, bs,
-      smem + g.off_grp + (g.direct ? g.off_buf1 : g.off_unp));
-  stage_epilogue(g, p.epi, co0, epi);
-  __syncthreads();
-  Epilogue<16 * NT> ep;
-  ep.init(g, co0, epi, lt);
-  const Frag<NT> f = frag_offsets<NT>(g, wm, wn, lane);
-  const bool busy = wm * 32 < g.th * g.tw;
-
-  // the group's own pipeline: its tiles, its ring, its barrier
-  int zeros = 0;
-  bool odd = false;              // tile t's patch is in buf1
-  for (int t = first; t < ntiles; t += step, odd = !odd) {
-    uint8_t* const cur = odd ? buf1 : buf0;
-    cp_async_wait_all();
-    group_sync(gr);              // tile t's patch is in; tile t-1 is done
-    if (t + step < ntiles) start_copy(t + step, odd ? buf0 : buf1);
-    cp_async_commit();
-    uint8_t* a = cur;
-    if (!g.direct) {
-      repack(g, tile_at(g, t), cur, unp, lt);
-      a = unp;
-      group_sync(gr);
-    }
-    int acc[2][NT][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-    if (busy) mma_tile<NT>(acc, g, f, a, bs);
-    group_sync(gr);              // every warp is done reading the patch
-    if (busy) stage_sums<NT>(acc, wm, wn, lane, a);
-    group_sync(gr);
-    zeros += ep.run(g, tile_at(g, t), a, p.out, lt);
-  }
-  cp_async_wait_all();
-
-  // -- counters: in-zero over the whole batch and window toggles over
-  // image 0's raster, each cut into one range of rows per block ---------
-  if (p.stats == nullptr) return;                  // uniform over the grid
-  int r0, r1, n_in = 0, n_tg = 0;
-  chunk_range(g.n * g.h, gridDim.x, blockIdx.x, &r0, &r1);
-  n_in = zero_count(p.x, g.w, g.cin, g.stat_c, r0, r1, 0, g.w);
-  chunk_range(g.wh, gridDim.x, blockIdx.x, &r0, &r1);
-  n_tg = window_toggle_count(p.x, g.h, g.w, g.cin, g.stat_c, g.k, g.pad,
-                             g.wh, g.ww, r0, r1, 0, g.ww);
-  for (int off = 16; off > 0; off >>= 1) {
-    n_in += __shfl_down_sync(0xffffffffu, n_in, off);
-    zeros += __shfl_down_sync(0xffffffffu, zeros, off);
-    n_tg += __shfl_down_sync(0xffffffffu, n_tg, off);
-  }
-  if (lane == 0) {
-    if (n_in) atomicAdd(p.stats + 0, n_in);
-    if (zeros) atomicAdd(p.stats + 1, zeros);
-    if (n_tg) atomicAdd(p.stats + 2, n_tg);
-  }
+  const int zeros = conv_tiles<PACKED, NT>(
+      g, p.x, p.w, p.epi, p.out, smem, slice,
+      (blockIdx.x - slice * g.gpb) * g.groups + gr, g.gpb * g.groups);
+  if (p.stats != nullptr) layer_counters(g, p.x, zeros, p.stats);
 }
 
 template <bool PACKED, int NT>

@@ -36,7 +36,6 @@ from repro_torch.kernels.trit_codec import unpack_digits
 LAUNCHES = {"ternary_conv2d": 0, "ternary_conv2d_packed": 0}
 
 _SMEM_LIMIT = 232448      # bytes of shared memory a block may use
-_CO_TILE = 32             # output channels per block (one per lane)
 _POOL_KIND = {None: 0, "max": 1, "avg": 2}
 
 
@@ -104,12 +103,6 @@ def ternary_conv2d_packed_plain(x, w_packed, *, k: int, cin: int,
         pool=pool, emit_stats=emit_stats)
 
 
-#: The int fields of `csrc/conv_tile.cuh` TileGeo, in declaration order.
-TILE_FIELDS = ("h", "w", "cin", "cout", "k", "sh", "sw", "pad", "win",
-               "kind", "ph", "pw", "tp", "tiles_r", "tiles_c", "fuse", "wh",
-               "ww", "w_rows", "row_bytes", "stat_c")
-
-
 def _conv_dims(h, w, k, stride, padding, pool):
     """(oh, ow, win, ph, pw), raising on a kernel or pool window that does
     not fit the map."""
@@ -124,40 +117,9 @@ def _conv_dims(h, w, k, stride, padding, pool):
     return oh, ow, win, ph, pw
 
 
-def tile_geometry(h: int, w: int, cin: int, cout: int, k: int, stride,
-                  padding: bool, pool, *, fuse: bool = True,
-                  w_rows: int | None = None, row_bytes: int = 0,
-                  stat_c: int | None = None) -> dict:
-    """One layer's TileGeo for the `__dp4a` tile body of
-    `csrc/conv_tile.cuh`, which the trunk megakernel runs.
-
-    Raises on what the kernel does not take: an unpadded kernel larger
-    than the map, a pool window larger than the conv output, or a tile
-    that needs more shared memory than a block has.
-    """
-    sh, sw = stride
-    _, _, win, ph, pw = _conv_dims(h, w, k, stride, padding, pool)
-    tp = max(1, 8 // win)              # pooled pixels per tile side
-    tc = tp * win
-    cw = -(-cin // 4)
-    smem = 4 * (((tc - 1) * sh + k) * ((tc - 1) * sw + k) * cw
-                + k * k * cw * _CO_TILE)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"layer needs {smem} B of shared memory per block, "
-                         f"more than {_SMEM_LIMIT}")
-    return dict(h=h, w=w, cin=cin, cout=cout, k=k, sh=sh, sw=sw,
-                pad=k // 2 if padding else 0, win=win,
-                kind=_POOL_KIND[pool[0] if pool else None], ph=ph, pw=pw,
-                tp=tp, tiles_r=-(-ph // tp), tiles_c=-(-pw // tp),
-                fuse=int(fuse), wh=h if padding else h - k + 1,
-                ww=w if padding else w - k + 1,
-                w_rows=cin if w_rows is None else w_rows,
-                row_bytes=row_bytes, stat_c=cin if stat_c is None else stat_c)
-
-
 #: The int fields of `csrc/conv_mma.cuh` ConvPlan, in declaration order.
 PLAN_FIELDS = ("n", "h", "w", "cin", "cout", "k", "sh", "sw", "pad", "win",
-               "kind", "ph", "pw", "fuse", "wh", "ww", "row_bytes",
+               "kind", "ph", "pw", "fuse", "wh", "ww", "row_bytes", "w_rows",
                "stat_c", "th", "tw", "tiles_r", "tiles_c", "ns", "slices",
                "gpb", "cp", "pr", "pc", "ps", "direct", "raw_row",
                "b_stride", "groups", "off_epi", "off_grp", "grp_bytes",
@@ -167,6 +129,7 @@ SM_COUNT = 132            # streaming multiprocessors of an H100 SXM
 _SM_SMEM = 233472         # shared memory of one SM
 _BLOCK_RESERVED = 1024    # shared memory the runtime keeps per block
 _MAX_GROUPS = 4           # tile pipelines of 4 warps in one block
+_GROUP_THREADS = 128      # threads of one tile pipeline
 _MIN_TILE_PIXELS = 16     # the planner shrinks tiles no further
 _ROWS = 64                # GEMM rows of a tile: its pixels, padded
 _SLICE = 64               # output channels per block where Cout > 32
@@ -191,10 +154,10 @@ def _layout(*, cin, k, sh, sw, th, tw, ns, groups) -> dict:
     direct = cin % 16 == 0
     if direct:                         # ring: two compute buffers
         raw_row, buf1, unp, grp = 0, slot, 0, 2 * slot
-    else:                              # ring: two raw buffers; one compute
-        raw_row = _r16(pc * cin + 15)
+    else:                              # one raw buffer, refilled after the
+        raw_row = _r16(pc * cin + 15)  # repack; one compute buffer
         raw = _r16(pr * raw_row)
-        buf1, unp, grp = raw, 2 * raw, 2 * raw + slot
+        buf1, unp, grp = 0, raw, raw + slot
     off_epi = ns * b_stride
     off_grp = off_epi + _r16(11 * ns)
     return dict(th=th, tw=tw, ns=ns, cp=cp, pr=pr, pc=pc, ps=ps,
@@ -210,6 +173,49 @@ def blocks_per_sm(smem: int, groups: int) -> int:
     _MAX_GROUPS pipelines of 128 threads fill an SM's 65,536."""
     return max(1, min(_MAX_GROUPS // groups,
                       _SM_SMEM // (smem + _BLOCK_RESERVED)))
+
+
+def check_int16(win: int, k: int, cin: int) -> None:
+    """Raise where pooled sums may not fit the tile body's int16 lanes:
+    |sum| <= win*win*k*k*Cin must stay below 32767."""
+    if win * win * k * k * cin >= 32767:
+        raise ValueError(f"win*win*k*k*Cin = {win * win * k * k * cin} >= "
+                         "32767: the pooled sums may not fit the kernel's "
+                         "int16 lanes")
+
+
+def first_tile(win: int, ph: int, pw: int) -> tuple[int, int]:
+    """The largest tile in pooled pixels: at most 8 x 8 conv outputs, sides
+    multiples of the pool window (6 x 6 for a window of 3)."""
+    side = max(1, 8 // win)
+    return min(side, ph), min(side, pw)
+
+
+def shrink_tile(a: int, b: int, win: int):
+    """A tile of (a, b) pooled pixels with its longer side halved, or None
+    at _MIN_TILE_PIXELS conv outputs."""
+    if a * b * win * win <= _MIN_TILE_PIXELS:
+        return None
+    if a >= b and a > 1:
+        return -(-a // 2), b
+    return (a, -(-b // 2)) if b > 1 else None
+
+
+def plan_row(lay: dict, *, n, h, w, cin, cout, k, stride, padding, pool,
+             tph, tpw, gpb, fuse=True, row_bytes=0, w_rows=None,
+             stat_c=None) -> dict:
+    """A layer's ConvPlan (PLAN_FIELDS) from its layout (`_layout`), its
+    tile of (tph, tpw) pooled pixels and its blocks per Cout slice."""
+    _, _, win, ph, pw = _conv_dims(h, w, k, stride, padding, pool)
+    return dict(lay, n=n, h=h, w=w, cin=cin, cout=cout, k=k, sh=stride[0],
+                sw=stride[1], pad=k // 2 if padding else 0, win=win,
+                kind=_POOL_KIND[pool[0] if pool else None], ph=ph, pw=pw,
+                fuse=int(fuse), wh=h if padding else h - k + 1,
+                ww=w if padding else w - k + 1, row_bytes=row_bytes,
+                w_rows=cin if w_rows is None else w_rows,
+                stat_c=cin if stat_c is None else stat_c,
+                tiles_r=-(-ph // tph), tiles_c=-(-pw // tpw),
+                slices=-(-cout // lay["ns"]), gpb=gpb)
 
 
 def conv_plan(n: int, h: int, w: int, cin: int, cout: int, k: int, stride,
@@ -240,27 +246,17 @@ def conv_plan(n: int, h: int, w: int, cin: int, cout: int, k: int, stride,
     """
     sh, sw = stride
     _, _, win, ph, pw = _conv_dims(h, w, k, stride, padding, pool)
-    if win * win * k * k * cin >= 32767:
-        raise ValueError(f"win*win*k*k*Cin = {win * win * k * k * cin} >= "
-                         "32767: the pooled sums may not fit the kernel's "
-                         "int16 lanes")
-    tph, tpw = min(max(1, 8 // win), ph), min(max(1, 8 // win), pw)
+    check_int16(win, k, cin)
+    tph, tpw = first_tile(win, ph, pw)
     ns = 32 if cout <= 32 else _SLICE
 
     def tiles(a, b):
         return n * -(-ph // a) * -(-pw // b)
 
-    def shrink(a, b):                  # halve the longer side, or None
-        if a * b * win * win <= _MIN_TILE_PIXELS:
-            return None
-        if a >= b and a > 1:
-            return -(-a // 2), b
-        return (a, -(-b // 2)) if b > 1 else None
-
     while tiles(tph, tpw) * -(-cout // ns) < SM_COUNT:
         if ns > 32:
             ns = 32
-        elif (smaller := shrink(tph, tpw)) is not None:
+        elif (smaller := shrink_tile(tph, tpw, win)) is not None:
             tph, tpw = smaller
         else:
             break
@@ -286,25 +282,21 @@ def conv_plan(n: int, h: int, w: int, cin: int, cout: int, k: int, stride,
             break
         if ns > 32:
             ns = 32
-        elif (smaller := shrink(tph, tpw)) is not None:
+        elif (smaller := shrink_tile(tph, tpw, win)) is not None:
             tph, tpw = smaller
         else:
             raise ValueError(f"layer needs {lay['smem']} B of shared "
                              f"memory per block, more than {_SMEM_LIMIT}")
-    return dict(lay, n=n, h=h, w=w, cin=cin, cout=cout, k=k, sh=sh, sw=sw,
-                pad=k // 2 if padding else 0, win=win,
-                kind=_POOL_KIND[pool[0] if pool else None], ph=ph, pw=pw,
-                fuse=int(fuse), wh=h if padding else h - k + 1,
-                ww=w if padding else w - k + 1, row_bytes=row_bytes,
-                stat_c=cin if stat_c is None else stat_c,
-                tiles_r=-(-ph // tph), tiles_c=-(-pw // tpw), slices=slices,
-                gpb=gpb)
+    return plan_row(lay, n=n, h=h, w=w, cin=cin, cout=cout, k=k,
+                    stride=stride, padding=padding, pool=pool, tph=tph,
+                    tpw=tpw, gpb=gpb, fuse=fuse, row_bytes=row_bytes,
+                    stat_c=stat_c)
 
 
-def geo_array(rows, fields=TILE_FIELDS) -> ctypes.Array:
-    """TileGeo (or ConvPlan) rows as the flat C int array the kernels
+def plan_array(rows) -> ctypes.Array:
+    """ConvPlan rows (PLAN_FIELDS) as the flat C int array the kernels
     read."""
-    flat = [int(g[f]) for g in rows for f in fields]
+    flat = [int(g[f]) for g in rows for f in PLAN_FIELDS]
     return (ctypes.c_int * len(flat))(*flat)
 
 
@@ -342,7 +334,7 @@ def _plan_array(n, h, w, cin, cout, k, stride, padding, pool, fuse,
     host time on every call."""
     g = conv_plan(n, h, w, cin, cout, k, stride, padding, pool, fuse=fuse,
                   row_bytes=row_bytes)
-    return g["ph"], g["pw"], geo_array([g], PLAN_FIELDS)
+    return g["ph"], g["pw"], plan_array([g])
 
 
 def _library() -> ctypes.CDLL:

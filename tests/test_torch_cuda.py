@@ -157,15 +157,30 @@ def test_pipeline_matches_ref_on_card(cuda, backend):
 
 # -- the trunk megakernel ----------------------------------------------------
 
+# The edges of the trunk planner (`FT.trunk_plan`): the head's Cin 126
+# on the raw-copy path (the CIFAR width, at batch 2 and 64), a partial
+# Cout slice (C = 13), stride 2, avg 4 on a 4 x 4 map into a 1 x 1 layer
+# (C = 33 behind a head of 64: weight rows at Cu = 64, the second layer
+# raw), N = 1 with fewer tiles than blocks, 16 layers.
 TRUNKS = {
     "cifar-width": dict(n=2, hw=(32, 32), cin=126, c=128,
                         metas=[((1, 1), p) for p in CIFAR_POOLS]),
+    "cifar-b64": dict(n=64, hw=(32, 32), cin=126, c=128,
+                      metas=[((1, 1), p) for p in CIFAR_POOLS]),
     "odd-c13-head6": dict(n=3, hw=(11, 9), cin=6, c=13,
                           metas=[((1, 1), None), ((1, 1), ("max", 2)),
                                  ((1, 1), None)]),
     "stride2-avg": dict(n=2, hw=(17, 15), cin=16, c=16,
                         metas=[((2, 2), None), ((1, 1), ("avg", 2)),
                                ((1, 1), None)]),
+    "avg4-into-1x1": dict(n=5, hw=(4, 4), cin=64, c=33,
+                          metas=[((1, 1), ("avg", 4)), ((1, 1), None)]),
+    "n1-few-tiles": dict(n=1, hw=(8, 8), cin=16, c=32,
+                         metas=[((1, 1), None), ((1, 1), ("max", 2)),
+                                ((1, 1), None)]),
+    "16-layers": dict(n=2, hw=(16, 16), cin=8, c=16,
+                      metas=[((1, 1), ("max", 2) if l in (3, 7) else None)
+                             for l in range(16)]),
 }
 
 
@@ -200,6 +215,32 @@ def test_trunk_kernel_matches_plain_on_card(cuda, name):
     torch.cuda.synchronize()
     assert FT.LAUNCHES["fused_trunk"] == before + 1
     assert torch.equal(y, want_y) and torch.equal(s, want_s)
+
+
+def test_trunk_kernel_raises_past_the_int16_limit_on_card(cuda):
+    spec = dict(n=2, hw=(12, 12), cin=128, c=128,
+                metas=[((1, 1), ("avg", 6))])
+    x, w, th = _trunk_operands(np.random.default_rng(24), cuda, **spec)
+    before = FT.LAUNCHES["fused_trunk"]
+    with pytest.raises(ValueError, match="int16"):
+        FT.fused_trunk(x, w, *th, metas=spec["metas"])
+    assert FT.LAUNCHES["fused_trunk"] == before
+
+
+def test_trunk_timeline_on_card(cuda):
+    """The stamped launch gives the same bits, and per layer and block a
+    start, an end of tiles and an arrival at the barrier, in order."""
+    spec = TRUNKS["stride2-avg"]
+    x, w, th = _trunk_operands(np.random.default_rng(25), cuda, **spec)
+    kw = dict(metas=spec["metas"], emit_stats=True)
+    (y, s), marks = FT.fused_trunk_timeline(x, w, *th, **kw)
+    want_y, want_s = FT.fused_trunk_plain(x, w, *th, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(y, want_y) and torch.equal(s, want_s)
+    m = marks.cpu()
+    assert m.shape[0] == len(spec["metas"]) and (m > 0).all()
+    assert (m[..., 1] >= m[..., 0]).all() and (m[..., 2] >= m[..., 1]).all()
+    assert (m[1:, :, 0] >= m[:-1, :, 2].max(dim=1).values[:, None]).all()
 
 
 def test_trunk_kernel_packed_in_and_out_on_card(cuda):
@@ -281,6 +322,40 @@ def test_thermometer_kernel_matches_plain_on_card(cuda, ternary):
     torch.cuda.synchronize()
     assert TC.LAUNCHES["thermometer"] == before + 1
     assert torch.equal(got, TC.thermometer_plain(x, m, ternary=ternary))
+
+
+def test_trit_kv_store_on_card_matches_cpu(cuda):
+    """A trit KV store's pages after `write_rows`, and the rows `gather`
+    decodes from them, equal the same store's on the CPU bit for bit: the
+    codec kernels pack every written row and unpack every gathered page
+    (5 trits per byte; d_head 64 leaves a 4-trit tail per row)."""
+    from repro_torch.serving.blocks.store import KVPagedStore
+
+    rng = np.random.default_rng(26)
+    args = (2, 9, 4, 3, 64)                 # L, blocks, block, Hk, Dh
+    tables = torch.as_tensor([[1, 2], [3, 4], [5, 6], [7, 8]])
+    pos = torch.as_tensor([3, 6, 0, 7])
+    rows = {n: torch.as_tensor(rng.standard_normal((2, 4, 3, 64)),
+                               dtype=torch.float32).to(torch.bfloat16)
+            for n in ("k", "v")}
+    got = {}
+    for dev in ("cpu", cuda):
+        st = KVPagedStore(*args, codec_name="trit", device=dev)
+        before = dict(TC.LAUNCHES)
+        st.pages = st.write_rows(st.pages, tables.to(dev), pos.to(dev),
+                                 {n: r.to(dev) for n, r in rows.items()})
+        g = st.gather(st.pages, tables.to(dev))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert TC.LAUNCHES["pack_trits"] > before["pack_trits"]
+            assert TC.LAUNCHES["unpack_trits"] > before["unpack_trits"]
+        got[str(dev)] = ({n: v.cpu() for n, v in st.pages.items()},
+                         {n: v.cpu() for n, v in g.items()})
+    (pc, gc), (pg, gg) = got["cpu"], got["cuda"]
+    for n in pc:
+        assert torch.equal(pc[n], pg[n]), n
+    for n in gc:
+        assert torch.equal(gc[n].view(torch.int16), gg[n].view(torch.int16))
 
 
 # -- the ternary matmul kernels (packed and dense) ----------------------------

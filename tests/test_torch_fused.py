@@ -388,3 +388,137 @@ def test_fused_execution_plan_and_tracer_fallback():
     y, rows = pipe.run(r["x"], tracer=ActivationStats())
     assert np.array_equal(y.numpy(), r["y"]) and rows == r["rows"]
     assert not pipe._programs               # the per-layer loop ran
+
+
+# -- the trunk kernel's launch planner (pure Python: no card) ---------------
+
+
+def _chip_smoke():
+    """`chip_smoke.py`, whose phase 3 runs the trunk cases on the card."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("_chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_SMOKE = _chip_smoke()
+_CIFAR_METAS = tuple(((1, 1), p) for p in _SMOKE.CIFAR_POOLS)
+
+
+def _trunk_plan_cases():
+    """(n, h, w, cin, c, metas) of the CIFAR trunk at batch 64 and at 130,
+    the largest batch that is still one trunk; the two halves of the
+    ``fused-split`` run (the second reads C channels); and the small
+    trunk cases of `chip_smoke.compare_new_kernels`."""
+    split = _SMOKE.SPLIT_AT
+    cases = {
+        "cifar-b64": (64, 32, 32, 126, 128, _CIFAR_METAS),
+        "cifar-b130": (130, 32, 32, 126, 128, _CIFAR_METAS),
+        "split-head-b64": (64, 32, 32, 126, 128, _CIFAR_METAS[:split]),
+        "split-tail-b64": (64, 16, 16, 128, 128, _CIFAR_METAS[split:]),
+    }
+    for i, spec in enumerate(_SMOKE.trunk_cases()[1:]):
+        cases[f"smoke-{i + 1}"] = (spec["n"], *spec["hw"], spec["cin"],
+                                   spec["c"], _SMOKE.trunk_metas(spec))
+    return cases
+
+
+TRUNK_PLAN_CASES = _trunk_plan_cases()
+
+
+def _trunk_plan(name):
+    n, h, w, cin, c, metas = TRUNK_PLAN_CASES[name]
+    return FT.trunk_plan(n, h, w, cin, c, max(cin, c), 3, metas, cin)
+
+
+@pytest.mark.parametrize("name", sorted(TRUNK_PLAN_CASES))
+def test_trunk_plan_tiles_cover_each_output_once(name):
+    """The deal of csrc/fused_trunk.cu: block b < slices * gpb owns slice
+    b // gpb; its pipeline r takes tiles q + r * gpb, then every gpb *
+    groups after, with q = b % gpb."""
+    plan = _trunk_plan(name)
+    n, h, w, cin, c, metas = TRUNK_PLAN_CASES[name]
+    shapes = FT.trunk_shapes((h, w), 3, metas)
+    for l, g in enumerate(plan["layers"]):
+        win = g["win"]
+        assert (g["h"], g["w"]) == shapes[l]
+        assert g["th"] % win == 0 and g["tw"] % win == 0
+        assert g["th"] * g["tw"] <= 64 and g["ns"] in (32, 64)
+        assert g["slices"] * g["gpb"] <= plan["grid"]
+        seen = np.zeros((g["n"], g["ph"], g["pw"], g["cout"]), np.int32)
+        ntiles = g["n"] * g["tiles_r"] * g["tiles_c"]
+        tph, tpw = g["th"] // win, g["tw"] // win
+        step = g["gpb"] * g["groups"]
+        for b in range(plan["grid"]):
+            if b >= g["slices"] * g["gpb"]:
+                continue                       # sits the layer out
+            co0 = (b // g["gpb"]) * g["ns"]
+            for r in range(g["groups"]):
+                for t in range(b % g["gpb"] + r * g["gpb"], ntiles, step):
+                    img, rest = divmod(t, g["tiles_r"] * g["tiles_c"])
+                    tr, tc = divmod(rest, g["tiles_c"])
+                    seen[img, tr * tph:(tr + 1) * tph,
+                         tc * tpw:(tc + 1) * tpw, co0:co0 + g["ns"]] += 1
+        assert (seen == 1).all(), l
+
+
+@pytest.mark.parametrize("name", sorted(TRUNK_PLAN_CASES))
+def test_trunk_plan_one_block_size_and_a_co_resident_grid(name):
+    plan = _trunk_plan(name)
+    rows = plan["layers"]
+    from repro_torch.kernels import ternary_conv2d as K
+    assert {g["groups"] for g in rows} == {plan["groups"]}
+    assert plan["threads"] == 128 * plan["groups"]
+    assert plan["smem"] == max(g["smem"] for g in rows) <= 232448
+    for g in rows:                          # each layer's own layout
+        assert g["smem"] == K._layout(
+            cin=g["cin"], k=3, sh=g["sh"], sw=g["sw"], th=g["th"],
+            tw=g["tw"], ns=g["ns"], groups=g["groups"])["smem"]
+    slots = K.SM_COUNT * K.blocks_per_sm(plan["smem"], plan["groups"])
+    assert 1 <= plan["grid"] <= slots
+    assert all(g["gpb"] >= 1 for g in rows)
+
+
+@pytest.mark.parametrize("name", sorted(TRUNK_PLAN_CASES))
+def test_trunk_plan_weight_rows_at_the_common_width(name):
+    n, h, w, cin, c, metas = TRUNK_PLAN_CASES[name]
+    rows = _trunk_plan(name)["layers"]
+    cu = max(cin, c)
+    assert (rows[0]["cin"], rows[0]["stat_c"]) == (cin, cin)
+    assert all(g["w_rows"] == cu for g in rows)
+    assert all((g["cin"], g["cout"], g["stat_c"]) == (c, c, c)
+               for g in rows[1:])
+    # a pixel's channels are copied straight in only where Cin % 16 == 0
+    assert all(g["direct"] == int(g["cin"] % 16 == 0) for g in rows)
+
+
+def test_trunk_plan_cifar_fills_the_card():
+    """Batch 64: four pipelines per block, one block per SM, every CIFAR
+    layer on all 132 blocks; the head (Cin 126) on the raw-copy path with
+    64-channel slices; the 8 x 8 and 4 x 4 layers on 32-channel slices
+    with smaller tiles, one round of tiles each."""
+    plan = _trunk_plan("cifar-b64")
+    rows = plan["layers"]
+    assert (plan["groups"], plan["grid"]) == (4, 132)
+    assert all(g["slices"] * g["gpb"] == 132 for g in rows)
+    assert (rows[0]["direct"], rows[0]["ns"], rows[0]["th"],
+            rows[0]["tw"]) == (0, 64, 8, 8)
+    pipes = plan["grid"] * plan["groups"]
+    for g in rows[5:]:
+        pairs = g["slices"] * g["n"] * g["tiles_r"] * g["tiles_c"]
+        assert g["ns"] == 32 and pairs <= pipes
+
+
+def test_trunk_plan_raises_past_the_int16_limit():
+    """win*win*k*k*Cu >= 32767 raises, on the common width Cu even where
+    the head reads fewer channels: the tile body stages sums as int16."""
+    with pytest.raises(ValueError, match="int16"):
+        FT.trunk_plan(2, 12, 12, 128, 128, 128, 3, (((1, 1), ("avg", 6)),))
+    with pytest.raises(ValueError, match="int16"):
+        FT.trunk_plan(2, 8, 8, 8, 16, 1024, 3,
+                      (((1, 1), None), ((1, 1), ("max", 2))))
+    # avg 5 at 128 channels still fits: 25 * 9 * 128 = 28,800
+    FT.trunk_plan(2, 10, 10, 128, 128, 128, 3, (((1, 1), ("avg", 5)),))
