@@ -19,10 +19,12 @@ Phases, each of which fails the script (no result line) when it fails:
    the trunk megakernel on the full CIFAR trunk at batch 64, its two-trunk
    split through a packed boundary and the edges of its planner
    (`trunk_cases`: C = 13 behind a head Cin of 6, stride 2 + avg pool,
-   avg 4 on 4 x 4 into a 1 x 1 layer, N = 1, 16 layers), and a trunk past
-   the tile body's int16 limit, which must raise; the codec and
-   thermometer kernels at the main
-   path's shapes and at lengths that are not a multiple of 5 x 128;
+   avg 4 on 4 x 4 into a 1 x 1 layer, N = 1, 16 layers); kernels 1-3 past
+   the old int16 limit of their avg pools (`WIDE_CONV`: avg 6 on 12 x 12,
+   avg 8 on 8 x 8, 128 channels, planned wide); the codec and
+   thermometer kernels at the main path's shapes, at lengths that are not
+   a multiple of 5, on flat and unaligned views, and the codec's KV store
+   forms at the trit serve's shapes (bf16 bit for bit);
    counters included; the packed ternary matmul (every epilogue, int8 and
    bf16 x, M in {1, 4, 37, 128}, ragged N, a logical K that is not a
    multiple of 5, and the seven llama3.2-1B projections at M = 4 and 64)
@@ -52,22 +54,27 @@ Phases, each of which fails the script (no result line) when it fails:
    (prefill or decode step), the same requests served contiguous must give
    the same tokens, and one prefill's logits with the plain matmul must
    agree with the kernel's within ``LOGIT_TOL``; then the same requests
-   with ``kv_codec="trit"`` (kernels 4 and 5 in every decode step) must
-   give the same tokens as with the codec's plain versions, and their
-   agreement with the raw serve is reported;
+   with ``kv_codec="trit"`` (kernels 4 and 5 in their KV forms, one launch
+   per K or V write and gather) must give the same tokens as with the
+   codec's plain versions, and their agreement with the raw serve is
+   reported;
 5. time the whole program (`run`, `measure`) per backend on the host
    clock, then each kernel at the main path's shapes beside its bound, its
    plain version and, where one PyTorch call computes the same function,
    that call as a library yardstick (f16 channels-last `F.conv2d`, whose
    int32 cast must equal the conv kernel's raw output, with f32
    `F.conv2d` beside it; bf16 `torch.matmul` on pre-decoded weights;
-   `torch._int_mm`); kernels 1, 2, 3, 7 and 8 also with their device-only
-   time and the library call's (torch.profiler); kernel 3 with its
-   per-layer timeline (the kernel's own clock stamps); kernels 3, 7 and 8
+   `torch._int_mm`); every kernel also with its device-only time and, for
+   1, 2, 3, 7 and 8, the library call's (torch.profiler); kernel 3 with its
+   per-layer timeline (the kernel's own clock stamps); kernels 3-8
    with the wrapper's host microseconds per call, kernel 7 at the decode M
-   and at the prefill M; then the serving times
+   and at the prefill M; kernels 4 and 5 in their KV forms at the trit
+   serve's shapes beside the store's former chain of kernel and torch
+   ops; then the serving times
    (decode step, prefill, tokens/s, latency p50/p99) of the LLM path and
-   of the same requests on ``quant="none"``, the bf16 baseline.
+   of the same requests on ``quant="none"``, the bf16 baseline, and the
+   trit serve with the former chain and with the KV forms (decode
+   medians, device busy under torch.profiler).
 
 The line before the last is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a card, and
@@ -122,6 +129,10 @@ CIFAR_CIN, CIFAR_WIDTH, CIFAR_HW, THERMO_M = 126, 128, 32, 42
 # with the default ServerConfig (paged, 4 slots, max_len 256, block 16)
 LLM_ARCH, LLM_REQUESTS, LLM_PREFIX, LLM_PROMPT, LLM_NEW = (
     "llama3.2-1b", 8, 32, 40, 16)
+# rows of one decode step's K (or V) gather through the block tables in the
+# trit serve: 16 layers x 4 slots x 16 blocks x 16 positions x 8 KV heads
+KV_ROWS = 16 * 4 * 16 * 16 * 8
+KV_WRITE_ROWS = 16 * 4 * 8           # one decode step's K (or V) write
 DECODE_M, PREFILL_M = 4, 64        # n_slots; bucket of a 40-token prompt
 INVARIANT_M = (4, 16, 64)          # decode, prefix-hit and cold prefill M
 # (name, K, N) of one layer's seven packed projections
@@ -191,7 +202,7 @@ def conv_cases() -> list[dict]:
     then the edges of the kernels' planner (`conv_plan`): maps that are
     not multiples of the tile, Cout over more than one slice and ragged,
     Cin 126 raw, avg 4 on a 4 x 4 map, packed rows whose length is not a
-    multiple of 5."""
+    multiple of 5, and the wide plans (`WIDE_CONV`)."""
     cases = []
     hw, cin = CIFAR_HW, CIFAR_CIN
     for pool in CIFAR_POOLS:                   # the main path's layer shapes
@@ -214,7 +225,13 @@ def conv_cases() -> list[dict]:
              pool=("avg", 3)),
         dict(n=5, h=4, w=4, cin=64, cout=33, pool=("avg", 4)),
         dict(n=2, h=7, w=12, cin=7, cout=9, pool=("max", 2)),
-    ]
+    ] + WIDE_CONV
+
+
+# avg windows whose sums pass int16 at 128 channels (the planners' `wide`
+# plans, the int32 epilogue): avg 6 on 12 x 12, avg 8 on 8 x 8 (global)
+WIDE_CONV = [dict(n=3, h=12, w=12, cin=128, cout=128, pool=("avg", 6)),
+             dict(n=3, h=8, w=8, cin=128, cout=128, pool=("avg", 8))]
 
 
 def compare_kernels(torch, K, codec) -> dict:
@@ -273,7 +290,9 @@ def trunk_cases() -> list[dict]:
     (`trunk_plan`): C = 13 (a partial slice) behind a head of 6, stride 2
     with avg 2, avg 4 on a 4 x 4 map into a 1 x 1 layer (C = 33 behind a
     head of 64: weight rows at Cu = 64, the second layer on the raw path),
-    N = 1 with fewer tiles than blocks, and a 16-layer trunk."""
+    N = 1 with fewer tiles than blocks, a 16-layer trunk, and the two
+    wide trunks: a plain layer, then avg 6 on 12 x 12 or avg 8 on 8 x 8
+    at 128 channels."""
     return [dict(n=BATCH, hw=(CIFAR_HW, CIFAR_HW), cin=CIFAR_CIN,
                  c=CIFAR_WIDTH, pools=CIFAR_POOLS),
             dict(n=3, hw=(11, 9), cin=6, c=13,
@@ -286,7 +305,9 @@ def trunk_cases() -> list[dict]:
                  pools=(None, ("max", 2), None)),
             dict(n=2, hw=(16, 16), cin=8, c=16,
                  pools=(None, None, None, ("max", 2)) + (None,) * 3
-                 + (("max", 2),) + (None,) * 8)]
+                 + (("max", 2),) + (None,) * 8)] + [
+            dict(n=c["n"], hw=(c["h"], c["w"]), cin=c["cin"], c=c["cout"],
+                 pools=(None, c["pool"])) for c in WIDE_CONV]
 
 
 def trunk_metas(spec) -> tuple:
@@ -295,10 +316,38 @@ def trunk_metas(spec) -> tuple:
     return tuple(zip(strides, spec["pools"]))
 
 
+def kv_rows(rng, torch, r, n, dtype):
+    """(r, n) seeded KV rows on the card with exact ties at half the row's
+    max, all-zero rows and signed zeros (as tests/test_torch_cuda.py's)."""
+    x = rng.standard_normal((r, n)).astype(np.float32)
+    m = 2.0 ** rng.integers(-3, 4, r) * np.where(np.arange(r) % 2, -1, 1)
+    x = np.clip(x, -np.abs(m)[:, None], np.abs(m)[:, None])
+    x[:, 0] = m
+    x[::3, 1::3] = (m / 2)[::3, None]
+    x[::3, 2::3] = (-m / 2)[::3, None]
+    x[1::11] = 0.0
+    x[2::11] = -0.0
+    x[3::11, ::2] = -0.0
+    return torch.as_tensor(x, device=DEVICE).to(getattr(torch, dtype))
+
+
+def kv_packed(rng, torch, r, g):
+    """(r, g) packed KV rows and (r,) f32 scales on the card, 0 and -0.0
+    among the scales."""
+    b = torch.as_tensor(rng.integers(0, 243, (r, g)), dtype=torch.uint8,
+                        device=DEVICE)
+    s = torch.as_tensor(rng.standard_normal(r), dtype=torch.float32,
+                        device=DEVICE)
+    s[:2] = torch.as_tensor([0.0, -0.0])
+    return b, s
+
+
 def compare_new_kernels(torch, FT, TC, worst: dict) -> None:
     """The trunk, codec and thermometer kernels against their plain
-    versions on the card, counters included; a trunk past the tile body's
-    int16 limit must raise."""
+    versions on the card, counters included: the trunk past the old int16
+    limit (`WIDE_CONV`), the codec on the split's boundary and ragged,
+    flat and unaligned shapes, and its KV store forms at the trit serve's
+    shapes and odd ones (bf16 compared bit for bit)."""
     rng = np.random.default_rng(SEED + 3)
     cases = trunk_cases()
     full = cases[0]
@@ -322,16 +371,6 @@ def compare_new_kernels(torch, FT, TC, worst: dict) -> None:
               FT.fused_trunk_plain(x, w, *th, **kw),
               f"fused_trunk on {tuple(x.shape)} -> C {spec['c']}, "
               f"{len(metas)} layers")
-    x, w, th, metas = _trunk_case(rng, torch, n=2, hw=(12, 12), cin=128,
-                                  c=128, pools=(("avg", 6),))
-    try:
-        FT.fused_trunk(x, w, *th, metas=metas)
-    except ValueError as e:
-        if "int16" not in str(e):
-            raise
-    else:
-        raise RuntimeError("fused_trunk ran avg 6 at 128 channels, past the "
-                           "tile body's int16 limit")
     # the main path's split: [0, SPLIT_AT) packs, [SPLIT_AT, 8) unpacks
     x, w, th, metas = _trunk_case(rng, torch, **full)
     a = dict(metas=metas[:SPLIT_AT], pack_out=True, emit_stats=True)
@@ -347,14 +386,37 @@ def compare_new_kernels(torch, FT, TC, worst: dict) -> None:
     check(FT.fused_trunk(*b_args, **b), FT.fused_trunk_plain(*b_args, **b),
           "fused_trunk packed_in at the split")
     # codec at the split's boundary and at ragged lengths
-    for t in (mid.reshape(1, -1), mid.reshape(-1)[:7 * 643].reshape(7, 643),
+    flat = mid.reshape(-1)
+    for t in (mid.reshape(1, -1), flat[:7 * 643].reshape(7, 643),
               torch.as_tensor(rng.integers(-1, 2, (3, 1003)),
-                              dtype=torch.int8, device=DEVICE)):
+                              dtype=torch.int8, device=DEVICE),
+              flat[:64 * 800].reshape(64, 800),          # W % 5 == 0
+              flat[3:3 + 2 * 80013].reshape(2, 80013)):  # unaligned view
         packed = TC.pack_trits(t)
         check(packed, TC.pack_trits_plain(t),
               f"pack_trits on {tuple(t.shape)}")
         check(TC.unpack_trits(packed), TC.unpack_trits_plain(packed),
               f"unpack_trits on {tuple(packed.shape)}")
+    every = torch.arange(256, dtype=torch.uint8, device=DEVICE).repeat(9)
+    check(TC.unpack_trits(every[5:].reshape(1, -1)),
+          TC.unpack_trits_plain(every[5:].reshape(1, -1)),
+          "unpack_trits on every byte value, unaligned")
+    # the KV store's forms: one decode step's K write (16 x 4 x 8 rows)
+    # and K gather (16 x 4 x 16 x 16 x 8 rows of 13 bytes) at full width
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    for r, n in ((512, 64), (8192, 64), (37, 13), (5, 1)):
+        for dtype in ("bfloat16", "float32"):
+            x = kv_rows(rng, torch, r, n, dtype)
+            got, want = TC.ternarize_pack(x), TC.ternarize_pack_plain(x)
+            check((got[0], got[1].view(torch.int32)),
+                  (want[0], want[1].view(torch.int32)),
+                  f"pack_trits ternarize_pack on {dtype} ({r}, {n})")
+    for r, g, n in ((KV_ROWS, 13, 64), (77, 8, 37), (9, 1, 5)):
+        b, sc = kv_packed(rng, torch, r, g)
+        got = TC.unpack_dequant(b, sc, n)
+        want = TC.unpack_dequant_plain(b, sc, n)
+        check(got.view(bits[got.dtype]), want.view(bits[want.dtype]),
+              f"unpack_trits unpack_dequant on ({r}, {g}) -> {n}")
     levels = torch.as_tensor(rng.integers(0, 2 * THERMO_M + 1,
                                           (BATCH, CIFAR_HW, CIFAR_HW, 3)),
                              dtype=torch.int32, device=DEVICE)
@@ -365,8 +427,9 @@ def compare_new_kernels(torch, FT, TC, worst: dict) -> None:
               f"thermometer {'ternary' if ternary else 'binary'} on "
               f"{tuple(lv.shape)}")
     log(f"phase 3: {n_cases} trunk, codec and thermometer cases "
-        "bit-identical to the plain versions (outputs and counters); a "
-        "trunk past the int16 limit raised")
+        "bit-identical to the plain versions (outputs and counters), the "
+        f"wide trunks {[c['pool'] for c in WIDE_CONV]} at 128 channels and "
+        "the codec's KV forms included")
 
 
 def _mm_case(rng, torch, m, k, n, xdt, ep):
@@ -799,28 +862,34 @@ def serve(torch, S, params, cfg, prompts, margins=False, **scfg) -> dict:
 
 def trit_kv_serve(torch, TC, S, codec, params, cfg, prompts, raw) -> dict:
     """The same requests with the paged KV rows stored ternarized, 5 trits
-    per byte (``kv_codec="trit"``): the codec kernels pack every written
-    row and unpack every gathered page.  The codec is exact, so the serve
-    with the codec's plain versions on the card must give the same tokens,
-    as the reduced-config CPU tests hold the port's trit serve against the
-    reference's.  Ternarized KV rows are lossy by design, so against
-    ``raw``, a paged serve with the default codec that recorded its top-2
-    logit margins, the agreement is reported, not required: per request,
-    the first step that differs and the raw margin there."""
+    per byte (``kv_codec="trit"``): the codec kernels' KV forms ternarize
+    and pack every written row (`ternarize_pack`, kernel 4) and unpack and
+    scale every gathered page (`unpack_dequant`, kernel 5), one launch per
+    K or V: 2 pack launches per forward, 2 unpack launches per decode step
+    and per prefill that gathers a cached prefix.  The codec is exact, so
+    the serve with the codec's plain versions on the card must give the
+    same tokens, as the reduced-config CPU tests hold the port's trit
+    serve against the reference's.  Ternarized KV rows are lossy by
+    design, so against ``raw``, a paged serve with the default codec that
+    recorded its top-2 logit margins, the agreement is reported, not
+    required: per request, the first step that differs and the raw margin
+    there."""
     reset_launches(TC)
     trit = serve(torch, S, params, cfg, prompts, kv_codec="trit")
     sync(torch)
     launches = dict(TC.LAUNCHES)
-    if DEVICE == "cuda" and not (launches["pack_trits"]
-                                 and launches["unpack_trits"]):
-        raise RuntimeError(f"llm trit: codec launches {launches}")
+    st = trit["stats"]["paged_state"]["llm"]
+    forwards = st["prefills"] + st["decode_steps"]
+    if DEVICE == "cuda" and not (
+            launches["pack_trits"] == 2 * forwards
+            and 2 * st["decode_steps"] <= launches["unpack_trits"]
+            <= 2 * forwards and launches["unpack_trits"] % 2 == 0):
+        raise RuntimeError(f"llm trit: codec launches {launches} for "
+                           f"{st['prefills']} prefills + "
+                           f"{st['decode_steps']} decode steps, want 2 per "
+                           "K and V write and gather")
 
-    class _Plain:                  # the store's codec reaches the plain twins
-        TRITS_PER_BYTE = TC.TRITS_PER_BYTE
-        pack_trits = staticmethod(TC.pack_trits_plain)
-        unpack_trits = staticmethod(TC.unpack_trits_plain)
-
-    saved, codec._tc = codec._tc, _Plain
+    saved, codec._tc = codec._tc, _PlainCodec(TC)
     try:
         plain = serve(torch, S, params, cfg, prompts, kv_codec="trit")
     finally:
@@ -834,13 +903,48 @@ def trit_kv_serve(torch, TC, S, codec, params, cfg, prompts, raw) -> dict:
         first.append(None if j is None else (j, gaps[j]))
     same = sum(a == b for t, r in zip(trit["tokens"], raw["tokens"])
                for a, b in zip(t, r))
-    log(f"phase 4: llm kv_codec='trit' paged: pack_trits launched "
-        f"{launches['pack_trits']} times, unpack_trits "
-        f"{launches['unpack_trits']}; tokens identical with the plain codec "
-        f"on the card; against the raw serve {same} of "
-        f"{LLM_REQUESTS * LLM_NEW} tokens equal, first difference per "
+    log(f"phase 4: llm kv_codec='trit' paged: pack_trits (ternarize_pack) "
+        f"launched {launches['pack_trits']} times, unpack_trits "
+        f"(unpack_dequant) {launches['unpack_trits']} ({st['prefills']} "
+        f"prefills + {st['decode_steps']} decode steps); tokens identical "
+        f"with the plain codec on the card; against the raw serve {same} "
+        f"of {LLM_REQUESTS * LLM_NEW} tokens equal, first difference per "
         f"request (step, raw top-2 margin there): {first}")
-    return {"launches": launches, "first": first}
+    return {"launches": launches, "first": first, "tokens": trit["tokens"]}
+
+
+class _PlainCodec:
+    """The codec module as `repro_torch.core.codec` reaches it, with every
+    kernel wrapper replaced by its plain version."""
+
+    def __init__(self, TC):
+        self.TRITS_PER_BYTE = TC.TRITS_PER_BYTE
+        self.pack_trits = TC.pack_trits_plain
+        self.unpack_trits = TC.unpack_trits_plain
+        self.ternarize_pack = TC.ternarize_pack_plain
+        self.unpack_dequant = TC.unpack_dequant_plain
+
+
+class _ChainCodec(_PlainCodec):
+    """The codec as the KV store composed it before its KV forms: the
+    codec kernels proper inside the eager torch ops around them (ternarize
+    rows, then pack; unpack, then trim, f32, scale and bf16)."""
+
+    def __init__(self, torch, TC):
+        super().__init__(TC)
+        self.pack_trits = TC.pack_trits
+        self.unpack_trits = TC.unpack_trits
+
+        def ternarize_pack(x):
+            t, scale = TC.ternarize_rows(x)
+            return TC.pack_trits(t), scale
+
+        def unpack_dequant(b, scale, n):
+            t = TC.unpack_trits(b)[:, :n]
+            return (t.float() * scale[:, None]).to(torch.bfloat16)
+
+        self.ternarize_pack = ternarize_pack
+        self.unpack_dequant = unpack_dequant
 
 
 def llm_main_path(torch, MM, TC, S, TF, DEC, C, codec, configs) -> dict:
@@ -886,7 +990,7 @@ def llm_main_path(torch, MM, TC, S, TF, DEC, C, codec, configs) -> dict:
     raw = serve(torch, S, params, cfg, prompts, margins=True)
     if raw["tokens"] != paged["tokens"]:
         raise RuntimeError("llm: a second paged serve gave other tokens")
-    trit_kv_serve(torch, TC, S, codec, params, cfg, prompts, raw)
+    trit = trit_kv_serve(torch, TC, S, codec, params, cfg, prompts, raw)
     # one prefill with the plain matmul on the card against the kernel
     toks = torch.as_tensor(np.pad(prompts[0], (0, PREFILL_M - LLM_PROMPT))
                            [None], device=DEVICE)
@@ -917,7 +1021,8 @@ def llm_main_path(torch, MM, TC, S, TF, DEC, C, codec, configs) -> dict:
         f"argmax equal on {same!r} of positions")
     return {"cfg": cfg, "params": params, "prompts": prompts,
             "paged": paged, "contiguous": contiguous,
-            "launches": launches["ternary_matmul"], "logit_err": err}
+            "launches": launches["ternary_matmul"], "logit_err": err,
+            "trit": trit}
 
 
 # -- phase 5: timing ---------------------------------------------------------
@@ -1105,10 +1210,11 @@ def time_kernels(torch, F, K, codec, engine, mp, card: str,
     return out, lib
 
 
-def time_new_kernels(torch, FT, TC, mp, card: str, worst: dict,
+def time_new_kernels(torch, FT, TC, mp, llm, card: str, worst: dict,
                      conv_lib: dict) -> list[dict]:
     """The trunk kernel on the whole program, the codec on the split's
-    boundary and the thermometer on the CIFAR input, beside their bounds."""
+    boundary and in its KV forms at the trit serve's shapes, and the
+    thermometer on the CIFAR input, beside their bounds."""
     prog, x = mp["program"], mp["x"]
     layers = prog.layers
     ops_args = _trunk_operands(torch, layers)
@@ -1147,26 +1253,113 @@ def time_new_kernels(torch, FT, TC, mp, card: str, worst: dict,
     levels = torch.as_tensor(np.random.default_rng(SEED + 2).integers(
         0, 2 * THERMO_M + 1, (BATCH * CIFAR_HW * CIFAR_HW * 3,)),
         dtype=torch.int32, device="cuda")
-    cases = {
+    log(f"phase 5: codec and thermometer kernels on {card}: ms per call "
+        "(CUDA events, mean of 20 after 3 warm-up calls), device only "
+        "(torch.profiler, mean of 10), wrapper host us per call (50 calls, "
+        "no synchronize)")
+    cases = {      # (kernel, plain, bytes moved, shape, profiler name)
         "pack_trits": (lambda: TC.pack_trits(b),
                        lambda: TC.pack_trits_plain(b),
-                       b.numel() + packed.numel(), tuple(b.shape)),
+                       b.numel() + packed.numel(), tuple(b.shape),
+                       "pack_flat_kernel"),
         "unpack_trits": (lambda: TC.unpack_trits(packed),
                          lambda: TC.unpack_trits_plain(packed),
-                         packed.numel() * 6, tuple(packed.shape)),
+                         packed.numel() * 6, tuple(packed.shape),
+                         "unpack_kernel"),
         "thermometer": (lambda: TC.thermometer(levels, THERMO_M),
                         lambda: TC.thermometer_plain(levels, THERMO_M),
                         levels.numel() * (4 + THERMO_M),
-                        tuple(levels.shape)),
+                        tuple(levels.shape), "thermo_kernel"),
     }
-    for name, (kern, plain, nbytes, shape) in cases.items():
+    recs = {}
+    for name, (kern, plain, nbytes, shape, part) in cases.items():
         ms, pms = timed(torch, kern), timed(torch, plain)
-        out.append(_record(name, mp["launches"][name], worst[name], ms, pms,
-                           nbytes / HBM_BYTES_PER_S * 1e3, 0.0, None))
-        log(f"phase 5: {name} on {shape}: ms {ms!r} plain_ms {pms!r} "
-            f"bound_ms {out[-1]['bound_ms']!r} ({nbytes} B); library_ms "
-            f"null: no single PyTorch call computes it ({card})")
+        dev, hus = device_ms(torch, kern, part), host_us(torch, kern)
+        rec = _record(name, mp["launches"][name], worst[name], ms, pms,
+                      nbytes / HBM_BYTES_PER_S * 1e3, 0.0, None)
+        rec.update(shape=shape, device_ms=dev, host_us_per_call=hus)
+        out.append(rec)
+        recs[name] = rec
+        log(f"phase 5: {name} on {shape}: ms {ms!r} (device only {dev!r}; "
+            f"host us per call {hus!r}) plain_ms {pms!r} bound_ms "
+            f"{rec['bound_ms']!r} ({nbytes} B); library_ms null: no single "
+            f"PyTorch call computes it ({card})")
+    for name, serve_rec in time_kv_forms(torch, TC, llm, card).items():
+        recs[name]["serve"] = serve_rec
     return out
+
+
+def time_kv_forms(torch, TC, llm, card: str) -> dict:
+    """Kernels 4 and 5 in their KV store forms at the trit serve's shapes:
+    one decode step's K (or V) write, 512 bf16 rows of 64 (`ternarize_pack`),
+    and its K (or V) gather, 131,072 rows of 13 bytes -> bf16 64
+    (`unpack_dequant`), beside the bound, the plain version and the chain
+    the store ran before the forms (the codec kernel proper inside eager
+    torch ops, `_ChainCodec`), whose device time sums all its kernels."""
+    rng = np.random.default_rng(SEED + 8)
+    xw = kv_rows(rng, torch, KV_WRITE_ROWS, 64, "bfloat16")
+    kb, ks = kv_packed(rng, torch, KV_ROWS, 13)
+    chain = _ChainCodec(torch, TC)
+    forms = {
+        "pack_trits": (
+            "ternarize_pack", (KV_WRITE_ROWS, 64),
+            lambda: TC.ternarize_pack(xw),
+            lambda: TC.ternarize_pack_plain(xw),
+            lambda: chain.ternarize_pack(xw),
+            xw.numel() * 2 + KV_WRITE_ROWS * (13 + 4),
+            "ternarize_pack_kernel"),
+        "unpack_trits": (
+            "unpack_dequant", (KV_ROWS, 13),
+            lambda: TC.unpack_dequant(kb, ks, 64),
+            lambda: TC.unpack_dequant_plain(kb, ks, 64),
+            lambda: chain.unpack_dequant(kb, ks, 64),
+            kb.numel() + 4 * KV_ROWS + KV_ROWS * 64 * 2,
+            "unpack_dequant_kernel"),
+    }
+    recs = {}
+    for name, (form, shape, kern, plain, chained, nbytes, part) in \
+            forms.items():
+        ms, pms, cms = (timed(torch, kern), timed(torch, plain),
+                        timed(torch, chained))
+        dev, cdev = device_ms(torch, kern, part), device_ms(torch, chained, "")
+        hus = host_us(torch, kern)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        recs[name] = dict(form=form, shape=shape, ms=ms, device_ms=dev,
+                          host_us_per_call=hus, plain_ms=pms, chain_ms=cms,
+                          chain_device_ms=cdev, bound_ms=bound,
+                          bound_by="bytes",
+                          launches=llm["trit"]["launches"][name])
+        log(f"phase 5: {name} form {form} at the trit serve's {shape}: ms "
+            f"{ms!r} (device only {dev!r}; host us per call {hus!r}) "
+            f"plain_ms {pms!r}; the store's former chain (kernel proper + "
+            f"torch ops) ms {cms!r} (device only, all its kernels, "
+            f"{cdev!r}); bound_ms {bound!r} ({nbytes} B); launched "
+            f"{recs[name]['launches']} times in phase 4's trit serve "
+            f"({card})")
+    codec_host_breakdown(torch, TC, kb, ks, card)
+    return recs
+
+
+def codec_host_breakdown(torch, TC, kb, ks, card: str) -> None:
+    """Where the codec wrapper's host microseconds per call go, for the
+    dequant form at the serve's shape: the whole wrapper, its output
+    allocation alone, and the ctypes launch alone with its arguments made
+    beforehand."""
+    r, g = kb.shape
+    out = torch.empty((r, 64), dtype=torch.bfloat16, device=kb.device)
+    fn = TC._library().cutie_unpack_dequant
+    args = (kb.data_ptr(), ks.data_ptr(), out.data_ptr(), r, g, 64,
+            TC._stream(kb.device))
+    parts = {
+        "wrapper": lambda: TC.unpack_dequant(kb, ks, 64),
+        "torch.empty of the output": lambda: torch.empty(
+            (r, 64), dtype=torch.bfloat16, device=kb.device),
+        "ctypes launch alone": lambda: fn(*args),
+    }
+    log(f"phase 5: unpack_dequant host us per call at ({r}, {g}) -> 64: "
+        + "; ".join(f"{what} {host_us(torch, f)!r}"
+                    for what, f in parts.items())
+        + f" (host clock, 50 calls, no synchronize; {card})")
 
 
 def trunk_timeline(torch, FT, x, ops_args, metas, stats: bool,
@@ -1440,6 +1633,48 @@ def serving_numbers(torch, S, TF, llm, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def trit_serving_numbers(torch, S, TC, codec, llm, card: str) -> None:
+    """The trit serve with the codec's KV forms (``fused``) against the
+    same serve with the store's former chain (`_ChainCodec`, ``chain``):
+    decode-step medians from a serve of each in turns (chain, fused,
+    fused, chain), then the device's busy seconds of one serve of each
+    under torch.profiler.  Both must give the phase-4 trit tokens."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, params, prompts = llm["cfg"], llm["params"], llm["prompts"]
+    codecs = {"chain": _ChainCodec(torch, TC), "fused": None}
+
+    def run(label, profiled=False):
+        saved = codec._tc
+        if codecs[label] is not None:
+            codec._tc = codecs[label]
+        try:
+            if not profiled:
+                return serve(torch, S, params, cfg, prompts,
+                             kv_codec="trit"), None
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                got = serve(torch, S, params, cfg, prompts, kv_codec="trit")
+            return got, sum(e.self_device_time_total
+                            for e in prof.key_averages()) / 1e6
+        finally:
+            codec._tc = saved
+
+    for label in ("chain", "fused", "fused", "chain"):
+        got, _ = run(label)
+        if got["tokens"] != llm["trit"]["tokens"]:
+            raise RuntimeError(f"llm trit ({label}): tokens differ from "
+                               "phase 4's trit serve")
+        _serving_line(f"ternary_packed paged kv_codec='trit' ({label})",
+                      got, card)
+    for label in ("chain", "fused"):
+        got, busy = run(label, profiled=True)
+        dec = got["spans"]["decode"]
+        log(f"phase 5: trit serve ({label}) under torch.profiler: "
+            f"{got['seconds']!r} s host clock, device busy {busy!r} s "
+            f"(idle share {1 - busy / got['seconds']!r}); decode step ms "
+            f"median {float(np.median(dec))!r}; {card}")
+
+
 def main() -> int:
     import torch
 
@@ -1494,9 +1729,11 @@ def main() -> int:
     program_latency(torch, P, mp, card)
     kernels, conv_lib = time_kernels(torch, F, K, codec, engine, mp, card,
                                         worst)
-    kernels += time_new_kernels(torch, FT, TC, mp, card, worst, conv_lib)
+    kernels += time_new_kernels(torch, FT, TC, mp, llm, card, worst,
+                                conv_lib)
     kernels += time_matmul_kernels(torch, MM, llm, card, worst)
     serving_numbers(torch, S, TF, llm, card)
+    trit_serving_numbers(torch, S, TC, codec, llm, card)
     reset_launches(K, FT, TC, MM)          # timing launches are not counted
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

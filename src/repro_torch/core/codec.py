@@ -47,6 +47,23 @@ def unpack_rows(b: torch.Tensor) -> torch.Tensor:
     return _tc.unpack_trits(b)
 
 
+def ternarize_pack_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(R, n) rows -> ((R, ceil(n / 5)) packed trits, (R,) f32 scales):
+    each row ternarized about its own max |x| with a 0.5-scale dead zone
+    and packed as `pack_rows` packs it.  The trit KV store's write; a CUDA
+    tensor goes through the pack kernel's KV form
+    (`repro_torch.kernels.trit_codec.ternarize_pack`)."""
+    return _tc.ternarize_pack(x)
+
+
+def dequant_rows(b: torch.Tensor, scale: torch.Tensor, n: int) -> torch.Tensor:
+    """(R, G) packed rows and (R,) f32 scales -> (R, n) bf16 trit * scale
+    over each row's first n trits.  The trit KV store's read; a CUDA
+    tensor goes through the unpack kernel's KV form
+    (`repro_torch.kernels.trit_codec.unpack_dequant`)."""
+    return _tc.unpack_dequant(b, scale, n)
+
+
 def pack_filter_rows(w: torch.Tensor) -> torch.Tensor:
     """(K, K, Cin, Cout) trits -> (Cout, ceil(K*K*Cin/5)) packed rows.
 

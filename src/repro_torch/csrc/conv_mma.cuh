@@ -37,20 +37,24 @@
 // epilogue and barriers overlap the others' MMAs.
 //
 // Epilogue.  The int32 sums go to shared memory as int16 (the planner
-// requires |pooled sum| <= win*win*k*k*Cin < 32767), over the patch just
+// requires |z| <= k*k*Cin < 32767 per conv output), over the patch just
 // consumed; then each thread keeps 8 channels and walks the tile's pooled
 // pixels: the merged pool over each one's win x win conv outputs (tile
 // sides are multiples of the window, so a window never spans two tiles),
-// the two-threshold compare on integer bounds and the const fixup, two
-// int16 lanes per instruction, and one 8-byte store of int8 trits (or 32
-// bytes of raw int32 sums, fuse = 0).  Pre-threshold integers never reach
-// device memory otherwise.
+// the two-threshold compare on integer bounds and the const fixup, and one
+// 8-byte store of int8 trits (or 32 bytes of raw int32 sums, fuse = 0).
+// `Epilogue` works on two int16 lanes per instruction, which holds where
+// an avg window's sum fits int16 (win*win*k*k*Cin < 32767; a max pool of
+// int16 values always does); `EpilogueWide` (ConvPlan.wide) sums the
+// window, compares and fixes up on int32 lanes, for the avg windows past
+// that.  Pre-threshold integers never reach device memory otherwise.
 #pragma once
 
 #include <limits.h>
 #include <stdint.h>
 
 #include "epilogue.cuh"
+#include "trit_codec.cuh"
 
 constexpr int kGroupThreads = 128;   // one tile pipeline: 4 warps
 
@@ -77,6 +81,7 @@ struct ConvPlan {
   int off_buf0, off_buf1, off_unp;  // vectors, then each group's buffers
                                     // (direct == 0: raw buffer at off_buf0)
   int smem;
+  int wide;                // 1: int32 avg-window sums (EpilogueWide)
 };
 
 // Per-channel epilogue vectors of one layer (cnst null: no const fixup).
@@ -246,19 +251,10 @@ __device__ void stage_weights_mma(const ConvPlan& g, const void* w, int co0,
     // bytes of the row (digit d0 of byte b0 onwards), decoded by table to
     // 20 trit bytes and shifted by d0 bytes into one 16-byte store
     const uint8_t* wp = static_cast<const uint8_t*>(w);
-    uint2* table = reinterpret_cast<uint2*>(lut);
-    for (int v = tid; v < 256; v += blockDim.x) {
-      uint32_t d = (uint32_t)v, e[2] = {0u, 0u};
-#pragma unroll
-      for (int i = 0; i < 5; ++i) {
-        e[i >> 2] |= (uint32_t)(uint8_t)(int8_t)((int)(d % 3u) - 1)
-                     << (8 * (i & 3));
-        d /= 3u;
-      }
-      table[v] = make_uint2(e[0], e[1]);
-    }
+    uint64_t* table = reinterpret_cast<uint64_t*>(lut);
+    for (int v = tid; v < 256; v += blockDim.x) table[v] = trit_lut5(v);
     __syncthreads();
-    const uint64_t* t64 = reinterpret_cast<const uint64_t*>(lut);
+    const uint64_t* t64 = table;
     const int cq = cp >> 4;
 #pragma unroll 8
     for (int i = tid; i < g.ns * kk * cq; i += blockDim.x) {
@@ -441,7 +437,8 @@ __device__ __forceinline__ void stage_sums(const int acc[2][NT][4], int wm,
 // The merged pool, compare, fixup and write of a tile from its staged
 // sums.  A thread keeps 8 channels of the slice and walks the tile's
 // pooled pixels; it works on pairs of int16 lanes with the SIMD video
-// instructions (the planner requires |pooled sum| <= win*win*k*k*Cin <
+// instructions (the planner sends it only layers whose pooled values fit:
+// |z| <= k*k*Cin < 32767, and an avg window's sum win*win*k*k*Cin <
 // 32767, so nothing overflows and the bounds clamp to +-32767 safely).
 // Its channels' bounds stay in registers for the block's life.
 template <int NS>
@@ -556,6 +553,111 @@ struct Epilogue {
   }
 };
 
+// The same pool, compare, fixup and write on int32 lanes, for a layer
+// whose avg window may sum past int16 (ConvPlan.wide): each of the
+// thread's 8 channels sums its win x win staged int16 values in an int32
+// and is compared with the unclamped int32 bounds of stage_epilogue, read
+// from shared memory once per tile rather than held in 16 registers
+// through the MMAs.  The float32 compare of the plain version equals the
+// integer one while |sum| < 2^24, which the planner requires.
+template <int NS>
+struct EpilogueWide {
+  static constexpr int kG = NS / 8, kNsp = NS + 8;
+  int c, co, nc;
+  bool whole;                          // 8 live channels: one vector store
+  const uint8_t* epi;                  // the slice's stage_epilogue vectors
+
+  __device__ void init(const ConvPlan& g, int co0, const uint8_t* e,
+                       int lt) {
+    c = 8 * (lt % kG);
+    co = co0 + c;
+    nc = max(0, min(8, g.cout - co));
+    whole = nc == 8 && (g.cout & 7) == 0;
+    epi = e;
+  }
+
+  // Returns this thread's count of zero trits written.
+  __device__ int run(const ConvPlan& g, TileAt t, const uint8_t* st,
+                     void* out, int lt) const {
+    if (nc == 0) return 0;
+    const int* hi_s = reinterpret_cast<const int*>(epi) + c;
+    const int8_t* sg_s = reinterpret_cast<const int8_t*>(
+                             reinterpret_cast<const int*>(epi) + 2 * NS) + c;
+    // bounds of u = sgn * z; a lane beyond Cout is fixed to +1
+    int hi[8], lo[8], sg[8], cst[8];
+    bool fix[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const bool live = j < nc;
+      hi[j] = hi_s[j];
+      lo[j] = hi_s[NS + j];
+      sg[j] = sg_s[j];
+      fix[j] = !live || sg_s[2 * NS + j] != 0;
+      cst[j] = live ? sg_s[NS + j] : 1;
+    }
+    const int win = g.win, tph = g.th / win, tpw = g.tw / win;
+    const int py0 = t.oy0 / win, px0 = t.ox0 / win;
+    const bool is_max = g.kind == POOL_MAX;
+    int zeros = 0;
+    for (int p = lt / kG; p < tph * tpw; p += kGroupThreads / kG) {
+      const int pyl = p / tpw, pxl = p - pyl * tpw;
+      const int py = py0 + pyl, px = px0 + pxl;
+      if (py >= g.ph || px >= g.pw) continue;
+      const size_t o =
+          (((size_t)t.img * g.ph + py) * g.pw + px) * g.cout + co;
+      // max pools sgn * z, avg sums z (sgn applied after)
+      int u[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) u[j] = is_max ? INT_MIN : 0;
+      for (int dy = 0; dy < win; ++dy)
+        for (int dx = 0; dx < win; ++dx) {
+          const int m = (pyl * win + dy) * g.tw + pxl * win + dx;
+          const uint4 v =
+              *reinterpret_cast<const uint4*>(st + 2 * (m * kNsp + c));
+          const uint32_t zw[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int z = (int)(int16_t)(zw[j >> 1] >> (16 * (j & 1)));
+            u[j] = is_max ? max(u[j], sg[j] * z) : u[j] + z;
+          }
+        }
+      if (!g.fuse) {                     // no pool, no compare: u = z
+        int* o32 = static_cast<int*>(out) + o;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (j < nc) o32[j] = u[j];
+        continue;
+      }
+      uint32_t w[2] = {0u, 0u};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int uj = is_max ? u[j] : sg[j] * u[j];
+        const int y = fix[j] ? cst[j] : (uj > hi[j]) - (uj < lo[j]);
+        zeros += y == 0;
+        w[j >> 2] |= (uint32_t)(uint8_t)(int8_t)y << (8 * (j & 3));
+      }
+      int8_t* o8 = static_cast<int8_t*>(out) + o;
+      if (whole) {
+        *reinterpret_cast<uint2*>(o8) = make_uint2(w[0], w[1]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (j < nc) o8[j] = (int8_t)(w[j >> 2] >> (8 * (j & 3)));
+      }
+    }
+    return zeros;
+  }
+};
+
+template <bool WIDE, int NS>
+struct EpilogueFor {
+  using type = Epilogue<NS>;
+};
+template <int NS>
+struct EpilogueFor<true, NS> {
+  using type = EpilogueWide<NS>;
+};
+
 // -- a block's share of one layer -----------------------------------------
 
 __device__ __forceinline__ void group_sync(int gr) {
@@ -567,8 +669,8 @@ __device__ __forceinline__ void group_sync(int gr) {
 // tile pipeline over tiles first, first + step, ... (first and step are
 // the caller's deal of tiles to pipelines).  Every thread of the block
 // calls it: it holds block-wide barriers.  Returns with no copy in flight
-// and the thread's count of zero trits written.
-template <bool PACKED, int NT>
+// and the thread's count of zero trits written.  WIDE picks EpilogueWide.
+template <bool PACKED, int NT, bool WIDE>
 __device__ __forceinline__ int conv_tiles(const ConvPlan& g, const int8_t* x,
                                           const void* w, const MmaEpi& e,
                                           void* out, uint8_t* smem,
@@ -603,7 +705,7 @@ __device__ __forceinline__ int conv_tiles(const ConvPlan& g, const int8_t* x,
       g, w, co0, bs, smem + g.off_grp + (g.direct ? g.off_buf1 : g.off_unp));
   stage_epilogue(g, e, co0, epi);
   __syncthreads();
-  Epilogue<16 * NT> ep;
+  typename EpilogueFor<WIDE, 16 * NT>::type ep;
   ep.init(g, co0, epi, lt);
   const Frag<NT> f = frag_offsets<NT>(g, wm, wn, lane);
   const bool busy = wm * 32 < g.th * g.tw;

@@ -19,7 +19,11 @@
 // (repro_torch/kernels/fused_trunk.py `trunk_plan`): the block size and
 // the shared-memory size are the trunk's, while the Cout slice (32 or 64
 // channels, NT = 2 or 4, both instantiated here and picked per layer) and
-// the tile sides are the layer's.  Block b < slices * gpb owns slice
+// the tile sides are the layer's.  A trunk with a layer whose avg window
+// may sum past int16 (a plan's `wide`) runs the instance whose layers all
+// take the int32 epilogue, EpilogueWide; any other trunk runs the int16
+// one, so that its code is what it would be without the wide path.
+// Block b < slices * gpb owns slice
 // b / gpb of the layer and stages its weights (the stack's rows at the
 // trunk's common width Cu, of which the layer reads its Cin); tiles are
 // dealt to pipelines so that consecutive tiles go to different blocks
@@ -86,6 +90,7 @@ __device__ __forceinline__ void mark(const TrunkParams& p, int l, int k) {
   }
 }
 
+template <bool WIDE>
 __global__ void __launch_bounds__(4 * kGroupThreads, 1)
     trunk_kernel(TrunkParams p) {
   cg::grid_group grid = cg::this_grid();
@@ -128,9 +133,10 @@ __global__ void __launch_bounds__(4 * kGroupThreads, 1)
       const int first = q + gr * g.gpb, step = g.gpb * g.groups;
       const int8_t* wl = p.w + l * p.w_layer;
       zeros = g.ns == 64
-          ? conv_tiles<false, 4>(g, src, wl, e, dst, smem, slice, first, step)
-          : conv_tiles<false, 2>(g, src, wl, e, dst, smem, slice, first,
-                                 step);
+          ? conv_tiles<false, 4, WIDE>(g, src, wl, e, dst, smem, slice,
+                                       first, step)
+          : conv_tiles<false, 2, WIDE>(g, src, wl, e, dst, smem, slice,
+                                       first, step);
     }
     mark(p, l, 1);
     if (p.stats != nullptr) layer_counters(g, src, zeros, p.stats + 3 * l);
@@ -195,19 +201,23 @@ int cutie_fused_trunk(const void* x, long long in_bytes, long long in_numel,
   p.marks = static_cast<unsigned long long*>(marks);
   p.n_layers = n_layers;
   constexpr int kFields = sizeof(ConvPlan) / sizeof(int);
+  bool wide = false;
   for (int l = 0; l < n_layers; ++l) {
     int* f = reinterpret_cast<int*>(&p.plan[l]);
     for (int i = 0; i < kFields; ++i) f[i] = plan[l * kFields + i];
     if (p.plan[l].groups * kGroupThreads != threads ||
         (p.plan[l].ns != 32 && p.plan[l].ns != 64))
       return (int)cudaErrorInvalidValue;
+    wide = wide || p.plan[l].wide;
   }
+  const void* kern = wide ? (const void*)trunk_kernel<true>
+                          : (const void*)trunk_kernel<false>;
 
   // cooperative support is read, and the kernel's shared-memory
   // attributes set, once per card (again for a larger need); the launch
   // itself refuses a grid that cannot be co-resident
   static bool coop_ok[kMaxDevices] = {};
-  static int smem_set[kMaxDevices] = {};
+  static int smem_set[2][kMaxDevices] = {};     // per instance
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -219,19 +229,19 @@ int cutie_fused_trunk(const void* x, long long in_bytes, long long in_numel,
     if (!coop) return (int)cudaErrorNotSupported;
     coop_ok[dev] = true;
   }
-  if (smem > smem_set[dev]) {
-    err = cudaFuncSetAttribute(trunk_kernel,
+  if (smem > smem_set[wide][dev]) {
+    err = cudaFuncSetAttribute(kern,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(
-          trunk_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+          kern, cudaFuncAttributePreferredSharedMemoryCarveout,
           (int)cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return (int)err;
-    smem_set[dev] = smem;
+    smem_set[wide][dev] = smem;
   }
   void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel((const void*)trunk_kernel, dim3(grid),
+  err = cudaLaunchCooperativeKernel(kern, dim3(grid),
                                     dim3(threads), args, (size_t)smem,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;

@@ -28,7 +28,9 @@
 // * per pipeline, a cp.async ring: the next tile's patch is in flight
 //   while this tile's MMAs and epilogue run;
 // * the epilogue in shared memory and registers; the counters from a
-//   grid-strided pass over x at the end.
+//   grid-strided pass over x at the end.  A layer whose avg window may sum
+//   past int16 (the plan's `wide`) runs an instance with the int32
+//   epilogue, EpilogueWide; every other layer runs the int16 one.
 // The packed kernel differs from the dense one only in how the weights
 // are staged.  The planner (repro_torch/kernels/ternary_conv2d.py
 // `conv_plan`) picks the tile sides (multiples of the pool window), the
@@ -60,22 +62,22 @@ struct Params {
 // A persistent block owns Cout slice blockIdx.x / gpb; its pipeline r
 // walks that slice's tiles q, q + gpb*groups, ... from q = (its index
 // within the slice) * groups + r.
-template <bool PACKED, int NT>
+template <bool PACKED, int NT, bool WIDE>
 __global__ void __launch_bounds__(4 * kGroupThreads, 1)
     conv_mma_kernel(Params p) {
   extern __shared__ __align__(16) uint8_t smem[];
   const ConvPlan& g = p.g;
   const int gr = threadIdx.x / kGroupThreads;
   const int slice = blockIdx.x / g.gpb;
-  const int zeros = conv_tiles<PACKED, NT>(
+  const int zeros = conv_tiles<PACKED, NT, WIDE>(
       g, p.x, p.w, p.epi, p.out, smem, slice,
       (blockIdx.x - slice * g.gpb) * g.groups + gr, g.gpb * g.groups);
   if (p.stats != nullptr) layer_counters(g, p.x, zeros, p.stats);
 }
 
-template <bool PACKED, int NT>
+template <bool PACKED, int NT, bool WIDE>
 int launch(const Params& p, cudaStream_t stream) {
-  auto kern = conv_mma_kernel<PACKED, NT>;
+  auto kern = conv_mma_kernel<PACKED, NT, WIDE>;
   // set the attributes once per card, and again only for a larger
   // shared-memory need
   static int smem_set[kMaxDevices] = {};
@@ -123,11 +125,20 @@ int cutie_ternary_conv2d(int packed, const void* x, const void* w,
   for (size_t i = 0; i < sizeof(ConvPlan) / sizeof(int); ++i) f[i] = plan[i];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p.g.groups < 1 || p.g.groups > 4) return (int)cudaErrorInvalidValue;
-  switch (p.g.ns * 2 + packed) {      // the slice: 16 NT channels
-    case 64: return launch<false, 2>(p, s);
-    case 65: return launch<true, 2>(p, s);
-    case 128: return launch<false, 4>(p, s);
-    case 129: return launch<true, 4>(p, s);
+  if (p.g.wide) {                     // the slice: 16 NT channels
+    switch (p.g.ns * 2 + packed) {
+      case 64: return launch<false, 2, true>(p, s);
+      case 65: return launch<true, 2, true>(p, s);
+      case 128: return launch<false, 4, true>(p, s);
+      case 129: return launch<true, 4, true>(p, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  switch (p.g.ns * 2 + packed) {
+    case 64: return launch<false, 2, false>(p, s);
+    case 65: return launch<true, 2, false>(p, s);
+    case 128: return launch<false, 4, false>(p, s);
+    case 129: return launch<true, 4, false>(p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -124,10 +124,11 @@ def _pairs(row: dict) -> int:
 
 
 def _layer_rows(n, shapes, metas, cin, c, cu, k, stats_cin, groups,
-                sm_count):
+                sm_count, wides):
     """Every layer's plan at ``groups`` pipelines per block, and the
     co-resident blocks of the trunk; None where a layer does not fit the
-    shared memory at that block size."""
+    shared memory at that block size.  ``wides`` holds each layer's
+    ``wide`` (`ternary_conv2d.check_int16`)."""
     def row(l, ns, tph, tpw, gpb=1):
         (h, w), (stride, pool) = shapes[l], metas[l]
         cin_l = cin if l == 0 else c
@@ -136,7 +137,7 @@ def _layer_rows(n, shapes, metas, cin, c, cu, k, stats_cin, groups,
                         th=tph * win, tw=tpw * win, ns=ns, groups=groups)
         return K.plan_row(lay, n=n, h=h, w=w, cin=cin_l, cout=c, k=k,
                           stride=stride, padding=True, pool=pool, tph=tph,
-                          tpw=tpw, gpb=gpb, w_rows=cu,
+                          tpw=tpw, gpb=gpb, wide=wides[l], w_rows=cu,
                           stat_c=stats_cin if l == 0 else c)
 
     def smaller(l, cur):             # the 32-channel slice, then the tile
@@ -212,20 +213,24 @@ def trunk_plan(n: int, h: int, w: int, cin: int, c: int, cu: int, k: int,
 
     Every layer reads its weights at the stack's row stride ``w_rows`` =
     Cu and its input at its own channel count ``cin`` (the head's Cx, then
-    C); ``stat_c`` is the head's logical Cin, then C.  Raises where the
-    pooled sums of a layer may not fit the tile body's int16 lanes
-    (win*win*k*k*Cu >= 32767, the per-layer planner's rule at the common
+    C); ``stat_c`` is the head's logical Cin, then C.  A layer is ``wide``
+    where its avg window may sum past int16 (`ternary_conv2d.check_int16`
+    at the common width Cu), and ``wide`` of the trunk is whether any
+    layer is: the kernel then runs every layer on int32 epilogue lanes.
+    Raises where a conv output's sum may not fit the tile body's int16
+    staging (k*k*Cu >= 32767, the per-layer planner's rule at the common
     width), or no block size fits a layer's shared memory.
     """
     shapes = trunk_shapes((h, w), k, metas)
+    wides = []
     for (hl, wl), (stride, pool) in zip(shapes, metas):
         win = K._conv_dims(hl, wl, k, stride, True, pool)[2]
-        K.check_int16(win, k, cu)
+        wides.append(K.check_int16(win, k, cu, pool[0] if pool else None))
     stats_cin = cin if stats_cin is None else stats_cin
     best = None
     for groups in range(K._MAX_GROUPS, 0, -1):
         got = _layer_rows(n, shapes, metas, cin, c, cu, k, stats_cin, groups,
-                          sm_count)
+                          sm_count, wides)
         if got is not None and (best is None
                                 or got[1] * groups > best[1] * best[3]):
             best = (*got, groups)
@@ -234,7 +239,8 @@ def trunk_plan(n: int, h: int, w: int, cin: int, c: int, cu: int, k: int,
                          f"{K._SMEM_LIMIT} B of shared memory per block")
     rows, _, grid, groups = best
     return dict(groups=groups, threads=groups * K._GROUP_THREADS,
-                smem=max(r["smem"] for r in rows), grid=grid, layers=rows)
+                smem=max(r["smem"] for r in rows), grid=grid,
+                wide=int(any(wides)), layers=rows)
 
 
 @functools.lru_cache(maxsize=256)
@@ -274,7 +280,8 @@ def fused_trunk(x, w_stack, t_lo, t_hi, flip, const, is_const, *, metas,
     packed (G,) stream of the final trit map.  ``emit_stats`` returns
     ``(out, stats)`` with stats (L, 3) int32; ``stats_cin`` is the head's
     logical Cin (default: the input's channel count).  On a CUDA tensor
-    it raises where `trunk_plan` does (the tile body's int16 limit).
+    it raises where `trunk_plan` does (a conv output's sum past the tile
+    body's int16 staging).
 
     Replaces `repro.kernels.fused_trunk.fused_trunk_pallas`.
     """
@@ -356,7 +363,7 @@ def _launch_args(x, w_stack, t_lo, t_hi, flip, const, is_const, *, metas,
              if emit_stats else None)
     marks = (torch.zeros((nl, grid, 3), dtype=torch.int64, device=dev)
              if timeline else None)
-    x, w_stack = K.aligned(x), K.aligned(w_stack)
+    x, w_stack = C.aligned(x), C.aligned(w_stack)
     args = (x.data_ptr(), x.numel() if packed_in is not None else 0,
             n * h * w * cin, w_stack.data_ptr(), k * k * cu * c,
             *[v.data_ptr() for v in vecs], bufs[0].data_ptr(),

@@ -31,7 +31,7 @@ from repro_torch.core.codec import TRITS_PER_BYTE
 from repro_torch.core.engine import conv2d_int, conv_out_dims
 from repro_torch.kernels import _build
 from repro_torch.kernels import epilogue as epi
-from repro_torch.kernels.trit_codec import unpack_digits
+from repro_torch.kernels.trit_codec import aligned, unpack_digits
 
 LAUNCHES = {"ternary_conv2d": 0, "ternary_conv2d_packed": 0}
 
@@ -123,7 +123,7 @@ PLAN_FIELDS = ("n", "h", "w", "cin", "cout", "k", "sh", "sw", "pad", "win",
                "stat_c", "th", "tw", "tiles_r", "tiles_c", "ns", "slices",
                "gpb", "cp", "pr", "pc", "ps", "direct", "raw_row",
                "b_stride", "groups", "off_epi", "off_grp", "grp_bytes",
-               "off_buf0", "off_buf1", "off_unp", "smem")
+               "off_buf0", "off_buf1", "off_unp", "smem", "wide")
 
 SM_COUNT = 132            # streaming multiprocessors of an H100 SXM
 _SM_SMEM = 233472         # shared memory of one SM
@@ -175,13 +175,35 @@ def blocks_per_sm(smem: int, groups: int) -> int:
                       _SM_SMEM // (smem + _BLOCK_RESERVED)))
 
 
-def check_int16(win: int, k: int, cin: int) -> None:
-    """Raise where pooled sums may not fit the tile body's int16 lanes:
-    |sum| <= win*win*k*k*Cin must stay below 32767."""
-    if win * win * k * k * cin >= 32767:
-        raise ValueError(f"win*win*k*k*Cin = {win * win * k * k * cin} >= "
-                         "32767: the pooled sums may not fit the kernel's "
-                         "int16 lanes")
+_INT16_LIMIT = 32767      # the tile body stages sums as int16
+_F32_EXACT = 1 << 24      # integers exact in the plain version's float32
+
+
+def check_int16(win: int, k: int, cin: int, kind) -> int:
+    """The tile body's rule for its int16 lanes; returns the plan's
+    ``wide`` (0 or 1).
+
+    * Each conv output's sum, |z| <= k*k*Cin, is staged as int16: raise
+      where k*k*Cin >= 32767.
+    * A max pool picks one of those values, so it fits as well.
+    * An avg pool sums win*win of them: where win*win*k*k*Cin >= 32767 the
+      window sum, the compare and the const fixup run on int32 lanes
+      (``wide`` = 1, `EpilogueWide` of `csrc/conv_mma.cuh`); raise where
+      that sum may reach 2**24, past which the plain version's float32
+      compare rounds.
+    """
+    if k * k * cin >= _INT16_LIMIT:
+        raise ValueError(f"k*k*Cin = {k * k * cin} >= {_INT16_LIMIT}: a "
+                         "conv output's sum may not fit the kernel's int16 "
+                         "staging")
+    window = win * win * k * k * cin
+    if kind != "avg" or window < _INT16_LIMIT:
+        return 0
+    if window >= _F32_EXACT:
+        raise ValueError(f"win*win*k*k*Cin = {window} >= 2**24: an avg "
+                         "window's sum may not be exact in the plain "
+                         "version's float32 compare")
+    return 1
 
 
 def first_tile(win: int, ph: int, pw: int) -> tuple[int, int]:
@@ -202,15 +224,16 @@ def shrink_tile(a: int, b: int, win: int):
 
 
 def plan_row(lay: dict, *, n, h, w, cin, cout, k, stride, padding, pool,
-             tph, tpw, gpb, fuse=True, row_bytes=0, w_rows=None,
+             tph, tpw, gpb, wide, fuse=True, row_bytes=0, w_rows=None,
              stat_c=None) -> dict:
     """A layer's ConvPlan (PLAN_FIELDS) from its layout (`_layout`), its
-    tile of (tph, tpw) pooled pixels and its blocks per Cout slice."""
+    tile of (tph, tpw) pooled pixels, its blocks per Cout slice and its
+    epilogue's lanes (`check_int16`)."""
     _, _, win, ph, pw = _conv_dims(h, w, k, stride, padding, pool)
     return dict(lay, n=n, h=h, w=w, cin=cin, cout=cout, k=k, sh=stride[0],
                 sw=stride[1], pad=k // 2 if padding else 0, win=win,
                 kind=_POOL_KIND[pool[0] if pool else None], ph=ph, pw=pw,
-                fuse=int(fuse), wh=h if padding else h - k + 1,
+                fuse=int(fuse), wide=wide, wh=h if padding else h - k + 1,
                 ww=w if padding else w - k + 1, row_bytes=row_bytes,
                 w_rows=cin if w_rows is None else w_rows,
                 stat_c=cin if stat_c is None else stat_c,
@@ -239,14 +262,16 @@ def conv_plan(n: int, h: int, w: int, cin: int, cout: int, k: int, stride,
       and capped at slots // slices, slots being the blocks that fit on
       the card at once.
 
+    * ``wide`` is 1 where an avg window may sum past int16 (`check_int16`).
+
     Raises on what the kernel does not take: an unpadded kernel larger
-    than the map, a pool window larger than the conv output, pooled sums
-    that may not fit the kernel's int16 lanes (win*win*k*k*Cin >= 32767),
-    or a tile that needs more shared memory than a block has.
+    than the map, a pool window larger than the conv output, a conv
+    output's sum that may not fit the kernel's int16 staging (k*k*Cin >=
+    32767), or a tile that needs more shared memory than a block has.
     """
     sh, sw = stride
     _, _, win, ph, pw = _conv_dims(h, w, k, stride, padding, pool)
-    check_int16(win, k, cin)
+    wide = check_int16(win, k, cin, pool[0] if pool else None)
     tph, tpw = first_tile(win, ph, pw)
     ns = 32 if cout <= 32 else _SLICE
 
@@ -289,8 +314,8 @@ def conv_plan(n: int, h: int, w: int, cin: int, cout: int, k: int, stride,
                              f"memory per block, more than {_SMEM_LIMIT}")
     return plan_row(lay, n=n, h=h, w=w, cin=cin, cout=cout, k=k,
                     stride=stride, padding=padding, pool=pool, tph=tph,
-                    tpw=tpw, gpb=gpb, fuse=fuse, row_bytes=row_bytes,
-                    stat_c=stat_c)
+                    tpw=tpw, gpb=gpb, wide=wide, fuse=fuse,
+                    row_bytes=row_bytes, stat_c=stat_c)
 
 
 def plan_array(rows) -> ctypes.Array:
@@ -317,13 +342,6 @@ def epilogue_vectors(dev, shape, t_lo, t_hi, flip, const, is_const):
     if const is not None:
         out += [vec(const, byte), vec(is_const, byte)]
     return out
-
-
-def aligned(x: torch.Tensor) -> torch.Tensor:
-    """Contiguous, on a 16-byte boundary: the patch copies read 16-byte
-    chunks and the dense weights 4-byte words."""
-    x = x.contiguous()
-    return x.clone() if x.data_ptr() % 16 else x
 
 
 @functools.lru_cache(maxsize=256)

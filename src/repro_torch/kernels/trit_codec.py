@@ -9,14 +9,21 @@ device twins.
 * :func:`pack_trits` - (R, W) int8 trits -> (R, ceil(W / 5)) uint8, each
   row's tail padded with trit 0 (digit 1);
 * :func:`unpack_trits` - (R, G) uint8 -> (R, 5G) int8 trits;
+* :func:`ternarize_pack` - the paged KV store's write: (R, n) bf16 or f32
+  rows -> their packed trits and f32 scales (:func:`ternarize_rows`,
+  then the pack), in one launch of the pack kernel's KV form;
+* :func:`unpack_dequant` - the paged KV store's read: (R, G) packed rows
+  and (R,) scales -> (R, n) bf16 ``trit * scale``, in one launch of the
+  unpack kernel's KV form;
 * :func:`thermometer` - int levels (...) -> (..., m) int8: ternary
   ``sign(x - m) * [i < |x - m|]`` or binary ``+1 if i < x else -1``
   (paper §III-D).
 
 On a CUDA tensor each wrapper launches its kernel from
 `csrc/trit_codec.cu` or raises; on a CPU tensor it runs the plain version
-beside it.  ``LAUNCHES`` counts kernel launches per wrapper and nothing
-else.
+beside it.  ``LAUNCHES`` counts kernel launches per kernel and nothing
+else: the KV forms count as the pack and unpack kernels they are forms
+of.
 """
 
 from __future__ import annotations
@@ -72,6 +79,35 @@ def unpack_trits_plain(b: torch.Tensor) -> torch.Tensor:
     return unpack_digits(b).reshape(r, g * TRITS_PER_BYTE).to(torch.int8)
 
 
+def ternarize_rows(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric ternarization over the last axis.
+
+    Returns ``(trits int8, scale f32)`` with ``scale = max|v|`` and a
+    0.5-scale dead zone — the TWN-style quantizer the rest of the repo
+    uses for activations, applied to KV rows at cache-write time.
+    """
+    x = v.to(torch.float32)
+    scale = x.abs().amax(dim=-1)
+    safe = torch.clamp(scale, min=1e-12)[..., None]
+    t = torch.where(x.abs() > 0.5 * safe, torch.sign(x),
+                    torch.zeros((), device=x.device))
+    return t.to(torch.int8), scale
+
+
+def ternarize_pack_plain(x: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`ternarize_pack`."""
+    t, scale = ternarize_rows(x)
+    return pack_trits_plain(t), scale
+
+
+def unpack_dequant_plain(b: torch.Tensor, scale: torch.Tensor,
+                         n: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`unpack_dequant`."""
+    t = unpack_trits_plain(b)[:, :n]
+    return (t.to(torch.float32) * scale[:, None]).to(torch.bfloat16)
+
+
 def thermometer_plain(x: torch.Tensor, m: int, *,
                       ternary: bool = True) -> torch.Tensor:
     """Plain PyTorch version of :func:`thermometer`."""
@@ -92,24 +128,37 @@ def _library() -> ctypes.CDLL:
     lib = _build.library("trit_codec")
     if lib.cutie_pack_trits.argtypes is None:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        for fn, args in ((lib.cutie_pack_trits, [p, p, i64, i32, i32, p]),
+        for fn, args in ((lib.cutie_pack_trits, [p, p, i64, i64, p]),
                          (lib.cutie_unpack_trits, [p, p, i64, p]),
+                         (lib.cutie_ternarize_pack,
+                          [p, i32, p, p, i64, i32, p]),
+                         (lib.cutie_unpack_dequant,
+                          [p, p, p, i64, i32, i32, p]),
                          (lib.cutie_thermometer, [p, p, i64, i32, i32, p])):
             fn.argtypes, fn.restype = args, ctypes.c_int
     return lib
 
 
-def _device(x: torch.Tensor, name: str) -> bool:
-    """True for a CUDA tensor (launch), False for a CPU one (plain)."""
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {x.device}")
-    return True
+def aligned(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous, on a 16-byte boundary: the kernels read and write
+    16-byte pieces.  A tensor that already is passes through."""
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
 
 
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
+def _card(dev: torch.device, name: str) -> bool:
+    """True for a CUDA device (launch), False for the CPU (plain)."""
+    kind = dev.type
+    if kind == "cuda":
+        return True
+    if kind != "cpu":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    return False
+
+
+def _stream(dev: torch.device) -> int:
+    """The raw handle of the current stream on the card."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 def pack_trits(t: torch.Tensor) -> torch.Tensor:
@@ -120,16 +169,17 @@ def pack_trits(t: torch.Tensor) -> torch.Tensor:
     if t.dim() != 2:
         raise ValueError(f"pack_trits takes (R, W) trits, got "
                          f"{tuple(t.shape)}")
-    if not _device(t, "pack_trits"):
+    dev = t.device
+    if not _card(dev, "pack_trits"):
         return pack_trits_plain(t)
     r, width = t.shape
     g = -(-width // TRITS_PER_BYTE)
-    t = t.to(torch.int8).contiguous()
-    out = torch.empty((r, g), dtype=torch.uint8, device=t.device)
+    t = aligned(t.to(torch.int8))
+    out = torch.empty((r, g), dtype=torch.uint8, device=dev)
     if out.numel():
         lib = _library()
-        err = lib.cutie_pack_trits(t.data_ptr(), out.data_ptr(), r, width, g,
-                                   _stream(t))
+        err = lib.cutie_pack_trits(t.data_ptr(), out.data_ptr(), r, width,
+                                   _stream(dev))
         _build.check(lib, err, "pack_trits")
         LAUNCHES["pack_trits"] += 1
     return out
@@ -143,19 +193,90 @@ def unpack_trits(b: torch.Tensor) -> torch.Tensor:
     if b.dim() != 2:
         raise ValueError(f"unpack_trits takes (R, G) bytes, got "
                          f"{tuple(b.shape)}")
-    if not _device(b, "unpack_trits"):
+    dev = b.device
+    if not _card(dev, "unpack_trits"):
         return unpack_trits_plain(b)
     if b.dtype != torch.uint8:
         raise ValueError(f"unpack_trits takes uint8 bytes, got {b.dtype}")
     r, g = b.shape
-    b = b.contiguous()
-    out = torch.empty((r, g * TRITS_PER_BYTE), dtype=torch.int8,
-                      device=b.device)
+    b = aligned(b)
+    out = torch.empty((r, g * TRITS_PER_BYTE), dtype=torch.int8, device=dev)
     if out.numel():
         lib = _library()
         err = lib.cutie_unpack_trits(b.data_ptr(), out.data_ptr(), r * g,
-                                     _stream(b))
+                                     _stream(dev))
         _build.check(lib, err, "unpack_trits")
+        LAUNCHES["unpack_trits"] += 1
+    return out
+
+
+def ternarize_pack(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(R, n) rows -> ((R, ceil(n / 5)) uint8 packed trits, (R,) f32
+    scales): :func:`ternarize_rows`, then :func:`pack_trits`, bit for bit
+    (bf16 and f32 rows go to the kernel as they are, others as f32).
+
+    The write of `repro.serving.blocks.store.KVPagedStore._encode`, a form
+    of `repro.kernels.trit_codec.pack_trits_pallas`.
+    """
+    if x.dim() != 2 or x.shape[1] < 1:
+        raise ValueError(f"ternarize_pack takes (R, n) rows with n >= 1, "
+                         f"got {tuple(x.shape)}")
+    dev = x.device
+    if not _card(dev, "ternarize_pack"):
+        return ternarize_pack_plain(x)
+    bf16 = x.dtype == torch.bfloat16
+    if not bf16 and x.dtype != torch.float32:
+        x = x.to(torch.float32)
+    x = x.contiguous()
+    r, n = x.shape
+    out = torch.empty((r, -(-n // TRITS_PER_BYTE)), dtype=torch.uint8,
+                      device=dev)
+    scale = torch.empty(r, dtype=torch.float32, device=dev)
+    if r:
+        lib = _library()
+        err = lib.cutie_ternarize_pack(x.data_ptr(), int(bf16),
+                                       out.data_ptr(), scale.data_ptr(), r,
+                                       n, _stream(dev))
+        _build.check(lib, err, "ternarize_pack")
+        LAUNCHES["pack_trits"] += 1
+    return out, scale
+
+
+def unpack_dequant(b: torch.Tensor, scale: torch.Tensor,
+                   n: int) -> torch.Tensor:
+    """(R, G) uint8 packed rows and (R,) f32 scales -> (R, n) bf16
+    ``trit * scale`` (f32 product, rounded once to bf16) over each row's
+    first n <= 5G trits: :func:`unpack_trits`, trimmed, scaled, bit for
+    bit.
+
+    The read of `repro.serving.blocks.store.KVPagedStore._decode`, a form
+    of `repro.kernels.trit_codec.unpack_trits_pallas`.
+    """
+    if b.dim() != 2 or scale.shape != b.shape[:1]:
+        raise ValueError(f"unpack_dequant takes (R, G) bytes and (R,) "
+                         f"scales, got {tuple(b.shape)} and "
+                         f"{tuple(scale.shape)}")
+    r, g = b.shape
+    if not 1 <= n <= g * TRITS_PER_BYTE:
+        raise ValueError(f"n = {n} outside 1..{g * TRITS_PER_BYTE}")
+    dev = b.device
+    if not _card(dev, "unpack_dequant"):
+        return unpack_dequant_plain(b, scale, n)
+    if b.dtype != torch.uint8 or scale.dtype != torch.float32 \
+            or scale.device != dev:
+        raise ValueError(f"unpack_dequant takes uint8 bytes and f32 scales "
+                         f"on one card, got {b.dtype} on {dev} and "
+                         f"{scale.dtype} on {scale.device}")
+    if r * -(-n // 8) >= 2 ** 31:
+        raise ValueError(f"{r} rows of {n} values exceed the kernel's 2**31 "
+                         "items of 8")
+    b, scale = b.contiguous(), scale.contiguous()
+    out = torch.empty((r, n), dtype=torch.bfloat16, device=dev)
+    if r:
+        lib = _library()
+        err = lib.cutie_unpack_dequant(b.data_ptr(), scale.data_ptr(),
+                                       out.data_ptr(), r, g, n, _stream(dev))
+        _build.check(lib, err, "unpack_dequant")
         LAUNCHES["unpack_trits"] += 1
     return out
 
@@ -168,15 +289,16 @@ def thermometer(x: torch.Tensor, m: int, *,
     """
     if m < 1:
         raise ValueError(f"thermometer width m must be >= 1, got {m}")
-    if not _device(x, "thermometer"):
+    dev = x.device
+    if not _card(dev, "thermometer"):
         return thermometer_plain(x, m, ternary=ternary)
     flat = x.to(torch.int32).contiguous().reshape(-1)
-    out = torch.empty((flat.numel(), m), dtype=torch.int8, device=x.device)
+    out = torch.empty((flat.numel(), m), dtype=torch.int8, device=dev)
     if out.numel():
         lib = _library()
         err = lib.cutie_thermometer(flat.data_ptr(), out.data_ptr(),
                                     flat.numel(), m, int(ternary),
-                                    _stream(x))
+                                    _stream(dev))
         _build.check(lib, err, "thermometer")
         LAUNCHES["thermometer"] += 1
     return out.reshape(*x.shape, m)

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import codec
+from repro_torch.kernels.trit_codec import ternarize_rows  # noqa: F401
 from repro_torch.models.attention import KV_DTYPES
 from repro_torch.serving.blocks.pool import NULL_BLOCK
 
@@ -38,21 +39,6 @@ def unpack_last_axis(b: torch.Tensor, n: int) -> torch.Tensor:
     g = b.shape[-1]
     t = codec.unpack_rows(b.reshape(-1, g))
     return t.reshape(*b.shape[:-1], g * codec.TRITS_PER_BYTE)[..., :n]
-
-
-def ternarize_rows(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-row symmetric ternarization over the last axis.
-
-    Returns ``(trits int8, scale f32)`` with ``scale = max|v|`` and a
-    0.5-scale dead zone — the TWN-style quantizer the rest of the repo
-    uses for activations, applied to KV rows at cache-write time.
-    """
-    x = v.to(torch.float32)
-    scale = x.abs().amax(dim=-1)
-    safe = torch.clamp(scale, min=1e-12)[..., None]
-    t = torch.where(x.abs() > 0.5 * safe, torch.sign(x),
-                    torch.zeros((), device=x.device))
-    return t.to(torch.int8), scale
 
 
 class KVPagedStore:
@@ -97,17 +83,26 @@ class KVPagedStore:
     # -- codec --------------------------------------------------------------
 
     def _encode(self, rows: torch.Tensor) -> dict:
-        """Compute-dtype rows -> stored representation dict pieces."""
+        """Compute-dtype rows -> stored representation dict pieces: with
+        the trit codec, `ternarize_rows` then `pack_last_axis`, in one
+        launch of the pack kernel on the card."""
         if self.codec == "raw":
             return {"": rows.to(self.dtype)}
-        t, scale = ternarize_rows(rows)
-        return {"": pack_last_axis(t), "_scale": scale}
+        lead, n = rows.shape[:-1], rows.shape[-1]
+        packed, scale = codec.ternarize_pack_rows(rows.reshape(-1, n))
+        return {"": packed.reshape(*lead, packed.shape[-1]),
+                "_scale": scale.reshape(lead)}
 
     def _decode(self, packed: torch.Tensor, scale) -> torch.Tensor:
+        """Stored rows -> bf16 rows: with the trit codec, each row's
+        first d_head trits times its scale, in one launch of the unpack
+        kernel on the card."""
         if self.codec == "raw":
             return packed
-        t = unpack_last_axis(packed, self.d_head)
-        return (t.to(torch.float32) * scale[..., None]).to(torch.bfloat16)
+        lead, g = packed.shape[:-1], packed.shape[-1]
+        rows = codec.dequant_rows(packed.reshape(-1, g), scale.reshape(-1),
+                                  self.d_head)
+        return rows.reshape(*lead, self.d_head)
 
     # -- gather / scatter -----------------------------------------------------
 

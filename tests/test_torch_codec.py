@@ -4,8 +4,10 @@
 CPU tensors run the plain versions of the codec and thermometer kernels;
 they are held bit for bit against `repro.kernels.ops` with
 ``backend="pallas_interpret"`` (the Pallas kernels, interpreted) and
-``backend="ref"`` (the jnp oracles).  The CUDA kernels are held against
-the same plain versions on the card (tests/test_torch_cuda.py,
+``backend="ref"`` (the jnp oracles).  The codec kernels' KV store forms
+(`ternarize_pack`, `unpack_dequant`) are held bit for bit against the
+reference store's ``_encode`` and ``_decode``.  The CUDA kernels are held
+against the same plain versions on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
 """
 
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.serving.blocks import KVPagedStore as JStore
 from repro_torch.core import codec, thermometer
 from repro_torch.kernels import ops
 from repro_torch.kernels import trit_codec as tc
@@ -107,3 +110,93 @@ def test_entry_points_refuse_bad_operands():
         ops.thermometer(torch.zeros(3, dtype=torch.int32), 0)
     with pytest.raises(ValueError, match="multiple of 5"):
         ops.pack_trits(torch.zeros((1, 6), dtype=torch.int8), backend="ref")
+
+
+# -- the KV store's forms: ternarize + pack, unpack + dequant ----------------
+
+
+def kv_rows(rng, r, n):
+    """(r, n) f32 rows, exactly representable in bf16, with the cases the
+    dead zone and the scale must get right: exact ties |x| = 0.5 * max|x|
+    (either sign, in rows whose max is either sign), an all-zero row, a
+    row of -0.0, -0.0 among live values, a one-hot row and a row whose
+    max is a subnormal-free tiny value."""
+    x = rng.standard_normal((r, n)).astype(np.float32)
+    x = np.asarray(torch.as_tensor(x).to(torch.bfloat16).float())
+    for i in range(0, r, 7):                 # ties at half the row's max
+        m = np.float32(2.0 ** rng.integers(-3, 4)) * (1 - 2 * (i % 2))
+        x[i, 0] = m
+        x[i, 1:n:3] = m / 2
+        x[i, 2:n:3] = -m / 2
+        x[i, 3:n:3] = np.clip(x[i, 3:n:3], -abs(m), abs(m))
+    x[1] = 0.0
+    x[2] = -0.0
+    x[3, ::2] = -0.0
+    x[4] = 0.0
+    x[4, n // 2] = -1.5
+    x[5] = np.float32(3e-13) * np.sign(x[5])  # max below the 1e-12 clamp
+    return x
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n", [64, 37, 5, 1])
+def test_ternarize_pack_plain_equals_reference_encode(n, dtype):
+    """The plain version of the pack kernel's KV form is the reference
+    store's ``_encode``: bytes and f32 scales bit for bit."""
+    rng = np.random.default_rng(100 + n)
+    x = kv_rows(rng, 40, n)
+    xt = torch.as_tensor(x).to(getattr(torch, dtype))
+    js = JStore(1, 2, 4, 1, n, codec_name="trit")
+    want = js._encode(jnp.asarray(np.asarray(xt.float()), dtype=dtype))
+    packed, scale = tc.ternarize_pack_plain(xt)
+    assert packed.dtype == torch.uint8 and packed.shape == (40, -(-n // 5))
+    assert np.array_equal(packed.numpy(), np.asarray(want[""]))
+    assert np.array_equal(scale.numpy().view(np.uint32),
+                          np.asarray(want["_scale"]).view(np.uint32))
+    got = codec.ternarize_pack_rows(xt)       # the entry the store calls
+    assert torch.equal(got[0], packed) and torch.equal(got[1], scale)
+    t, s = tc.ternarize_rows(xt)              # the plain quantizer alone
+    assert torch.equal(tc.pack_trits_plain(t), packed)
+    assert torch.equal(s, scale)
+
+
+@pytest.mark.parametrize("n", [64, 37, 5, 1])
+def test_unpack_dequant_plain_equals_reference_decode(n):
+    """The plain version of the unpack kernel's KV form is the reference
+    store's ``_decode``: bf16 bits equal, +0 and -0 included (scales of
+    either sign and of -0.0 meet trit 0)."""
+    rng = np.random.default_rng(200 + n)
+    g = -(-n // 5)
+    b = rng.integers(0, 243, (50, g)).astype(np.uint8)
+    b[0] = 121                               # all trits 0
+    scale = rng.standard_normal(50).astype(np.float32)
+    scale[:4] = [0.0, -0.0, -2.5, 3.0e38]
+    js = JStore(1, 2, 4, 1, n, codec_name="trit")
+    want = np.asarray(js._decode(jnp.asarray(b), jnp.asarray(scale)))
+    got = tc.unpack_dequant_plain(torch.as_tensor(b), torch.as_tensor(scale),
+                                  n)
+    assert got.dtype == torch.bfloat16 and got.shape == (50, n)
+    assert np.array_equal(got.view(torch.int16).numpy(),
+                          want.view(np.int16))
+    via = codec.dequant_rows(torch.as_tensor(b), torch.as_tensor(scale), n)
+    assert torch.equal(via.view(torch.int16), got.view(torch.int16))
+
+
+def test_kv_forms_round_trip_and_refuse_bad_operands():
+    rng = np.random.default_rng(7)
+    x = torch.as_tensor(kv_rows(rng, 12, 64)).to(torch.bfloat16)
+    packed, scale = tc.ternarize_pack(x)     # CPU: the plain versions
+    back = tc.unpack_dequant(packed, scale, 64)
+    t, _ = tc.ternarize_rows(x)
+    want = (t.float() * scale[:, None]).to(torch.bfloat16)
+    assert torch.equal(back.view(torch.int16), want.view(torch.int16))
+    with pytest.raises(ValueError, match=r"\(R, n\)"):
+        tc.ternarize_pack(x.reshape(-1))
+    with pytest.raises(ValueError, match=r"\(R, n\)"):
+        tc.ternarize_pack(x[:, :0])
+    with pytest.raises(ValueError, match=r"\(R,\) scales"):
+        tc.unpack_dequant(packed, scale[:5], 64)
+    with pytest.raises(ValueError, match="outside"):
+        tc.unpack_dequant(packed, scale, 66)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tc.ternarize_pack(x.to("meta"))

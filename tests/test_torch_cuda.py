@@ -218,13 +218,51 @@ def test_trunk_kernel_matches_plain_on_card(cuda, name):
 
 
 def test_trunk_kernel_raises_past_the_int16_limit_on_card(cuda):
-    spec = dict(n=2, hw=(12, 12), cin=128, c=128,
-                metas=[((1, 1), ("avg", 6))])
-    x, w, th = _trunk_operands(np.random.default_rng(24), cuda, **spec)
+    """A conv output's sum past the tile body's int16 staging (k*k*Cu >=
+    32767) raises before any launch."""
+    spec = dict(n=1, hw=(4, 4), cin=8, c=8, metas=[((1, 1), None)])
+    x, _, th = _trunk_operands(np.random.default_rng(24), cuda, **spec)
+    w = torch.zeros((1, 3, 3, 4000, 8), dtype=torch.int8, device=cuda)
     before = FT.LAUNCHES["fused_trunk"]
     with pytest.raises(ValueError, match="int16"):
         FT.fused_trunk(x, w, *th, metas=spec["metas"])
     assert FT.LAUNCHES["fused_trunk"] == before
+
+
+# avg windows whose sums pass int16 at 128 channels: the wide epilogue
+WIDE = {"avg6-12x12": (12, 6), "avg8-8x8": (8, 8)}
+
+
+@pytest.mark.parametrize("name", sorted(WIDE))
+def test_kernels_match_plain_past_the_pool_int16_limit_on_card(cuda, name):
+    """Kernels 1 and 2 on the wide layer alone, kernel 3 on a trunk of a
+    plain layer and the wide one: outputs and counters bit-identical to
+    the plain versions, one launch each."""
+    hw, win = WIDE[name]
+    pool = ("avg", win)
+    x, w, kw = _case(np.random.default_rng(40 + win), cuda, n=3, h=hw, w=hw,
+                     cin=128, cout=128, pool=pool)
+    assert K.conv_plan(3, hw, hw, 128, 128, 3, (1, 1), True, pool)["wide"]
+    want = K.ternary_conv2d_plain(x, w, emit_stats=True, **kw)
+    before = dict(K.LAUNCHES)
+    got = {"ternary_conv2d": K.ternary_conv2d(x, w, emit_stats=True, **kw),
+           "ternary_conv2d_packed": K.ternary_conv2d_packed(
+               x, codec.pack_filter_rows(w), k=3, cin=128, emit_stats=True,
+               **kw)}
+    torch.cuda.synchronize()
+    for kname, (y, st) in got.items():
+        assert K.LAUNCHES[kname] == before[kname] + 1
+        assert torch.equal(y, want[0]) and torch.equal(st, want[1]), kname
+    spec = dict(n=3, hw=(hw, hw), cin=128, c=128,
+                metas=[((1, 1), None), ((1, 1), pool)])
+    x, w, th = _trunk_operands(np.random.default_rng(50 + win), cuda, **spec)
+    kw = dict(metas=spec["metas"], emit_stats=True)
+    want_y, want_s = FT.fused_trunk_plain(x, w, *th, **kw)
+    before = FT.LAUNCHES["fused_trunk"]
+    y, st = FT.fused_trunk(x, w, *th, **kw)
+    torch.cuda.synchronize()
+    assert FT.LAUNCHES["fused_trunk"] == before + 1
+    assert torch.equal(y, want_y) and torch.equal(st, want_s)
 
 
 def test_trunk_timeline_on_card(cuda):
@@ -295,7 +333,14 @@ def test_fused_pipeline_matches_ref_on_card(cuda, pack):
 # -- the trit codec and the thermometer --------------------------------------
 
 
-@pytest.mark.parametrize("shape", [(3, 1003), (1, 641), (130, 7)])
+# ragged rows (W % 5 != 0), then wide ones: the CNN split's boundary (one
+# row of 2,097,152 trits, 16-byte pieces plus a tail), flat rows (W % 5
+# == 0, 80-trit pieces across rows) and a last byte of 3 trits
+CODEC_SHAPES = [(3, 1003), (1, 641), (130, 7), (1, 2097152), (64, 800),
+                (2, 80 * 1000 + 13)]
+
+
+@pytest.mark.parametrize("shape", CODEC_SHAPES)
 def test_codec_kernels_match_plain_on_card(cuda, shape):
     rng = np.random.default_rng(shape[1])
     t = torch.as_tensor(rng.integers(-1, 2, shape), dtype=torch.int8,
@@ -309,6 +354,82 @@ def test_codec_kernels_match_plain_on_card(cuda, shape):
     assert torch.equal(b, TC.pack_trits_plain(t))
     assert torch.equal(back, TC.unpack_trits_plain(b))
     assert torch.equal(back[:, :shape[1]], t)
+
+
+def test_codec_kernels_take_unaligned_views_and_every_byte_on_card(cuda):
+    """Views that start off a 16-byte boundary, and every byte value (243
+    and above decode by the plain version's digit arithmetic); int8 input
+    that is not trits packs by the same arithmetic mod 256."""
+    rng = np.random.default_rng(27)
+    flat = torch.as_tensor(rng.integers(-1, 2, 4003), dtype=torch.int8,
+                           device=cuda)
+    t = flat[3:].reshape(1, 4000)
+    b = TC.pack_trits(t)
+    assert torch.equal(b, TC.pack_trits_plain(t))
+    every = torch.arange(256, dtype=torch.uint8, device=cuda).repeat(9)
+    view = every[5:].reshape(1, -1)
+    assert torch.equal(TC.unpack_trits(view), TC.unpack_trits_plain(view))
+    odd = torch.as_tensor(rng.integers(-128, 128, (2, 800)),
+                          dtype=torch.int8, device=cuda)
+    assert torch.equal(TC.pack_trits(odd), TC.pack_trits_plain(odd))
+
+
+def _kv_rows(rng, r, n, dev):
+    """Seeded bf16 rows with exact ties at half the row's max, all-zero
+    rows and signed zeros (test_torch_codec.kv_rows, on the card)."""
+    x = rng.standard_normal((r, n)).astype(np.float32)
+    m = 2.0 ** rng.integers(-3, 4, r) * np.where(np.arange(r) % 2, -1, 1)
+    x = np.clip(x, -np.abs(m)[:, None], np.abs(m)[:, None])
+    x[:, 0] = m
+    x[::3, 1::3] = (m / 2)[::3, None]
+    x[::3, 2::3] = (-m / 2)[::3, None]
+    x[1::11] = 0.0
+    x[2::11] = -0.0
+    x[3::11, ::2] = -0.0
+    return torch.as_tensor(x, device=dev)
+
+
+# (rows, n): the serve's K or V writes of one decode step (L x B x Hk = 16
+# x 4 x 8 rows) and of a prefill bucket (x 64 positions), odd widths
+KV_WRITE = [(512, 64), (8192, 64), (37, 13), (5, 1), (300, 128)]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", KV_WRITE)
+def test_ternarize_pack_kernel_matches_plain_on_card(cuda, shape, dtype):
+    x = _kv_rows(np.random.default_rng(shape[0]), *shape, cuda).to(
+        getattr(torch, dtype))
+    before = TC.LAUNCHES["pack_trits"]
+    packed, scale = TC.ternarize_pack(x)
+    torch.cuda.synchronize()
+    assert TC.LAUNCHES["pack_trits"] == before + 1
+    want_p, want_s = TC.ternarize_pack_plain(x)
+    assert torch.equal(packed, want_p)
+    assert torch.equal(scale.view(torch.int32), want_s.view(torch.int32))
+
+
+# (rows, G, n): one decode step's K gather at full width (L x B x MB x BS
+# x Hk = 16 x 4 x 16 x 16 x 8 rows of 13 bytes), odd widths, n < 5G
+KV_READ = [(131072, 13, 64), (4096, 13, 64), (77, 8, 37), (9, 1, 5),
+           (33, 3, 11), (1000, 26, 128)]
+
+
+@pytest.mark.parametrize("shape", KV_READ)
+def test_unpack_dequant_kernel_matches_plain_on_card(cuda, shape):
+    r, g, n = shape
+    rng = np.random.default_rng(r + n)
+    b = torch.as_tensor(rng.integers(0, 243, (r, g)), dtype=torch.uint8,
+                        device=cuda)
+    scale = torch.as_tensor(rng.standard_normal(r), dtype=torch.float32,
+                            device=cuda)
+    scale[:3] = torch.as_tensor([0.0, -0.0, -1.5])
+    before = TC.LAUNCHES["unpack_trits"]
+    got = TC.unpack_dequant(b, scale, n)
+    torch.cuda.synchronize()
+    assert TC.LAUNCHES["unpack_trits"] == before + 1
+    want = TC.unpack_dequant_plain(b, scale, n)
+    assert got.shape == (r, n)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
 @pytest.mark.parametrize("ternary", [True, False])

@@ -513,12 +513,77 @@ def test_trunk_plan_cifar_fills_the_card():
 
 
 def test_trunk_plan_raises_past_the_int16_limit():
-    """win*win*k*k*Cu >= 32767 raises, on the common width Cu even where
-    the head reads fewer channels: the tile body stages sums as int16."""
+    """k*k*Cu >= 32767 raises, on the common width Cu even where the head
+    reads fewer channels: the tile body stages each conv output's sum as
+    int16.  An avg window whose sum may pass int16 (win*win*k*k*Cu >=
+    32767) plans its layer ``wide`` (int32 epilogue lanes) and so the
+    trunk; a max pool of int16 values fits and stays narrow, as does the
+    CIFAR trunk."""
     with pytest.raises(ValueError, match="int16"):
-        FT.trunk_plan(2, 12, 12, 128, 128, 128, 3, (((1, 1), ("avg", 6)),))
-    with pytest.raises(ValueError, match="int16"):
-        FT.trunk_plan(2, 8, 8, 8, 16, 1024, 3,
+        FT.trunk_plan(2, 8, 8, 8, 16, 4000, 3, (((1, 1), None),))
+    for hw, win in ((12, 6), (8, 8)):
+        p = FT.trunk_plan(2, hw, hw, 128, 128, 128, 3,
+                          (((1, 1), None), ((1, 1), ("avg", win))))
+        assert p["wide"] == 1
+        assert [g["wide"] for g in p["layers"]] == [0, 1]
+    # max 2 behind a 1024-wide stack: 4 * 9 * 1024 >= 32767, and narrow
+    p = FT.trunk_plan(2, 8, 8, 8, 16, 1024, 3,
                       (((1, 1), None), ((1, 1), ("max", 2))))
-    # avg 5 at 128 channels still fits: 25 * 9 * 128 = 28,800
-    FT.trunk_plan(2, 10, 10, 128, 128, 128, 3, (((1, 1), ("avg", 5)),))
+    assert p["wide"] == 0
+    # avg 5 at 128 channels fits int16: 25 * 9 * 128 = 28,800
+    p = FT.trunk_plan(2, 10, 10, 128, 128, 128, 3, (((1, 1), ("avg", 5)),))
+    assert p["wide"] == 0
+    assert _trunk_plan("cifar-b64")["wide"] == 0
+    assert all(g["wide"] == 0 for g in _trunk_plan("cifar-b64")["layers"])
+
+
+# -- avg windows past int16: the wide epilogue's programs -------------------
+
+WIDE_PROGRAMS = {"avg6-12x12": (12, 6), "avg8-8x8": (8, 8)}
+_WIDE_REFERENCE = {}
+
+
+def _wide_reference(name):
+    """A 128-channel program (conv, then conv + avg ``win``) whose avg
+    window sums past int16 (avg 6: 36 * 9 * 128 = 41,472; avg 8 on its
+    8 x 8 map: a global average pool), with the reference's outputs and
+    counters on ``ref`` and on ``fused`` (the Pallas megakernel,
+    interpreted)."""
+    if name not in _WIDE_REFERENCE:
+        hw, win = WIDE_PROGRAMS[name]
+        rng = np.random.default_rng(70 + win)
+        layers = [_layer(rng, 128, 128, const_frac=0.1),
+                  _layer(rng, 128, 128, const_frac=0.1, pool=("avg", win))]
+        prog = jengine.CutieProgram(layers, jengine.CutieInstance())
+        x = _trits(rng, (2, hw, hw, 128))
+        out = {}
+        for backend in ("ref", "fused"):
+            y, rows = JPipeline(prog, backend=backend).run(
+                jnp.asarray(x), tracer=JStats())
+            out[backend] = (np.asarray(y), rows)
+        _WIDE_REFERENCE[name] = (prog, x, out)
+    return _WIDE_REFERENCE[name]
+
+
+@pytest.mark.parametrize("backend", ["ref", "fused"])
+@pytest.mark.parametrize("name", sorted(WIDE_PROGRAMS))
+def test_wide_avg_pool_program_matches_reference(name, backend):
+    """On ``fused`` the port runs the trunk as one plan whose last layer
+    is wide (`trunk_plan`), and its plain version on the CPU; outputs and
+    counters equal the reference's on the same backend."""
+    jprog, x, out = _wide_reference(name)
+    prog = program_from_numpy(_export(jprog),
+                              dataclasses.asdict(jprog.instance),
+                              device="cpu")
+    hw, win = WIDE_PROGRAMS[name]
+    assert FT.trunk_plan(2, hw, hw, 128, 128, 128, 3,
+                         _metas(jprog.layers))["wide"] == 1
+    pipe = CutiePipeline(prog, backend=backend, device="cpu")
+    if backend == "fused":
+        assert [s["fused"] for s in
+                pipe.execution_plan(x.shape)["segments"]] == [True]
+    want_y, want_rows = out[backend]
+    y, rows = pipe.run(x, tracer=StatsTracer())
+    assert y.shape == (2, hw // win, hw // win, 128)
+    assert np.array_equal(y.numpy(), want_y) and rows == want_rows
+    assert np.array_equal(pipe.run(x).numpy(), want_y)

@@ -258,9 +258,28 @@ def test_conv_plan_tiles_cover_each_output_once(i):
     assert (seen == 1).all()
 
 
+@pytest.mark.parametrize("kind", ["avg", "max"])
+@pytest.mark.parametrize("hw,win,cin", [(12, 6, 128), (8, 8, 128),
+                                        (8, 4, 256), (10, 5, 128),
+                                        (4, 4, 128)])
+def test_conv_plan_goes_wide_only_for_avg_windows_past_int16(hw, win, cin,
+                                                             kind):
+    """``wide`` where an avg window's sum may pass int16 (win*win*9*Cin >=
+    32767); a max pool of int16 values never needs it.  The shared memory
+    is the narrow plan's: the staged sums stay int16."""
+    g = K.conv_plan(2, hw, hw, cin, 128, 3, (1, 1), True, (kind, win))
+    want = int(kind == "avg" and win * win * 9 * cin >= 32767)
+    assert g["wide"] == want
+    assert g["smem"] == K._layout(cin=cin, k=3, sh=1, sw=1, th=g["th"],
+                                  tw=g["tw"], ns=g["ns"],
+                                  groups=g["groups"])["smem"]
+    assert K.check_int16(win, 3, cin, kind) == want
+
+
 def test_conv_plan_fills_the_card_on_cifar():
     for c in PHASE3[:8]:                     # the CIFAR layers at batch 64
         g = _plan(c)
+        assert g["wide"] == 0, c
         grid = g["slices"] * g["gpb"]
         pairs = g["slices"] * g["n"] * g["tiles_r"] * g["tiles_c"]
         assert grid >= K.SM_COUNT or grid == pairs, c
@@ -273,8 +292,9 @@ def test_conv_plan_raises_on_what_does_not_fit():
         K.conv_plan(1, 8, 8, 1024, 64, 3, (1, 1), True, None)
     with pytest.raises(ValueError, match="int16"):
         K.conv_plan(1, 8, 8, 4000, 64, 3, (1, 1), True, None)
-    with pytest.raises(ValueError, match="int16"):
-        K.conv_plan(1, 8, 8, 256, 64, 3, (1, 1), True, ("avg", 4))
+    # an avg window past int16 plans wide: 16 * 9 * 256 >= 32767
+    assert K.conv_plan(1, 8, 8, 256, 64, 3, (1, 1), True,
+                       ("avg", 4))["wide"] == 1
     with pytest.raises(ValueError, match="does not fit"):
         K.conv_plan(1, 2, 2, 8, 8, 3, (1, 1), False, None)
     with pytest.raises(ValueError, match="exceeds"):

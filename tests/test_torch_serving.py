@@ -204,6 +204,43 @@ def test_kv_store_gather_scatter_matches_reference(codec):
     assert st.bytes_per_block() == js.bytes_per_block()
 
 
+def test_trit_kv_store_ties_zeros_and_signed_zeros_match_reference():
+    """A prefill span of bf16 rows with exact ties at half the row's max,
+    an all-zero row, a row of -0.0 and -0.0 among live values, written
+    and gathered through the trit store's codec forms: pages, scales and
+    gathered bf16 bits equal the reference store's."""
+    rng = np.random.default_rng(3)
+    l, s, hk, dh = 2, 6, 2, 13
+    rows = {}
+    for name in ("k", "v"):
+        x = rng.standard_normal((l, s, hk, dh)).astype(np.float32)
+        x[:, 0, 0] = 0.0
+        x[:, 1, 0] = -0.0
+        x[:, 2, 1, ::2] = -0.0
+        x[:, 3, :, 0] = -4.0                 # max |x| = 4: ties at +-2
+        x[:, 3, :, 1:] = np.clip(x[:, 3, :, 1:], -4.0, 4.0)
+        x[:, 3, :, 2::3] = 2.0
+        x[:, 3, :, 3::3] = -2.0
+        rows[name] = np.asarray(torch.as_tensor(x).to(torch.bfloat16)
+                                .float())
+    table = np.array([1, 2], np.int32)
+    js = jblocks.KVPagedStore(l, 4, 4, hk, dh, codec_name="trit")
+    js.pages = js.write_span(js.pages, jnp.asarray(table), 1, 5,
+                             {n: jnp.asarray(r, jnp.bfloat16)
+                              for n, r in rows.items()})
+    want = js.gather(js.pages, jnp.asarray(table[None]))
+    st = KVPagedStore(l, 4, 4, hk, dh, codec_name="trit", device="cpu")
+    st.pages = st.write_span(st.pages, torch.as_tensor(table), 1, 5,
+                             {n: torch.as_tensor(r).to(torch.bfloat16)
+                              for n, r in rows.items()})
+    got = st.gather(st.pages, torch.as_tensor(table[None]))
+    for n in st.pages:
+        assert np.array_equal(st.pages[n].numpy(), np.asarray(js.pages[n]))
+    for n in ("k", "v"):
+        assert np.array_equal(got[n].view(torch.int16).numpy(),
+                              np.asarray(want[n]).view(np.int16))
+
+
 def test_kv_store_write_span_routes_padding_to_null_block():
     st = KVPagedStore(1, 4, 4, 1, 4, device="cpu")
     table = torch.as_tensor([1, 2])
