@@ -19,12 +19,17 @@ Phases, each of which fails the script (no result line) when it fails:
    the trunk megakernel on the full CIFAR trunk at batch 64, its two-trunk
    split through a packed boundary and the edges of its planner
    (`trunk_cases`: C = 13 behind a head Cin of 6, stride 2 + avg pool,
-   avg 4 on 4 x 4 into a 1 x 1 layer, N = 1, 16 layers); kernels 1-3 past
-   the old int16 limit of their avg pools (`WIDE_CONV`: avg 6 on 12 x 12,
-   avg 8 on 8 x 8, 128 channels, planned wide); the codec and
-   thermometer kernels at the main path's shapes, at lengths that are not
-   a multiple of 5, on flat and unaligned views, and the codec's KV store
-   forms at the trit serve's shapes (bf16 bit for bit);
+   avg 4 on 4 x 4 into a 1 x 1 layer, N = 1, 16 layers, a 1 x 1 trunk);
+   kernels 1-3 past the old int16 limit of their avg pools (`WIDE_CONV`:
+   avg 6 on 12 x 12, avg 8 on 8 x 8, 128 channels, planned wide); the
+   conv shapes of compiled programs (`COMPILED_CONV`: 1 x 1 convs, the
+   lowered dense heads, residual widths, pad_to); the codec kernels at
+   the main path's shapes, at lengths that are not a multiple of 5, on
+   flat and unaligned views, and the codec's KV store forms at the trit
+   serve's shapes (bf16 bit for bit); the thermometer kernel in its
+   levels and image forms (`thermometer_cases`: every m from 1 to 17 and
+   42, ties, out-of-range values, +-inf and NaN, odd lengths, unaligned
+   views);
    counters included; the packed ternary matmul (every epilogue, int8 and
    bf16 x, M in {1, 4, 37, 128}, ragged N, a logical K that is not a
    multiple of 5, and the seven llama3.2-1B projections at M = 4 and 64)
@@ -34,16 +39,25 @@ Phases, each of which fails the script (no result line) when it fails:
    seven llama projections);
 4. the main path: the paper's CIFAR-10 network (Table III, full width:
    126 -> 128 channels, 32 x 32, 8 layers, max-pools after layers 2, 4, 6
-   and avg-pool 4 after layer 7) compiled with `engine.compile_layer`
-   from seeded weights, its batch-64 input encoded by the thermometer
-   kernel, run through `CutiePipeline.run`, a traced run and `measure` on
-   the ``cuda``, ``packed`` and ``fused`` backends and on ``fused`` with
-   an L2 budget that splits the program into two trunks joined by packed
-   bytes; outputs, tracer rows and energy rows must equal the ``ref``
-   backend's on the same card, each conv kernel's launch count must grow
-   by 8 per run, the trunk kernel's by 1 (2 when split) with no conv
-   launch; then the codec entry points pack and unpack the split's
+   and avg-pool 4 after layer 7; `repro_torch.configs.cutie_cnn`) built
+   as a `compiler.Graph` from seeded float weights and BN.  Compiled by
+   `CutiePipeline.compile` without its head and unoptimized, it must
+   equal the program built layer by layer with `engine.compile_layer`,
+   array for array; compiled with the dense 128 -> 10 head and
+   optimize=True (its cost table printed), with its batch-64 input
+   encoded by one launch of the thermometer kernel's image form, it runs
+   through `run`, a traced run and `measure` on the ``cuda``, ``packed``
+   and ``fused`` backends and on ``fused`` with an L2 budget that splits
+   the trunk in two, joined by packed bytes; outputs, tracer rows and
+   energy rows must equal the ``ref`` backend's on the same card, and per
+   step each conv kernel's launch count must grow by one per layer, the
+   trunk kernel's by one per fused segment (with one conv launch per
+   layer of the per-layer segments, the head's), as `execution_plan`
+   reports them; then the codec entry points pack and unpack the split's
    boundary trits, which must equal the trunk kernel's own packed bytes.
+   The compiled residual and pad_to programs of
+   benchmarks/backend_parity.py and tests/test_compiler.py's
+   nonconforming graph follow on every backend, held the same way.
    Then the second main path, LLM serving: llama3.2-1B at full width and
    depth with ``quant="ternary_packed"``, seeded random weights on the
    card, 8 requests of 40 tokens (a shared 32-token prefix + 8 distinct)
@@ -68,7 +82,10 @@ Phases, each of which fails the script (no result line) when it fails:
    1, 2, 3, 7 and 8, the library call's (torch.profiler); kernel 3 with its
    per-layer timeline (the kernel's own clock stamps); kernels 3-8
    with the wrapper's host microseconds per call, kernel 7 at the decode M
-   and at the prefill M; kernels 4 and 5 in their KV forms at the trit
+   and at the prefill M; kernel 6 in its image form (as the main path
+   calls it) and levels form beside the former chain (the four eager
+   passes of the quantizer, then the levels form) and its wrapper's host
+   split; kernels 4 and 5 in their KV forms at the trit
    serve's shapes beside the store's former chain of kernel and torch
    ops; then the serving times
    (decode step, prefill, tokens/s, latency p50/p99) of the LLM path and
@@ -121,10 +138,16 @@ REPLACES = {
 # the conv kernels' library_ms; library_f32_ms is f32 F.conv2d, TF32 off
 LIBRARY_CONV = "F.conv2d f16 channels-last, 8 calls (exact integers)"
 SPLIT_AT = 4                       # the two-trunk split: layers [0, 4), [4, 8)
-# (op, pool) per layer of paper Table III (repro.configs.cutie_cnn.layout)
-CIFAR_POOLS = (None, None, ("max", 2), None, ("max", 2), None, ("max", 2),
-               ("avg", 4))
-CIFAR_CIN, CIFAR_WIDTH, CIFAR_HW, THERMO_M = 126, 128, 32, 42
+sys.path.insert(0, os.path.join(ROOT, "src"))
+from repro_torch.configs.cutie_cnn import CONFIG as CIFAR  # noqa: E402
+
+# paper Table III: the merged pool of each conv layer, and the widths
+CIFAR_POOLS = tuple(pool for _op, _mult, pool in CIFAR.layout)
+CIFAR_CIN, CIFAR_WIDTH, CIFAR_HW, THERMO_M = (
+    CIFAR.in_channels, CIFAR.width, CIFAR.img_hw, CIFAR.thermometer_m)
+# the compiled network's layer FIFO holds the dense head too, as the
+# reference's train.cutie_qat.compile(include_head=True) sizes it
+CIFAR_DEPTH = len(CIFAR.layout) + 1
 # the LLM path: llama3.2-1B at full width and depth, ternary_packed, served
 # with the default ServerConfig (paged, 4 slots, max_len 256, block 16)
 LLM_ARCH, LLM_REQUESTS, LLM_PREFIX, LLM_PROMPT, LLM_NEW = (
@@ -164,12 +187,12 @@ def card_line() -> str:
 # -- phase 3: kernels against their plain versions ---------------------------
 
 
-def _case(rng, torch, *, n, h, w, cin, cout, stride=(1, 1), padding=True,
-          pool=None, fuse=True, const=True):
+def _case(rng, torch, *, n, h, w, cin, cout, k=3, stride=(1, 1),
+          padding=True, pool=None, fuse=True, const=True):
     dev = DEVICE
     x = torch.as_tensor(rng.integers(-1, 2, (n, h, w, cin)), dtype=torch.int8,
                         device=dev)
-    wt = torch.as_tensor(rng.integers(-1, 2, (3, 3, cin, cout)),
+    wt = torch.as_tensor(rng.integers(-1, 2, (k, k, cin, cout)),
                          dtype=torch.int8, device=dev)
     kw = dict(stride=stride, padding=padding, pool=pool)
     if fuse:
@@ -202,7 +225,8 @@ def conv_cases() -> list[dict]:
     then the edges of the kernels' planner (`conv_plan`): maps that are
     not multiples of the tile, Cout over more than one slice and ragged,
     Cin 126 raw, avg 4 on a 4 x 4 map, packed rows whose length is not a
-    multiple of 5, and the wide plans (`WIDE_CONV`)."""
+    multiple of 5, the wide plans (`WIDE_CONV`), and the shapes the
+    compiler's lowerings give (`COMPILED_CONV`)."""
     cases = []
     hw, cin = CIFAR_HW, CIFAR_CIN
     for pool in CIFAR_POOLS:                   # the main path's layer shapes
@@ -225,7 +249,22 @@ def conv_cases() -> list[dict]:
              pool=("avg", 3)),
         dict(n=5, h=4, w=4, cin=64, cout=33, pool=("avg", 4)),
         dict(n=2, h=7, w=12, cin=7, cout=9, pool=("max", 2)),
-    ] + WIDE_CONV
+    ] + WIDE_CONV + COMPILED_CONV
+
+
+# shapes of compiled programs (phase 4): the CIFAR dense head lowered to a
+# 1 x 1 unpadded conv on the 1 x 1 map, a dense head over a 3 x 3 map (an
+# unpadded 3 x 3 conv to 1 x 1), the residual add (a 1 x 1 conv over body
+# and skip channels, 40 -> 20), a body conv widened to 40, an identity
+# 1 x 1 conv carrying an avg pool, and pad_to = 16 behind Cin 5
+COMPILED_CONV = [
+    dict(n=BATCH, h=1, w=1, cin=128, cout=10, k=1, padding=False),
+    dict(n=2, h=3, w=3, cin=20, cout=10, padding=False),
+    dict(n=2, h=12, w=12, cin=40, cout=20, k=1),
+    dict(n=2, h=12, w=12, cin=20, cout=40),
+    dict(n=2, h=8, w=8, cin=6, cout=6, k=1, pool=("avg", 2)),
+    dict(n=2, h=8, w=8, cin=5, cout=16),
+]
 
 
 # avg windows whose sums pass int16 at 128 channels (the planners' `wide`
@@ -261,11 +300,11 @@ def compare_kernels(torch, K, codec) -> dict:
     return worst
 
 
-def _trunk_case(rng, torch, *, n, hw, cin, c, pools, strides=None):
+def _trunk_case(rng, torch, *, n, hw, cin, c, pools, strides=None, k=3):
     """Random trunk operands: x, w_stack (head rows zero-padded), the five
     stacked epilogue vectors and the metas."""
     nl, cu, dev = len(pools), max(cin, c), DEVICE
-    w = rng.integers(-1, 2, (nl, 3, 3, cu, c)).astype(np.int8)
+    w = rng.integers(-1, 2, (nl, k, k, cu, c)).astype(np.int8)
     w[0, :, :, cin:] = 0
     scale = np.array([p[1] ** 2 if p and p[0] == "avg" else 1
                       for p in pools])[:, None]
@@ -292,7 +331,8 @@ def trunk_cases() -> list[dict]:
     head of 64: weight rows at Cu = 64, the second layer on the raw path),
     N = 1 with fewer tiles than blocks, a 16-layer trunk, and the two
     wide trunks: a plain layer, then avg 6 on 12 x 12 or avg 8 on 8 x 8
-    at 128 channels."""
+    at 128 channels, and the 1 x 1 trunk a compiled residual block gives
+    (the add, Cin 40 -> 20, then an identity conv with a max pool)."""
     return [dict(n=BATCH, hw=(CIFAR_HW, CIFAR_HW), cin=CIFAR_CIN,
                  c=CIFAR_WIDTH, pools=CIFAR_POOLS),
             dict(n=3, hw=(11, 9), cin=6, c=13,
@@ -305,7 +345,9 @@ def trunk_cases() -> list[dict]:
                  pools=(None, ("max", 2), None)),
             dict(n=2, hw=(16, 16), cin=8, c=16,
                  pools=(None, None, None, ("max", 2)) + (None,) * 3
-                 + (("max", 2),) + (None,) * 8)] + [
+                 + (("max", 2),) + (None,) * 8),
+            dict(n=2, hw=(6, 6), cin=40, c=20, pools=(None, ("max", 2)),
+                 k=1)] + [
             dict(n=c["n"], hw=(c["h"], c["w"]), cin=c["cin"], c=c["cout"],
                  pools=(None, c["pool"])) for c in WIDE_CONV]
 
@@ -417,19 +459,69 @@ def compare_new_kernels(torch, FT, TC, worst: dict) -> None:
         want = TC.unpack_dequant_plain(b, sc, n)
         check(got.view(bits[got.dtype]), want.view(bits[want.dtype]),
               f"unpack_trits unpack_dequant on ({r}, {g}) -> {n}")
-    levels = torch.as_tensor(rng.integers(0, 2 * THERMO_M + 1,
-                                          (BATCH, CIFAR_HW, CIFAR_HW, 3)),
+    n_thermo = thermometer_cases(torch, TC, rng, check)
+    log(f"phase 3: {n_cases} trunk, codec and thermometer cases "
+        "bit-identical to the plain versions (outputs and counters), the "
+        f"wide trunks {[c['pool'] for c in WIDE_CONV]} at 128 channels, "
+        f"the codec's KV forms and {n_thermo} thermometer cases (levels "
+        "and image forms, every m in 1..17 and 42, ties, out-of-range "
+        "values, +-inf and NaN, odd lengths, unaligned views) included")
+
+
+THERMO_MS = tuple(range(1, 18)) + (THERMO_M,)
+
+
+def thermo_image(rng, torch, m, ternary, n):
+    """(n,) f32 pixels on the card: exact ties at k + 0.5 levels, both
+    ends, values below 0 and above 1, -0.0, +-inf and NaN."""
+    lv = 2 * m if ternary else m
+    img = rng.random(n).astype(np.float32)
+    k = rng.integers(0, lv, 40)
+    img[:40] = ((k + 0.5) / lv).astype(np.float32)
+    img[40:52] = [0.0, 1.0, -0.0, -0.3, 1.7, -5.0, 9.0, np.inf, -np.inf,
+                  np.nan, -np.nan, 0.5 / lv]
+    return torch.as_tensor(img, device=DEVICE)
+
+
+def thermometer_cases(torch, TC, rng, check) -> int:
+    """Kernel 6 in both forms against its plain versions: the CIFAR input
+    (levels, and the image batch as the main path encodes it), then every
+    m from 1 to 17 and 42 (16-byte pieces across 1 to 16 rows), levels
+    out of range, images with ties, +-inf and NaN, lengths that are not a
+    multiple of 16 and views at an odd offset.  Returns the case count."""
+    n = 0
+    shape = (BATCH, CIFAR_HW, CIFAR_HW, 3)
+    levels = torch.as_tensor(rng.integers(0, 2 * THERMO_M + 1, shape),
                              dtype=torch.int32, device=DEVICE)
+    img = torch.as_tensor(rng.random(shape), dtype=torch.float32,
+                          device=DEVICE)
+    img.view(-1)[:52] = thermo_image(rng, torch, THERMO_M, True, 52)
     for ternary in (True, False):
+        kind = "ternary" if ternary else "binary"
         lv = levels if ternary else levels.clamp(max=THERMO_M)
         check(TC.thermometer(lv, THERMO_M, ternary=ternary),
               TC.thermometer_plain(lv, THERMO_M, ternary=ternary),
-              f"thermometer {'ternary' if ternary else 'binary'} on "
-              f"{tuple(lv.shape)}")
-    log(f"phase 3: {n_cases} trunk, codec and thermometer cases "
-        "bit-identical to the plain versions (outputs and counters), the "
-        f"wide trunks {[c['pool'] for c in WIDE_CONV]} at 128 channels and "
-        "the codec's KV forms included")
+              f"thermometer {kind} on {tuple(lv.shape)}")
+        check(TC.encode_image(img, THERMO_M, ternary=ternary),
+              TC.encode_image_plain(img, THERMO_M, ternary=ternary),
+              f"thermometer encode_image {kind} on {tuple(img.shape)}")
+        n += 2
+        for m in THERMO_MS:
+            lv = torch.as_tensor(rng.integers(-3, 2 * m + 4, 1003),
+                                 dtype=torch.int32, device=DEVICE)
+            im = thermo_image(rng, torch, m, ternary, 3 * 331)
+            for v in (lv, lv[1:], lv[5:5 + 7 * 13].reshape(7, 13)):
+                check(TC.thermometer(v, m, ternary=ternary),
+                      TC.thermometer_plain(v, m, ternary=ternary),
+                      f"thermometer {kind} m {m} on {tuple(v.shape)}")
+            for v in (im.reshape(331, 3), im[1:],
+                      im[3:3 + 5 * 6 * 3].reshape(5, 6, 3)):
+                check(TC.encode_image(v, m, ternary=ternary),
+                      TC.encode_image_plain(v, m, ternary=ternary),
+                      f"thermometer encode_image {kind} m {m} on "
+                      f"{tuple(v.shape)}")
+            n += 6
+    return n
 
 
 def _mm_case(rng, torch, m, k, n, xdt, ep):
@@ -628,20 +720,68 @@ def reset_launches(*mods) -> None:
         m.reset_launches()
 
 
-def cifar_program(torch, engine):
+def _w(rng, shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _bn(rng, c):
+    return {"gamma": rng.standard_normal(c).astype(np.float32) + 0.5,
+            "beta": np.zeros(c, np.float32), "mean": np.zeros(c, np.float32),
+            "var": np.ones(c, np.float32)}
+
+
+def cifar_arrays():
+    """Seeded float weights and BN of the CIFAR-10 network's 8 conv layers,
+    with their pools, then the dense 128 -> 10 head's weights."""
     rng = np.random.default_rng(SEED + 1)
     layers, cin = [], CIFAR_CIN
     for pool in CIFAR_POOLS:
-        c = CIFAR_WIDTH
-        w = rng.standard_normal((3, 3, cin, c)).astype(np.float32)
-        bn = {"gamma": rng.standard_normal(c).astype(np.float32) + 0.5,
-              "beta": np.zeros(c, np.float32),
-              "mean": np.zeros(c, np.float32),
-              "var": np.ones(c, np.float32)}
-        layers.append(engine.compile_layer(torch.as_tensor(w, device=DEVICE),
-                                           bn, pool=pool))
-        cin = c
+        w = _w(rng, (3, 3, cin, CIFAR_WIDTH))
+        layers.append((w, _bn(rng, CIFAR_WIDTH), pool))
+        cin = CIFAR_WIDTH
+    return layers, _w(rng, (cin, CIFAR.n_classes))
+
+
+def cifar_program(torch, engine):
+    """The hand-built 8-layer program, layer by layer with
+    `engine.compile_layer`: the oracle of the compiled one."""
+    layers = [engine.compile_layer(torch.as_tensor(w, device=DEVICE), bn,
+                                   pool=pool)
+              for w, bn, pool in cifar_arrays()[0]]
     return engine.CutieProgram(layers, engine.CutieInstance())
+
+
+def cifar_graph(compiler, include_head: bool):
+    """The same network as a `compiler.Graph` (as the reference's
+    `models.cutie_cnn.to_graph` emits it), with the head when asked."""
+    layers, head = cifar_arrays()
+    g = compiler.Graph(in_channels=CIFAR_CIN, in_hw=(CIFAR_HW, CIFAR_HW))
+    for w, bn, pool in layers:
+        g.conv(w, bn, pool=pool)
+    if include_head:
+        g.dense(head)
+    return g
+
+
+def same_program(torch, got, want) -> list:
+    """The fields in which two programs differ (empty when every array,
+    thresholds by their bits, and every stride, padding and pool is
+    equal)."""
+    bad = []
+    if len(got.layers) != len(want.layers):
+        return [f"{len(got.layers)} layers, want {len(want.layers)}"]
+    for i, (a, b) in enumerate(zip(got.layers, want.layers)):
+        if not torch.equal(a.weights, b.weights.to(a.weights.device)):
+            bad.append(f"layer {i} weights")
+        for f in ("t_lo", "t_hi", "flip", "const", "is_const"):
+            x, y = getattr(a.thresholds, f), getattr(b.thresholds, f)
+            if x.dtype == torch.float32:
+                x, y = x.view(torch.int32), y.view(torch.int32)
+            if not torch.equal(x, y.to(x.device)):
+                bad.append(f"layer {i} {f}")
+        if (a.stride, a.padding, a.pool) != (b.stride, b.padding, b.pool):
+            bad.append(f"layer {i} stride/padding/pool")
+    return bad
 
 
 def cifar_input(torch, thermometer):
@@ -651,9 +791,9 @@ def cifar_input(torch, thermometer):
     return thermometer.encode_image_ternary(img, THERMO_M)
 
 
-def _run_steps(torch, P, pipe, x, count, per_run: int, what: str) -> dict:
-    """run, traced run and measure on one pipeline; ``count()`` must grow
-    by ``per_run`` launches per step."""
+def _run_steps(torch, P, pipe, x, count, per_run: tuple, what: str) -> dict:
+    """run, traced run and measure on one pipeline; ``count()`` (a tuple
+    of launch counts) must grow by ``per_run`` per step."""
     steps = [("run", lambda: pipe.run(x)),
              ("run+StatsTracer", lambda: pipe.run(x, tracer=P.StatsTracer())),
              ("measure", lambda: pipe.measure(x))]
@@ -661,10 +801,24 @@ def _run_steps(torch, P, pipe, x, count, per_run: int, what: str) -> dict:
     for i, (step, fn) in enumerate(steps, 1):
         got[step] = fn()
         sync(torch)
-        if count() != per_run * i:
-            raise RuntimeError(f"{what}: {count()} launches after {step}, "
-                               f"want {per_run * i}")
+        want = tuple(n * i for n in per_run)
+        if count() != want:
+            raise RuntimeError(f"{what}: launches {count()} after {step}, "
+                               f"want {want}")
     return got
+
+
+def _same(a, b) -> bool:
+    """Equal, with a float NaN equal to NaN: the priced toggle rate of a
+    layer whose output is one window per image is 0/0 (NaN), in the
+    reference's energy model as in the port's."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_same, a, b))
+    if isinstance(a, float) and isinstance(b, float) and a != a:
+        return b != b
+    return a == b
 
 
 def _same_as_ref(torch, got, ref: dict, what: str) -> None:
@@ -672,19 +826,102 @@ def _same_as_ref(torch, got, ref: dict, what: str) -> None:
     checks = {
         "run": torch.equal(y, ref["y"]),
         "traced run": torch.equal(y2, ref["y"]),
-        "tracer rows": rows == ref["rows"],
+        "tracer rows": _same(rows, ref["rows"]),
         "measure final": torch.equal(m["final"], ref["y"]),
-        "measure rows": m["layers"] == ref["m"]["layers"],
-        "energy_uj": m["energy_uj"] == ref["m"]["energy_uj"],
+        "measure rows": _same(m["layers"], ref["m"]["layers"]),
+        "energy_uj": _same(m["energy_uj"], ref["m"]["energy_uj"]),
     }
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise RuntimeError(f"{what} differs from ref on {bad}")
 
 
+def _ref_run(P, pipe, x) -> dict:
+    _, rows = pipe.run(x, tracer=P.StatsTracer())
+    return {"y": pipe.run(x), "rows": rows, "m": pipe.measure(x)}
+
+
+def every_backend(torch, K, FT, P, compiled, x, split_budget, what: str
+                  ) -> dict:
+    """A compiled program (``compiled``, a CompileResult) on ``cuda``,
+    ``packed``, ``fused`` and, with ``split_budget``, ``fused`` under that
+    L2 budget: run, traced run and measure must equal ``ref`` on the
+    card, each backend's launches must grow per step by one conv launch
+    per layer (``cuda``, ``packed``) or, on ``fused``, by one trunk launch
+    per fused segment and one conv launch per layer of the per-layer
+    segments, as `execution_plan` reports them.  Returns the launches of
+    each backend's three steps and the fused segments."""
+    ref = _ref_run(P, compiled.pipeline("ref", device=DEVICE), x)
+    n = len(compiled.program.layers)
+    backends = {"cuda": "cuda", "packed": "packed", "fused": "fused"}
+    if split_budget is not None:
+        backends["fused-split"] = P.FusedBackend(l2_budget=split_budget)
+    out = {"ref": ref, "segments": {}}
+    for label, be in backends.items():
+        pipe = compiled.pipeline(be, device=DEVICE)
+        if label.startswith("fused"):
+            segs = pipe.execution_plan(tuple(x.shape))["segments"]
+            trunks = sum(s["fused"] for s in segs)
+            per = (trunks, sum(s["stop"] - s["start"] for s in segs
+                               if not s["fused"]), 0)
+            out["segments"][label] = [(s["start"], s["stop"], s["fused"])
+                                      for s in segs]
+        else:
+            per = (0, n, 0) if label == "cuda" else (0, 0, n)
+        if DEVICE != "cuda":
+            per = (0, 0, 0)
+        reset_launches(K, FT)
+
+        def count():
+            return (FT.LAUNCHES["fused_trunk"], K.LAUNCHES["ternary_conv2d"],
+                    K.LAUNCHES["ternary_conv2d_packed"])
+
+        got = _run_steps(torch, P, pipe, x, count, per, f"{what} {label}")
+        _same_as_ref(torch, got, ref, f"{what} {label}")
+        out[label] = count()
+        log(f"phase 4: {what} on {label!r}"
+            + (f" (segments {out['segments'][label]})"
+               if label in out["segments"] else "")
+            + ": run, traced run and measure identical to ref; launches "
+            "(fused_trunk, ternary_conv2d, ternary_conv2d_packed) "
+            f"{out[label]} = 3 x {per}")
+    return out
+
+
 def main_path(torch, K, FT, TC, ops, engine, thermometer, compiler, P
               ) -> dict:
-    prog = cifar_program(torch, engine)
+    """The paper's CIFAR-10 network through `CutiePipeline.compile`:
+    (a) head-less, unoptimized, it must equal the hand-built program
+    array for array; (b) with the dense head and optimize=True, its
+    batch-64 input encoded in one launch of kernel 6's image form, on
+    every backend against ``ref``; then the codec on the split's
+    boundary.  The compiled residual, pad_to and nonconforming programs
+    follow (`compiled_programs`)."""
+    hand = cifar_program(torch, engine)
+    trunk = P.CutiePipeline.compile(cifar_graph(compiler, False),
+                                    backend="ref", device=DEVICE,
+                                    optimize=False).program
+    bad = same_program(torch, trunk, hand)
+    if bad:
+        raise RuntimeError(f"compiled CIFAR program differs from the "
+                           f"hand-built one: {bad}")
+    log(f"phase 4: CutiePipeline.compile of the head-less CIFAR-10 graph "
+        f"(optimize=False): {len(trunk.layers)} layers equal to the "
+        "hand-built program array for array (trits, threshold bits, flags, "
+        "stride, padding, pool)")
+    pipe = P.CutiePipeline.compile(
+        cifar_graph(compiler, True),
+        instance=engine.CutieInstance(n_layers=CIFAR_DEPTH), backend="ref",
+        device=DEVICE, batch=BATCH)
+    compiled = pipe.compile_result
+    prog = compiled.program
+    log("phase 4: CutiePipeline.compile of the CIFAR-10 graph with its "
+        f"dense head (optimize=True): {len(prog.layers)} layers, channels "
+        f"{[li.weights.shape[-1] for li in prog.layers]}, folded "
+        f"{compiled.folded_channels}, removed {compiled.removed_channels}; "
+        f"cost report at batch {BATCH}:")
+    for line in compiled.cost_table().splitlines():
+        log(f"  {line}")
     reset_launches(K, FT, TC)
     x = cifar_input(torch, thermometer)
     sync(torch)
@@ -694,64 +931,32 @@ def main_path(torch, K, FT, TC, ops, engine, thermometer, compiler, P
                            f"{launches['thermometer']} times, want 1")
     if tuple(x.shape) != (BATCH, CIFAR_HW, CIFAR_HW, CIFAR_CIN):
         raise RuntimeError(f"thermometer input has shape {tuple(x.shape)}")
-    ref_pipe = P.CutiePipeline(prog, backend="ref", device=DEVICE)
-    y_ref = ref_pipe.run(x)
-    _, rows_ref = ref_pipe.run(x, tracer=P.StatsTracer())
-    ref = {"y": y_ref, "rows": rows_ref, "m": ref_pipe.measure(x)}
-    want_shape = (BATCH, 1, 1, CIFAR_WIDTH)
+    split_budget = compiler.trunk_l2_bytes(prog.layers[:SPLIT_AT],
+                                           tuple(x.shape))
+    runs = every_backend(torch, K, FT, P, compiled, x, split_budget,
+                         "CIFAR-10 + head")
+    y_ref = runs["ref"]["y"]
+    want_shape = (BATCH, 1, 1, CIFAR.n_classes)
     if tuple(y_ref.shape) != want_shape or not bool(
             ((y_ref >= -1) & (y_ref <= 1)).all()):
         raise RuntimeError(f"ref output {tuple(y_ref.shape)} is not "
                            f"{want_shape} trits")
+    segs = runs["segments"]
+    if len(segs["fused"]) < 2 or not segs["fused"][0][2] or \
+            len(segs["fused-split"]) <= len(segs["fused"]):
+        raise RuntimeError(f"fused segments {segs}: want a trunk and the "
+                           "per-layer head, split further under the budget")
     nz = float((y_ref != 0).float().mean())
-    log(f"phase 4: thermometer kernel encoded the input {tuple(x.shape)}; "
-        f"ref output {want_shape}, nonzero share {nz:.4f}, energy "
-        f"{ref['m']['energy_uj']!r} uJ/inference")
-    kernel_of = {"cuda": "ternary_conv2d", "packed": "ternary_conv2d_packed"}
-    for backend, kname in kernel_of.items():
-        pipe = P.CutiePipeline(prog, backend=backend, device=DEVICE)
-        reset_launches(K, FT)
-        got = _run_steps(torch, P, pipe, x, lambda: K.LAUNCHES[kname],
-                         8 if DEVICE == "cuda" else 0, backend)
-        other = [v for k, v in {**K.LAUNCHES, **FT.LAUNCHES}.items()
-                 if k != kname]
-        if any(other):
-            raise RuntimeError(f"{backend}: unexpected launches "
-                               f"{K.LAUNCHES} {FT.LAUNCHES}")
-        launches[kname] = K.LAUNCHES[kname]
-        _same_as_ref(torch, got, ref, backend)
-        log(f"phase 4: backend {backend!r}: run, traced run and measure "
-            f"identical to ref; {kname} launched {launches[kname]} times "
-            "(8 per run)")
-    # fused: one trunk, then a budget that splits it into two trunks
-    split_budget = compiler.trunk_l2_bytes(prog.layers[:SPLIT_AT],
-                                           tuple(x.shape))
-    fused = {"fused": P.FusedBackend(),
-             "fused-split": P.FusedBackend(l2_budget=split_budget)}
-    for what, be in fused.items():
-        segs = [(s.start, s.stop, s.fused) for s in be.plan(prog, x.shape)]
-        want_segs = ([(0, 8, True)] if what == "fused" else
-                     [(0, SPLIT_AT, True), (SPLIT_AT, 8, True)])
-        if segs != want_segs:
-            raise RuntimeError(f"{what}: segments {segs}, want {want_segs}")
-        pipe = P.CutiePipeline(prog, backend=be, device=DEVICE)
-        reset_launches(K, FT)
-        got = _run_steps(torch, P, pipe, x, lambda: FT.LAUNCHES["fused_trunk"],
-                         len(segs) if DEVICE == "cuda" else 0, what)
-        if any(K.LAUNCHES.values()):
-            raise RuntimeError(f"{what}: conv kernels launched "
-                               f"{K.LAUNCHES}")
-        _same_as_ref(torch, got, ref, what)
-        if what == "fused":
-            launches["fused_trunk"] = FT.LAUNCHES["fused_trunk"]
-        log(f"phase 4: backend {what!r} (segments {segs}): run, traced run "
-            "and measure identical to ref; fused_trunk launched "
-            f"{FT.LAUNCHES['fused_trunk']} times ({len(segs)} per run), "
-            "conv kernels 0")
+    log(f"phase 4: kernel 6 (image form) encoded the input "
+        f"{tuple(x.shape)} in 1 launch; ref output {want_shape}, nonzero "
+        f"share {nz:.4f}, energy {runs['ref']['m']['energy_uj']!r} "
+        "uJ/inference")
+    launches["fused_trunk"] = runs["fused"][0]
+    launches["ternary_conv2d"] = runs["cuda"][1]
+    launches["ternary_conv2d_packed"] = runs["packed"][2]
     # the codec entry points on the split's boundary trits
-    boundary = P.CutiePipeline(
-        engine.CutieProgram(prog.layers[:SPLIT_AT], prog.instance),
-        backend="fused", device=DEVICE).run(x)
+    head4 = engine.CutieProgram(prog.layers[:SPLIT_AT], prog.instance)
+    boundary = P.CutiePipeline(head4, backend="fused", device=DEVICE).run(x)
     reset_launches(TC)
     packed = ops.pack_trits(boundary.reshape(1, -1))
     trits = ops.unpack_trits(packed)
@@ -773,8 +978,52 @@ def main_path(torch, K, FT, TC, ops, engine, thermometer, compiler, P
     log(f"phase 4: pack_trits/unpack_trits on the split's boundary "
         f"{tuple(boundary.shape)}: bytes equal the trunk kernel's pack_out "
         "stream, round trip exact")
-    return {"program": prog, "x": x, "launches": launches,
+    return {"program": trunk, "compiled": prog, "x": x, "launches": launches,
             "boundary": boundary, "split_budget": split_budget}
+
+
+def compiled_graphs(compiler) -> dict:
+    """benchmarks/backend_parity.py's residual and pad_to programs and
+    tests/test_compiler.py's nonconforming graph, from seeded numpy
+    arrays: name -> (graph, compile options, input shape)."""
+    rng = np.random.default_rng(SEED + 9)
+    res = compiler.Graph(in_channels=6, in_hw=(12, 12))
+    s = res.conv(_w(rng, (3, 3, 6, 20)), _bn(rng, 20))
+    h = res.conv(_w(rng, (3, 3, 20, 20)), _bn(rng, 20))
+    res.add(h, s)
+    res.conv(_w(rng, (3, 3, 20, 10)), _bn(rng, 10))
+    pad = compiler.Graph(in_channels=5, in_hw=(8, 8))
+    pad.conv(_w(rng, (3, 3, 5, 13)), _bn(rng, 13))
+    pad.conv(_w(rng, (3, 3, 13, 13)), _bn(rng, 13))
+    odd = compiler.Graph(in_channels=6, in_hw=(12, 12))
+    odd.conv(_w(rng, (3, 3, 6, 20)), _bn(rng, 20), pool=("max", 2))
+    s = odd.conv(_w(rng, (3, 3, 20, 20)), _bn(rng, 20))
+    h = odd.conv(_w(rng, (3, 3, 20, 20)), _bn(rng, 20))
+    odd.add(h, s)
+    odd.pool("max", 2)
+    odd.dense(_w(rng, (3 * 3 * 20, 10)))
+    return {"residual": (res, {}, (BATCH, 12, 12, 6)),
+            "pad_to": (pad, {"optimize": False, "pad_to": 16},
+                       (BATCH, 8, 8, 5)),
+            "nonconforming": (odd, {}, (BATCH, 12, 12, 6))}
+
+
+def compiled_programs(torch, K, FT, P, compiler) -> None:
+    """Phase 4 (c): the residual, pad_to and nonconforming programs
+    through `CutiePipeline.compile`, on every backend against ``ref``
+    (`every_backend`), from seeded input trits."""
+    rng = np.random.default_rng(SEED + 10)
+    for name, (g, opts, shape) in compiled_graphs(compiler).items():
+        pipe = P.CutiePipeline.compile(g, backend="ref", device=DEVICE,
+                                       **opts)
+        x = torch.as_tensor(rng.integers(-1, 2, shape), dtype=torch.int8,
+                            device=DEVICE)
+        log(f"phase 4: compiled {name}: layers "
+            f"{[tuple(li.weights.shape) for li in pipe.program.layers]}, "
+            f"strides {[li.stride for li in pipe.program.layers]}, padding "
+            f"{[li.padding for li in pipe.program.layers]}, pools "
+            f"{[li.pool for li in pipe.program.layers]}")
+        every_backend(torch, K, FT, P, pipe.compile_result, x, None, name)
 
 
 def _trunk_operands(torch, layers):
@@ -1029,11 +1278,12 @@ def llm_main_path(torch, MM, TC, S, TF, DEC, C, codec, configs) -> dict:
 
 
 def program_latency(torch, P, mp, card: str, reps: int = 10) -> None:
-    """Host-clock ms per `run` and `measure` of the whole program, ending
-    in a synchronize: what a caller of the pipeline waits for; beside it
-    the host time until the call returns, before the synchronize (the
-    enqueue cost, where nothing in the call waits for the card)."""
-    prog, x = mp["program"], mp["x"]
+    """Host-clock ms per `run` and `measure` of the whole compiled
+    program (the CIFAR-10 network with its head), ending in a
+    synchronize: what a caller of the pipeline waits for; beside it the
+    host time until the call returns, before the synchronize (the enqueue
+    cost, where nothing in the call waits for the card)."""
+    prog, x = mp["compiled"], mp["x"]
     backends = {"ref": "ref", "cuda": "cuda", "packed": "packed",
                 "fused": "fused",
                 "fused-split": P.FusedBackend(l2_budget=mp["split_budget"])}
@@ -1250,9 +1500,6 @@ def time_new_kernels(torch, FT, TC, mp, llm, card: str, worst: dict,
     trunk_host_breakdown(torch, FT, x, ops_args, metas, card)
     b = mp["boundary"].reshape(1, -1)
     packed = TC.pack_trits(b)
-    levels = torch.as_tensor(np.random.default_rng(SEED + 2).integers(
-        0, 2 * THERMO_M + 1, (BATCH * CIFAR_HW * CIFAR_HW * 3,)),
-        dtype=torch.int32, device="cuda")
     log(f"phase 5: codec and thermometer kernels on {card}: ms per call "
         "(CUDA events, mean of 20 after 3 warm-up calls), device only "
         "(torch.profiler, mean of 10), wrapper host us per call (50 calls, "
@@ -1266,10 +1513,6 @@ def time_new_kernels(torch, FT, TC, mp, llm, card: str, worst: dict,
                          lambda: TC.unpack_trits_plain(packed),
                          packed.numel() * 6, tuple(packed.shape),
                          "unpack_kernel"),
-        "thermometer": (lambda: TC.thermometer(levels, THERMO_M),
-                        lambda: TC.thermometer_plain(levels, THERMO_M),
-                        levels.numel() * (4 + THERMO_M),
-                        tuple(levels.shape), "thermo_kernel"),
     }
     recs = {}
     for name, (kern, plain, nbytes, shape, part) in cases.items():
@@ -1284,9 +1527,85 @@ def time_new_kernels(torch, FT, TC, mp, llm, card: str, worst: dict,
             f"host us per call {hus!r}) plain_ms {pms!r} bound_ms "
             f"{rec['bound_ms']!r} ({nbytes} B); library_ms null: no single "
             f"PyTorch call computes it ({card})")
+    out.append(time_thermometer(torch, TC, mp, card, worst))
     for name, serve_rec in time_kv_forms(torch, TC, llm, card).items():
         recs[name]["serve"] = serve_rec
     return out
+
+
+def time_thermometer(torch, TC, mp, card: str, worst: dict) -> dict:
+    """Kernel 6 at the CIFAR input (batch 64, 32 x 32 x 3, m = 42): its
+    image form as the main path calls it (f32 pixels in, quantizer fused),
+    its levels form, and the former chain for the same work (the four
+    eager passes of quantize_to_levels, then the levels form), each with
+    caller-visible ms (CUDA events), device-only ms (torch.profiler; the
+    chain's sums all its kernels) and wrapper host us; the bound of both
+    forms (4-byte pixels or levels in, 42 bytes out each); then the image
+    form's host split."""
+    shape = (BATCH, CIFAR_HW, CIFAR_HW, 3)
+    rng = np.random.default_rng(SEED + 2)
+    img = torch.as_tensor(rng.random(shape), dtype=torch.float32,
+                          device=DEVICE)
+    levels = TC.quantize_to_levels(img, 2 * THERMO_M)
+    nbytes = img.numel() * (4 + THERMO_M)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    forms = {
+        "image": (lambda: TC.encode_image(img, THERMO_M),
+                  lambda: TC.encode_image_plain(img, THERMO_M),
+                  "thermo_kernel"),
+        "levels": (lambda: TC.thermometer(levels, THERMO_M),
+                   lambda: TC.thermometer_plain(levels, THERMO_M),
+                   "thermo_kernel"),
+        "chain": (lambda: TC.thermometer(
+                      TC.quantize_to_levels(img, 2 * THERMO_M), THERMO_M),
+                  None, ""),
+    }
+    got = {}
+    for form, (kern, plain, part) in forms.items():
+        ms = timed(torch, kern)
+        dev, hus = device_ms(torch, kern, part), host_us(torch, kern)
+        pms = None if plain is None else timed(torch, plain)
+        got[form] = dict(ms=ms, device_ms=dev, host_us_per_call=hus,
+                         plain_ms=pms)
+        log(f"phase 5: thermometer {form} "
+            + ("form " if plain is not None else "(the former chain: four "
+               "eager passes + the levels form) ")
+            + f"on {shape}: ms {ms!r} (device only {dev!r}; host us per "
+            f"call {hus!r}) plain_ms {pms!r} bound_ms {bound!r} ({nbytes} "
+            f"B); library_ms null: no single PyTorch call computes it "
+            f"({card})")
+    main = got["image"]
+    rec = _record("thermometer", mp["launches"]["thermometer"],
+                  worst["thermometer"], main["ms"], main["plain_ms"],
+                  bound, 0.0, None)
+    rec.update(shape=shape, form="encode_image", device_ms=main["device_ms"],
+               host_us_per_call=main["host_us_per_call"],
+               levels_form=dict(got["levels"], bound_ms=bound),
+               chain=got["chain"])
+    thermo_host_breakdown(torch, TC, img, card)
+    return rec
+
+
+def thermo_host_breakdown(torch, TC, img, card: str) -> None:
+    """Where kernel 6's wrapper host microseconds go, for the image form
+    at the CIFAR input: the whole wrapper, its output allocation alone,
+    and the ctypes launch alone with its arguments made beforehand."""
+    flat = img.reshape(-1)
+    r = flat.numel()
+    out = torch.empty((r, THERMO_M), dtype=torch.int8, device=img.device)
+    fn = TC._library().cutie_thermometer
+    args = (flat.data_ptr(), 1, out.data_ptr(), r, THERMO_M, 1,
+            TC._stream(img.device))
+    parts = {
+        "wrapper": lambda: TC.encode_image(img, THERMO_M),
+        "torch.empty of the output": lambda: torch.empty(
+            (r, THERMO_M), dtype=torch.int8, device=img.device),
+        "ctypes launch alone": lambda: fn(*args),
+    }
+    log(f"phase 5: encode_image host us per call at {tuple(img.shape)}: "
+        + "; ".join(f"{what} {host_us(torch, f)!r}"
+                    for what, f in parts.items())
+        + f" (host clock, 50 calls, no synchronize; {card})")
 
 
 def time_kv_forms(torch, TC, llm, card: str) -> dict:
@@ -1681,7 +2000,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch.nn.functional as F
 
     from repro_torch import compiler, configs
@@ -1725,6 +2043,7 @@ def main() -> int:
     compare_new_kernels(torch, FT, TC, worst)
     compare_matmul_kernels(torch, MM, worst)
     mp = main_path(torch, K, FT, TC, ops, engine, thermometer, compiler, P)
+    compiled_programs(torch, K, FT, P, compiler)
     llm = llm_main_path(torch, MM, TC, S, TF, DEC, C, codec, configs)
     program_latency(torch, P, mp, card)
     kernels, conv_lib = time_kernels(torch, F, K, codec, engine, mp, card,

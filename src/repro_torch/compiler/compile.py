@@ -1,0 +1,143 @@
+"""The compiler's pass pipeline: Graph -> legalize -> lower -> optimize ->
+CutieProgram.
+
+    from repro_torch import compiler
+
+    g = compiler.Graph(in_channels=6, in_hw=(12, 12))
+    g.conv(w0, bn0, pool=("max", 2))
+    g.dense(w_head)
+    result = compiler.compile_graph(g)          # CompileResult, on the card
+    print(result.cost_table())                  # per-pass predicted cost
+    pipe = result.pipeline(backend="fused")
+
+(or in one step: ``CutiePipeline.compile(g, backend="fused")``.)
+
+`compile_graph` runs the fixed legalization pipeline (ternarize, pool fusion,
+dense lowering, residual lowering), lowers the conv chain through
+``engine.compile_layer`` on ``device`` (``None`` is the card, as for
+every entry point of the port), then, unless ``optimize=False``, the
+exact sparsity passes (threshold constant folding, dead-channel
+elimination) and the optional TCU-width channel padding.  After every
+stage it snapshots the static cost model (`repro_torch.compiler.report`),
+so ``CompileResult.cost_table()`` shows ops, sparsity, predicted energy
+and DRAM traffic before and after each pass.  The reference is
+`repro.compiler.compile`: the same graph gives the same program.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.compiler import legalize, optimize, report
+from repro_torch.compiler.graph import Graph
+from repro_torch.core import engine
+from repro_torch.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class CompilerOptions:
+    optimize: bool = True          # run exact sparsity passes
+    pad_to: int | None = None      # zero-pad internal edges to this width
+    batch: int = 1                 # batch dim used for the cost report
+    energy_params: object = None   # energy.model.EnergyParams | None
+
+
+@dataclasses.dataclass
+class CompileResult:
+    program: engine.CutieProgram
+    graph: Graph                   # final legalized (linear) graph
+    reports: list[dict]            # [{"pass": name, "cost": {...}}, ...]
+    removed_channels: list[int]    # per-layer dead channels eliminated
+    folded_channels: int           # channels proven constant
+
+    @property
+    def in_shape(self) -> tuple:
+        h, w = self.graph.in_hw
+        return (1, h, w, self.graph.in_channels)
+
+    def cost_table(self) -> str:
+        return report.cost_table(self.reports)
+
+    @property
+    def ops_reduction(self) -> float:
+        """Fractional op-count reduction from the optimization passes
+        (excluding TCU-width padding, which adds ops on purpose)."""
+        costs = {r["pass"]: r["cost"] for r in self.reports}
+        base = costs["lowered"]["ops"]
+        opt = costs.get("dead-channel-elim", costs["lowered"])["ops"]
+        return 1.0 - opt / base if base else 0.0
+
+    def pipeline(self, backend=None, *, device=None):
+        """Bind the compiled program to an execution backend on
+        ``device`` (the card by default), keeping this result attached as
+        ``pipe.compile_result``."""
+        from repro_torch.pipeline import CutiePipeline
+
+        pipe = CutiePipeline(self.program, backend=backend, device=device)
+        pipe.compile_result = self
+        return pipe
+
+    def serve(self, name: str = "default", *, engine=None,
+              scheduler="fcfs", backend=None, **executor_options):
+        """Not ported yet: registering a compiled CNN with a serving
+        engine needs its program executor."""
+        raise NotImplementedError(
+            "CompileResult.serve is not ported yet: see ROADMAP.md §1 item "
+            "7 (CNN serving: a torch ProgramExecutor for CutieEngine)")
+
+
+def lower_graph(graph: Graph,
+                instance: engine.CutieInstance = engine.GF22_SCM, *,
+                device=None) -> tuple[engine.CutieProgram, Graph]:
+    """Legalization half of the compiler: Graph -> (program, linear
+    graph), the program's tensors on ``device``."""
+    dev = resolve_device(device)
+    graph.infer_shapes()                       # early structural validation
+    g = legalize.ternarize_weights(graph)
+    g = legalize.fuse_pooling(g)
+    g = legalize.lower_dense(g, instance)
+    g = legalize.lower_residual(g)
+    order = legalize.linearize(g)
+    instrs = []
+    for name in order:
+        node = g.nodes[name]
+        instrs.append(engine.compile_layer(
+            node.weights, node.bn, stride=node.stride, padding=node.padding,
+            pool=node.pool, delta_ratio=node.delta_ratio, device=dev))
+    return engine.CutieProgram(instrs, instance), g
+
+
+def compile_graph(graph: Graph,
+                  instance: engine.CutieInstance = engine.GF22_SCM,
+                  options: CompilerOptions | None = None, *,
+                  device=None, **kwargs) -> CompileResult:
+    """Compile a layer graph into a validated, optimized CutieProgram on
+    ``device``."""
+    if options is not None and kwargs:
+        raise TypeError(f"pass compiler options either as options= or as "
+                        f"keywords, not both (got options= plus "
+                        f"{sorted(kwargs)})")
+    opts = options or CompilerOptions(**kwargs)
+    program, g = lower_graph(graph, instance, device=device)
+    h, w = g.in_hw
+    in_shape = (opts.batch, h, w, g.in_channels)
+    program.validate(in_shape=in_shape)
+
+    def snap(name, prog):
+        return {"pass": name,
+                "cost": report.program_cost(prog, in_shape,
+                                            opts.energy_params)}
+
+    reports = [snap("lowered", program)]
+    removed, folded = [0] * len(program.layers), 0
+    if opts.optimize:
+        program, folded = optimize.fold_constant_thresholds(program)
+        reports.append(snap("fold-thresholds", program))
+        program, removed = optimize.eliminate_dead_channels(program)
+        reports.append(snap("dead-channel-elim", program))
+    if opts.pad_to is not None:
+        program = optimize.pad_program_channels(program, opts.pad_to)
+        reports.append(snap("pad-channels", program))
+    program.validate(in_shape=in_shape)
+    return CompileResult(program=program, graph=g, reports=reports,
+                         removed_channels=removed, folded_channels=folded)

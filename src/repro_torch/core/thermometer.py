@@ -3,7 +3,9 @@
 The binary thermometer maps x in [0, M] to f(x)_i = +1 if i < x else -1;
 the ternary one maps x in [0, 2M] to g(x)_i = sgn(x-M) * (f(|x-M|)_i + 1)/2,
 which encodes twice the range per entry and introduces zeros.  On a CUDA
-tensor both run the thermometer kernel (`repro_torch.kernels.trit_codec`).
+tensor all of them run the thermometer kernel
+(`repro_torch.kernels.trit_codec`), the image encodings in its image form,
+quantizer included.
 """
 
 from __future__ import annotations
@@ -23,15 +25,18 @@ def ternary_thermometer(x: torch.Tensor, m: int) -> torch.Tensor:
     return _tc.thermometer(x, m, ternary=True)
 
 
-def quantize_to_levels(x: torch.Tensor, levels: int) -> torch.Tensor:
-    """Uniformly quantize x in [0,1] to integers [0, levels] (half to even)."""
-    return torch.clamp(torch.round(x * levels), 0, levels).to(torch.int32)
+quantize_to_levels = _tc.quantize_to_levels
 
 
 def encode_image_ternary(img01: torch.Tensor, m: int) -> torch.Tensor:
     """Encode an image in [0,1]^(..., H, W, C) to trits (..., H, W, C*M).
 
-    The paper's CIFAR-10 setup: C=3, M=42 -> 126 input channels.
+    The paper's CIFAR-10 setup: C=3, M=42 -> 126 input channels.  On the
+    card one launch of the thermometer kernel's image form.
     """
-    t = ternary_thermometer(quantize_to_levels(img01, 2 * m), m)
-    return t.reshape(*t.shape[:-2], t.shape[-2] * t.shape[-1])
+    return _tc.encode_image(img01, m, ternary=True)
+
+
+def encode_image_binary(img01: torch.Tensor, m: int) -> torch.Tensor:
+    """Binary-thermometer image encoding to {-1,+1}^(..., H, W, C*M)."""
+    return _tc.encode_image(img01, m, ternary=False)

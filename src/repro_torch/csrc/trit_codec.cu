@@ -6,7 +6,8 @@
 //                                           store form cutie_ternarize_pack
 //   unpack_trits_pallas (_unpack_kernel) -> cutie_unpack_trits, and its KV
 //                                           store form cutie_unpack_dequant
-//   thermometer_pallas  (_thermo_kernel) -> cutie_thermometer
+//   thermometer_pallas  (_thermo_kernel) -> cutie_thermometer, and its
+//                                           image form (image = 1)
 // pack:   (R, W) int8 trits -> (R, ceil(W / 5)) uint8, each row's tail
 //         padded with trit 0 (digit 1), digits little-endian;
 // unpack: (n,) uint8 -> (5n,) int8 trits (rows are contiguous, so the
@@ -20,7 +21,10 @@
 //         bf16_rn((float)trit * scale) for the first n <= 5G trits of a
 //         row: the KV store's _decode;
 // thermometer: (R,) int32 levels -> (R, m) int8, ternary
-//         sign(x - m) * [i < |x - m|] or binary +1 if i < x else -1.
+//         sign(x - m) * [i < |x - m|] or binary +1 if i < x else -1;
+//         its image form takes (R,) f32 pixels and quantizes each to
+//         clamp(rint(x * L), 0, L) levels first, L = 2m ternary or m
+//         binary: core.thermometer's encode_image_ternary / _binary.
 //
 // Bound on this card: bytes, far below the 295 operations per byte where
 // the card turns compute-bound.  The KV store's decode of one decode step
@@ -49,7 +53,16 @@
 //   values; ternarize gives each row a warp, which reads the row twice
 //   (the max by shuffles, then the compare; the second read hits L1),
 //   stages 160 digits at a time in shared memory and writes a byte a lane.
-// The thermometer keeps its first form: one thread per output byte.
+// * thermometer: the output is one flat stream of R * m bytes (8.26 MB
+//   for the CIFAR input, 2.5 us at 3.35 TB/s) from 4 bytes a row; a
+//   thread writes 16 bytes in one 16-byte store, finds the piece's first
+//   row with one division (32-bit below 2^31 bytes) and walks rows by
+//   subtraction, reading a row's level once per piece through __ldg and
+//   setting its run of on bytes with two 64-bit masks: a select per byte
+//   costs about twice the instructions, and at 16 bytes a thread the
+//   kernel is bound by instruction throughput near its byte bound.
+//   Its image form quantizes the f32 pixel in the same pass, so the input
+//   encoding is one launch instead of four eager passes and the kernel.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -309,29 +322,102 @@ __global__ void __launch_bounds__(kDequantThreads)
   }
 }
 
-__global__ void thermo_kernel(const int* x, int8_t* out, long long rows,
-                              int m, int ternary) {
-  const long long n = rows * m;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    const int v = x[i / m], j = (int)(i % m);
-    int8_t y;
-    if (ternary) {
-      const int d = v - m;
-      const int s = (d > 0) - (d < 0);
-      y = (int8_t)(j < abs(d) ? s : 0);
-    } else {
-      y = (int8_t)(j < v ? 1 : -1);
+// A row of the thermometer, from its level: column j holds off ^ pat
+// where j < a, else off, with off = 0 (ternary) or 0xFF (binary, -1).
+// Ternary: a = |v - m|, pat = sign(v - m) as a byte; binary: a = v,
+// pat = 0x01 ^ 0xFF (the plain version's arithmetic, int32 wrap-around
+// included).
+struct ThermoRow {
+  int a;
+  uint32_t pat;
+};
+
+__device__ __forceinline__ ThermoRow thermo_row(int v, int m, int ternary) {
+  if (!ternary) return {v, 0xFEu};
+  const int d = (int)((unsigned)v - (unsigned)m);
+  return {d < 0 ? (int)(0u - (unsigned)d) : d,
+          (uint32_t)(uint8_t)(int8_t)((d > 0) - (d < 0))};
+}
+
+// Bytes [0, n) of a 16-byte piece set, n in [0, 16], as two 64-bit halves.
+__device__ __forceinline__ void low_bytes(int n, uint64_t& lo, uint64_t& hi) {
+  lo = n >= 8 ? ~0ull : (1ull << (8 * n)) - 1ull;
+  hi = n <= 8 ? 0ull : (n >= 16 ? ~0ull : (1ull << (8 * (n - 8))) - 1ull);
+}
+
+// Row r's level: an int32 level, or (kImage) the f32 pixel quantized as
+// the plain version's quantize_to_levels: clamp(rint(x * L), 0, L) with
+// one f32 product (torch's x * L), half to even (torch.round) and NaN ->
+// 0 (torch's NaN cast to int32 on the card).
+template <bool kImage>
+__device__ __forceinline__ int thermo_level(const void* x, long long r,
+                                            int levels) {
+  if (!kImage) return __ldg(static_cast<const int*>(x) + r);
+  const float v = __ldg(static_cast<const float*>(x) + r);
+  if (v != v) return 0;
+  const float q = rintf(__fmul_rn(v, (float)levels));
+  return (int)fminf(fmaxf(q, 0.f), (float)levels);
+}
+
+// thermometer: the (rows * m) output bytes as one flat stream, 16 bytes a
+// thread in one 16-byte store (out 16-byte aligned), then a per-byte
+// tail.  A piece finds its first row with one division of type Idx
+// (32-bit where rows * m < 2^31), then takes its rows in turn: each row's
+// bytes in the piece, [s, e), start with a run [s, s + c) of its on
+// pattern, set with two byte masks, not byte by byte.
+template <typename Idx, bool kImage>
+__global__ void __launch_bounds__(kThreads)
+    thermo_kernel(const void* x, int8_t* out, Idx total, int m, int ternary,
+                  int levels) {
+  const Idx gtid = blockIdx.x * (Idx)blockDim.x + threadIdx.x;
+  const Idx gstride = (Idx)gridDim.x * blockDim.x;
+  const Idx nv = total >> 4;
+  const uint64_t off = ternary ? 0ull : ~0ull;
+  for (Idx p = gtid; p < nv; p += gstride) {
+    Idx r = (p << 4) / (Idx)m;
+    int j = (int)((p << 4) - r * (Idx)m);
+    uint64_t lo = 0ull, hi = 0ull;
+    for (int s = 0;;) {
+      const ThermoRow t =
+          thermo_row(thermo_level<kImage>(x, r, levels), m, ternary);
+      const int e = min(16, s + m - j);
+      const int c = min(max(max(t.a, 0) - j, 0), e - s);  // on bytes
+      uint64_t alo, ahi, blo, bhi;
+      low_bytes(s + c, alo, ahi);
+      low_bytes(s, blo, bhi);
+      const uint64_t pat = t.pat * 0x0101010101010101ull;
+      lo |= (alo ^ blo) & pat;
+      hi |= (ahi ^ bhi) & pat;
+      if (e == 16) break;
+      s = e;
+      j = 0;
+      ++r;
     }
-    out[i] = y;
+    lo ^= off;
+    hi ^= off;
+    reinterpret_cast<uint4*>(out)[p] =
+        make_uint4((uint32_t)lo, (uint32_t)(lo >> 32), (uint32_t)hi,
+                   (uint32_t)(hi >> 32));
+  }
+  for (Idx i = (nv << 4) + gtid; i < total; i += gstride) {
+    const Idx r = i / (Idx)m;
+    const int j = (int)(i - r * (Idx)m);
+    const ThermoRow t =
+        thermo_row(thermo_level<kImage>(x, r, levels), m, ternary);
+    out[i] = (int8_t)(uint8_t)(off ^ (j < t.a ? t.pat : 0u));
   }
 }
 
-constexpr int kThermoThreads = 256;
-
-int thermo_blocks(long long n) {
-  const long long b = (n + kThermoThreads - 1) / kThermoThreads;
-  return (int)(b < 1 ? 1 : (b > 65536 ? 65536 : b));
+template <typename Idx>
+void launch_thermo(int blocks, cudaStream_t s, const void* x, int image,
+                   int8_t* out, Idx total, int m, int ternary) {
+  const int levels = ternary ? 2 * m : m;
+  if (image)
+    thermo_kernel<Idx, true><<<blocks, kThreads, 0, s>>>(x, out, total, m,
+                                                         ternary, levels);
+  else
+    thermo_kernel<Idx, false><<<blocks, kThreads, 0, s>>>(x, out, total, m,
+                                                          ternary, levels);
 }
 
 }  // namespace
@@ -410,12 +496,22 @@ int cutie_unpack_dequant(const void* b, const void* scale, void* out,
   return (int)cudaGetLastError();
 }
 
-int cutie_thermometer(const void* x, void* out, long long rows, int m,
-                      int ternary, void* stream) {
-  thermo_kernel<<<thermo_blocks(rows * m), kThermoThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(x), static_cast<int8_t*>(out), rows, m,
-      ternary);
+// (rows,) int32 levels (image = 0) or f32 pixels in [0, 1] (image = 1,
+// quantized to 2m levels for ternary, m for binary) -> (rows, m) int8.
+int cutie_thermometer(const void* x, int image, void* out, long long rows,
+                      int m, int ternary, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long total = rows * m;
+  int blocks = 0;
+  cudaError_t err = persistent_blocks(total / 16 + 1, kThreads, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  int8_t* o = static_cast<int8_t*>(out);
+  if (total < (1ll << 31))
+    launch_thermo<unsigned>(blocks, s, x, image, o, (unsigned)total, m,
+                            ternary);
+  else
+    launch_thermo<unsigned long long>(blocks, s, x, image, o,
+                                      (unsigned long long)total, m, ternary);
   return (int)cudaGetLastError();
 }
 

@@ -17,13 +17,16 @@ device twins.
   unpack kernel's KV form;
 * :func:`thermometer` - int levels (...) -> (..., m) int8: ternary
   ``sign(x - m) * [i < |x - m|]`` or binary ``+1 if i < x else -1``
-  (paper §III-D).
+  (paper §III-D);
+* :func:`encode_image` - the input encoding: an f32 image (..., C) in
+  [0, 1] -> (..., C*m) trits, :func:`quantize_to_levels` then the
+  thermometer, in one launch of the thermometer kernel's image form.
 
 On a CUDA tensor each wrapper launches its kernel from
 `csrc/trit_codec.cu` or raises; on a CPU tensor it runs the plain version
 beside it.  ``LAUNCHES`` counts kernel launches per kernel and nothing
 else: the KV forms count as the pack and unpack kernels they are forms
-of.
+of, the image form as the thermometer.
 """
 
 from __future__ import annotations
@@ -121,6 +124,20 @@ def thermometer_plain(x: torch.Tensor, m: int, *,
     return torch.where(on, torch.sign(d).to(torch.int8)[..., None], 0 * one)
 
 
+def quantize_to_levels(x: torch.Tensor, levels: int) -> torch.Tensor:
+    """Uniformly quantize x in [0,1] to integers [0, levels] (half to
+    even).  A NaN goes to int32 as the device casts it: 0 on the card."""
+    return torch.clamp(torch.round(x * levels), 0, levels).to(torch.int32)
+
+
+def encode_image_plain(img: torch.Tensor, m: int, *,
+                       ternary: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of :func:`encode_image`."""
+    levels = quantize_to_levels(img, 2 * m if ternary else m)
+    t = thermometer_plain(levels, m, ternary=ternary)
+    return t.reshape(*t.shape[:-2], t.shape[-2] * m)
+
+
 # -- kernels -----------------------------------------------------------------
 
 
@@ -134,7 +151,8 @@ def _library() -> ctypes.CDLL:
                           [p, i32, p, p, i64, i32, p]),
                          (lib.cutie_unpack_dequant,
                           [p, p, p, i64, i32, i32, p]),
-                         (lib.cutie_thermometer, [p, p, i64, i32, i32, p])):
+                         (lib.cutie_thermometer,
+                          [p, i32, p, i64, i32, i32, p])):
             fn.argtypes, fn.restype = args, ctypes.c_int
     return lib
 
@@ -281,6 +299,20 @@ def unpack_dequant(b: torch.Tensor, scale: torch.Tensor,
     return out
 
 
+def _thermo_launch(src: torch.Tensor, image: bool, m: int, ternary: bool,
+                   what: str) -> torch.Tensor:
+    """(R,) contiguous levels or pixels on the card -> (R, m) int8."""
+    out = torch.empty((src.numel(), m), dtype=torch.int8, device=src.device)
+    if out.numel():
+        lib = _library()
+        err = lib.cutie_thermometer(src.data_ptr(), int(image),
+                                    out.data_ptr(), src.numel(), m,
+                                    int(ternary), _stream(src.device))
+        _build.check(lib, err, what)
+        LAUNCHES["thermometer"] += 1
+    return out
+
+
 def thermometer(x: torch.Tensor, m: int, *,
                 ternary: bool = True) -> torch.Tensor:
     """Integer levels (...) -> (..., m) thermometer trits (int8).
@@ -289,16 +321,33 @@ def thermometer(x: torch.Tensor, m: int, *,
     """
     if m < 1:
         raise ValueError(f"thermometer width m must be >= 1, got {m}")
-    dev = x.device
-    if not _card(dev, "thermometer"):
+    if not _card(x.device, "thermometer"):
         return thermometer_plain(x, m, ternary=ternary)
     flat = x.to(torch.int32).contiguous().reshape(-1)
-    out = torch.empty((flat.numel(), m), dtype=torch.int8, device=dev)
-    if out.numel():
-        lib = _library()
-        err = lib.cutie_thermometer(flat.data_ptr(), out.data_ptr(),
-                                    flat.numel(), m, int(ternary),
-                                    _stream(dev))
-        _build.check(lib, err, "thermometer")
-        LAUNCHES["thermometer"] += 1
-    return out.reshape(*x.shape, m)
+    return _thermo_launch(flat, False, m, ternary,
+                          "thermometer").reshape(*x.shape, m)
+
+
+def encode_image(img: torch.Tensor, m: int, *,
+                 ternary: bool = True) -> torch.Tensor:
+    """An image in [0, 1] (..., C) -> (..., C*m) thermometer trits (int8):
+    each value quantized to ``clamp(round(x * L), 0, L)`` levels (L = 2m
+    ternary, m binary; half to even), then the thermometer.  On the card
+    one launch of the thermometer kernel's image form, which takes f32.
+
+    `repro.core.thermometer.encode_image_ternary` / `_binary`, a form of
+    `repro.kernels.trit_codec.thermometer_pallas`.
+    """
+    if m < 1:
+        raise ValueError(f"thermometer width m must be >= 1, got {m}")
+    if img.dim() < 1:
+        raise ValueError("encode_image takes an (..., C) image, got a "
+                         "scalar")
+    if not _card(img.device, "encode_image"):
+        return encode_image_plain(img, m, ternary=ternary)
+    if img.dtype != torch.float32:
+        raise ValueError(f"encode_image takes an f32 image on the card, "
+                         f"got {img.dtype}")
+    out = _thermo_launch(img.contiguous().reshape(-1), True, m, ternary,
+                         "encode_image")
+    return out.reshape(*img.shape[:-1], img.shape[-1] * m)

@@ -11,6 +11,7 @@ PyTorch runs eagerly, so the loop takes the place of the reference's
 current stream.
 
     pipe = CutiePipeline(prog)                        # cuda backend, card
+    pipe = CutiePipeline.compile(graph, backend="fused")   # from a Graph
     y = pipe.run(x)                                   # trits out
     y, rows = pipe.run(x, tracer=SwitchingTracer())   # + per-layer stats
     energy = pipe.measure(x)                          # priced inference
@@ -73,16 +74,41 @@ class CutiePipeline:
         self._programs: dict[tuple, object] = {}   # built program fns
 
     @classmethod
-    def compile(cls, source, **kwargs) -> "CutiePipeline":
-        """Not ported yet: the graph compiler comes with its own slice.
+    def compile(cls, source, *,
+                instance: engine.CutieInstance = engine.GF22_SCM,
+                backend: str | B.Backend | None = None, device=None,
+                mesh=None, **compiler_options) -> "CutiePipeline":
+        """Compile a network straight into a pipeline on ``device``.
 
-        Until then, build layers with `engine.compile_layer` and pass a
-        `CutieProgram` to the constructor.
+        ``source`` is a :class:`repro_torch.compiler.Graph`, legalized,
+        optimized and lowered by `repro_torch.compiler` with the per-pass
+        cost report kept on ``pipeline.compile_result``, or an iterable of
+        ``(w_float, bn_dict[, opts])`` tuples where ``opts`` are keyword
+        arguments of :func:`repro_torch.core.engine.compile_layer`.
+        ``compiler_options`` (e.g. ``optimize=False``, ``pad_to=128``)
+        apply to a graph only.
         """
-        raise NotImplementedError(
-            "CutiePipeline.compile is not ported yet: see ROADMAP.md, "
-            "'Modules still to port', item 5 (compiler); build a "
-            "CutieProgram with engine.compile_layer instead")
+        from repro_torch import compiler
+
+        if isinstance(source, compiler.Graph):
+            result = compiler.compile_graph(source, instance=instance,
+                                            device=device,
+                                            **compiler_options)
+            pipe = cls(result.program, backend=backend, device=device,
+                       mesh=mesh)
+            pipe.compile_result = result
+            return pipe
+        if compiler_options:
+            raise TypeError("compiler options "
+                            f"{sorted(compiler_options)} require a "
+                            "repro_torch.compiler.Graph source")
+        instrs = []
+        for spec in source:
+            w, bn, *rest = spec
+            instrs.append(engine.compile_layer(
+                w, bn, device=device, **(rest[0] if rest else {})))
+        return cls(engine.CutieProgram(instrs, instance), backend=backend,
+                   device=device, mesh=mesh)
 
     # -- introspection ------------------------------------------------------
 

@@ -2,6 +2,8 @@
 
 `repro_torch.kernels.ops.pack_trits` / `unpack_trits` / `thermometer` on
 CPU tensors run the plain versions of the codec and thermometer kernels;
+the thermometer's image form (`encode_image`, the input quantizer fused
+in) is held against the reference's `core.thermometer.encode_image_*`;
 they are held bit for bit against `repro.kernels.ops` with
 ``backend="pallas_interpret"`` (the Pallas kernels, interpreted) and
 ``backend="ref"`` (the jnp oracles).  The codec kernels' KV store forms
@@ -11,11 +13,13 @@ against the same plain versions on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core import thermometer as jthermo
 from repro.kernels import ops as jops
 from repro.serving.blocks import KVPagedStore as JStore
 from repro_torch.core import codec, thermometer
@@ -98,6 +102,38 @@ def test_thermometer_keeps_leading_shape():
     assert torch.equal(got.reshape(-1, 6), ops.thermometer(x.reshape(-1), 6))
 
 
+def _image(rng, m, ternary, shape=(3, 5, 7, 3)):
+    """f32 pixels with exact ties at k + 0.5 levels, both ends, values
+    below 0 and above 1, -0.0 and +-inf."""
+    lv = 2 * m if ternary else m
+    img = rng.random(shape).astype(np.float32)
+    flat = img.reshape(-1)
+    k = rng.integers(0, lv, 24)
+    flat[:24] = ((k + 0.5) / lv).astype(np.float32)     # ties, half to even
+    flat[24:34] = [0.0, 1.0, -0.0, -0.3, 1.7, -5.0, 9.0, np.inf, -np.inf,
+                   0.5 / lv]
+    return img
+
+
+@pytest.mark.parametrize("ternary", [True, False], ids=["ternary", "binary"])
+@pytest.mark.parametrize("m", list(range(1, 18)) + [42])
+def test_encode_image_matches_reference(m, ternary):
+    img = _image(np.random.default_rng(m), m, ternary)
+    # jitted whole (one XLA compile per m, not one per op and shape): the
+    # same elementwise f32 product and rounding, then integers
+    jfn = jax.jit(jthermo.encode_image_ternary if ternary
+                  else jthermo.encode_image_binary, static_argnums=1)
+    want = np.asarray(jfn(jnp.asarray(img), m))
+    got = tc.encode_image_plain(torch.as_tensor(img), m, ternary=ternary)
+    assert got.dtype == torch.int8 and got.shape == (3, 5, 7, 3 * m)
+    assert np.array_equal(got.numpy(), want)
+    fn = (thermometer.encode_image_ternary if ternary
+          else thermometer.encode_image_binary)
+    before = dict(tc.LAUNCHES)
+    assert np.array_equal(fn(torch.as_tensor(img), m).numpy(), want)
+    assert tc.LAUNCHES == before                  # the plain version
+
+
 def test_entry_points_refuse_bad_operands():
     with pytest.raises(ValueError, match="unknown backend"):
         ops.pack_trits(torch.zeros((1, 5), dtype=torch.int8),
@@ -108,6 +144,10 @@ def test_entry_points_refuse_bad_operands():
         ops.unpack_trits(torch.zeros(5, dtype=torch.uint8))
     with pytest.raises(ValueError, match="m must be"):
         ops.thermometer(torch.zeros(3, dtype=torch.int32), 0)
+    with pytest.raises(ValueError, match="m must be"):
+        tc.encode_image(torch.zeros((2, 3)), 0)
+    with pytest.raises(ValueError, match="scalar"):
+        tc.encode_image(torch.zeros(()), 4)
     with pytest.raises(ValueError, match="multiple of 5"):
         ops.pack_trits(torch.zeros((1, 6), dtype=torch.int8), backend="ref")
 

@@ -445,6 +445,70 @@ def test_thermometer_kernel_matches_plain_on_card(cuda, ternary):
     assert torch.equal(got, TC.thermometer_plain(x, m, ternary=ternary))
 
 
+THERMO_M = list(range(1, 18)) + [42]
+
+
+@pytest.mark.parametrize("ternary", [True, False])
+def test_thermometer_kernel_every_m_on_card(cuda, ternary):
+    """Kernel 6 on 16-byte pieces that straddle rows (every m from 1 to
+    17, and 42), lengths that are not a multiple of 16, out-of-range and
+    negative levels, and an input view at an odd offset."""
+    rng = np.random.default_rng(27)
+    for m in THERMO_M:
+        lv = rng.integers(-3, 2 * m + 4, 1003).astype(np.int32)
+        x = torch.as_tensor(lv, device=cuda)
+        for v in (x, x[1:], x[5:5 + 7 * 13].reshape(7, 13)):
+            got = TC.thermometer(v, m, ternary=ternary)
+            torch.cuda.synchronize()
+            assert torch.equal(got, TC.thermometer_plain(v, m,
+                                                         ternary=ternary)), m
+
+
+def _image(rng, m, ternary, n):
+    lv = 2 * m if ternary else m
+    img = rng.random(n).astype(np.float32)
+    k = rng.integers(0, lv, 40)
+    img[:40] = ((k + 0.5) / lv).astype(np.float32)      # ties, half to even
+    img[40:52] = [0.0, 1.0, -0.0, -0.3, 1.7, -5.0, 9.0, np.inf, -np.inf,
+                  np.nan, -np.nan, 0.5 / lv]
+    return img
+
+
+@pytest.mark.parametrize("ternary", [True, False])
+def test_encode_image_kernel_matches_plain_on_card(cuda, ternary):
+    """Kernel 6's image form, quantizer fused in, against its plain
+    version on the card bit for bit: ties at k + 0.5 levels, values below
+    0 and above 1, +-inf and NaN (the plain version's NaN is torch's cast
+    on the card), every m from 1 to 17 and 42, odd lengths and an
+    unaligned view; one launch a call, also through `core.thermometer`."""
+    from repro_torch.core import thermometer
+
+    rng = np.random.default_rng(28)
+    for m in THERMO_M:
+        img = torch.as_tensor(_image(rng, m, ternary, 3 * 331),
+                              device=cuda)
+        for v in (img.reshape(331, 3), img[1:], img[3:3 + 5 * 6 * 3]
+                  .reshape(5, 6, 3)):
+            before = TC.LAUNCHES["thermometer"]
+            got = TC.encode_image(v, m, ternary=ternary)
+            torch.cuda.synchronize()
+            assert TC.LAUNCHES["thermometer"] == before + 1
+            assert got.shape == (*v.shape[:-1], v.shape[-1] * m)
+            assert torch.equal(got, TC.encode_image_plain(
+                v, m, ternary=ternary)), m
+    fn = (thermometer.encode_image_ternary if ternary
+          else thermometer.encode_image_binary)
+    x = torch.as_tensor(rng.random((4, 32, 32, 3)), dtype=torch.float32,
+                        device=cuda)
+    before = TC.LAUNCHES["thermometer"]
+    got = fn(x, 42)
+    torch.cuda.synchronize()
+    assert TC.LAUNCHES["thermometer"] == before + 1
+    assert torch.equal(got, TC.encode_image_plain(x, 42, ternary=ternary))
+    with pytest.raises(ValueError, match="f32"):
+        TC.encode_image(x.double(), 42)
+
+
 def test_trit_kv_store_on_card_matches_cpu(cuda):
     """A trit KV store's pages after `write_rows`, and the rows `gather`
     decodes from them, equal the same store's on the CPU bit for bit: the

@@ -423,15 +423,18 @@ def _trunk_plan_cases():
     for i, spec in enumerate(_SMOKE.trunk_cases()[1:]):
         cases[f"smoke-{i + 1}"] = (spec["n"], *spec["hw"], spec["cin"],
                                    spec["c"], _SMOKE.trunk_metas(spec))
+        KSIZE[f"smoke-{i + 1}"] = spec.get("k", 3)
     return cases
 
 
+KSIZE: dict = {}                 # a case's kernel size where it is not 3
 TRUNK_PLAN_CASES = _trunk_plan_cases()
 
 
 def _trunk_plan(name):
     n, h, w, cin, c, metas = TRUNK_PLAN_CASES[name]
-    return FT.trunk_plan(n, h, w, cin, c, max(cin, c), 3, metas, cin)
+    return FT.trunk_plan(n, h, w, cin, c, max(cin, c), KSIZE.get(name, 3),
+                         metas, cin)
 
 
 @pytest.mark.parametrize("name", sorted(TRUNK_PLAN_CASES))
@@ -441,7 +444,7 @@ def test_trunk_plan_tiles_cover_each_output_once(name):
     groups after, with q = b % gpb."""
     plan = _trunk_plan(name)
     n, h, w, cin, c, metas = TRUNK_PLAN_CASES[name]
-    shapes = FT.trunk_shapes((h, w), 3, metas)
+    shapes = FT.trunk_shapes((h, w), KSIZE.get(name, 3), metas)
     for l, g in enumerate(plan["layers"]):
         win = g["win"]
         assert (g["h"], g["w"]) == shapes[l]
@@ -475,7 +478,8 @@ def test_trunk_plan_one_block_size_and_a_co_resident_grid(name):
     assert plan["smem"] == max(g["smem"] for g in rows) <= 232448
     for g in rows:                          # each layer's own layout
         assert g["smem"] == K._layout(
-            cin=g["cin"], k=3, sh=g["sh"], sw=g["sw"], th=g["th"],
+            cin=g["cin"], k=KSIZE.get(name, 3), sh=g["sh"], sw=g["sw"],
+            th=g["th"],
             tw=g["tw"], ns=g["ns"], groups=g["groups"])["smem"]
     slots = K.SM_COUNT * K.blocks_per_sm(plan["smem"], plan["groups"])
     assert 1 <= plan["grid"] <= slots

@@ -223,9 +223,10 @@ PHASE3 = _phase3_cases()
 
 
 def _plan(c):
-    return K.conv_plan(c["n"], c["h"], c["w"], c["cin"], c["cout"], 3,
-                       c.get("stride", (1, 1)), c.get("padding", True),
-                       c.get("pool"), fuse=c.get("fuse", True))
+    return K.conv_plan(c["n"], c["h"], c["w"], c["cin"], c["cout"],
+                       c.get("k", 3), c.get("stride", (1, 1)),
+                       c.get("padding", True), c.get("pool"),
+                       fuse=c.get("fuse", True))
 
 
 @pytest.mark.parametrize("i", range(len(PHASE3)))
@@ -235,8 +236,9 @@ def test_conv_plan_tiles_cover_each_output_once(i):
     win = g["win"]
     assert g["th"] % win == 0 and g["tw"] % win == 0
     assert g["smem"] <= 232448
-    assert g["smem"] == K._layout(cin=c["cin"], k=3, sh=g["sh"], sw=g["sw"],
-                                  th=g["th"], tw=g["tw"], ns=g["ns"],
+    assert g["smem"] == K._layout(cin=c["cin"], k=c.get("k", 3),
+                                  sh=g["sh"], sw=g["sw"], th=g["th"],
+                                  tw=g["tw"], ns=g["ns"],
                                   groups=g["groups"])["smem"]
     # the blocks' walk (csrc/ternary_conv2d.cu): block b owns slice
     # b // gpb; its pipeline r takes tiles q, q + step, ... with q =
