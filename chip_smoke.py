@@ -71,7 +71,26 @@ Phases, each of which fails the script (no result line) when it fails:
    with ``kv_codec="trit"`` (kernels 4 and 5 in their KV forms, one launch
    per K or V write and gather) must give the same tokens as with the
    codec's plain versions, and their agreement with the raw serve is
-   reported;
+   reported.
+   Then the third main path, train -> compile -> serve (`cnn_main_path`):
+   `train.cutie_qat.run` trains the full-width CIFAR-10 QAT network
+   (width 128, thermometer m 42, batch 64) for ``QAT_STEPS`` steps of INQ
+   Magnitude-Inverse on synthcifar, every batch encoded by kernel 6 (the
+   loss must be finite and fall; after the final freeze every effective
+   weight must be a trit), one training step at a reduced width is held
+   against the port's CPU step (TF32 off); `cutie_qat.compile` compiles
+   the result with its head (optimize=True), which must equal ``ref`` on
+   ``cuda``, ``packed``, ``fused`` and a two-trunk ``fused`` split (with
+   the codec entry points on the split's boundary), and the QAT graph's
+   argmax must agree with the pipeline's on at least ``AGREE_FLOOR`` of
+   the test images; then `CutieEngine` + `ProgramExecutor` serve it on
+   ``cuda`` (SwitchingTracer) and ``fused`` with buckets (1, 2, 4, 8),
+   after every bucket alone on every backend has equalled ``ref``:
+   an open-loop Poisson trace at 3x the calibrated capacity, 25%
+   tight-deadline traffic, under ``fcfs`` and ``deadline`` (every
+   response equal to ``ref``'s, program variants within the buckets),
+   then `benchmarks/fault_injection.py`'s chaos and shed scenarios over a
+   `FaultyExecutor`; every kernel of the path must have launched;
 5. time the whole program (`run`, `measure`) per backend on the host
    clock, then each kernel at the main path's shapes beside its bound, its
    plain version and, where one PyTorch call computes the same function,
@@ -91,7 +110,11 @@ Phases, each of which fails the script (no result line) when it fails:
    (decode step, prefill, tokens/s, latency p50/p99) of the LLM path and
    of the same requests on ``quant="none"``, the bf16 baseline, and the
    trit serve with the former chain and with the KV forms (decode
-   medians, device busy under torch.profiler).
+   medians, device busy under torch.profiler); and for the CNN path a
+   full-width QAT step (with its forward + backward share), an evaluation
+   batch, the serves' images/s and latency percentiles per scheduler and
+   tag, one engine step per bucket, and the device's busy share of a
+   closed-loop serve under torch.profiler.
 
 The line before the last is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a card, and
@@ -170,6 +193,24 @@ LLM_PROJ = (("q", 2048, 2048), ("k", 2048, 512), ("v", 2048, 512),
 # rounding its activations to bf16) within LOGIT_TOL absolute.
 BF16_OUT_TOL, F32_OUT_TOL, LOGIT_TOL = 2.0 ** -7, 1e-5, 0.125
 F16_OUT_TOL = 2.0 ** -10
+# the CNN train -> compile -> serve path: full-width QAT (batch 64) for
+# QAT_STEPS steps, QAT_EVAL_N test images; a training step checked card
+# vs CPU at STEP_CHECK_WIDTH (TF32 off): loss within STEP_LOSS_RTOL, grad
+# norm within STEP_GN_RTOL, updated tensors within STEP_ATOL except where
+# a gradient's sign flipped (at most STEP_FLIP_SHARE of the values, each
+# within the step's bound 2 * lr); QAT-vs-pipeline argmax agreement at
+# least AGREE_FLOOR (tests/test_engine.py's floor); then a serve with
+# benchmarks/serving_load.py's parameters: SERVE_REQUESTS open-loop
+# Poisson arrivals per scheduler at OVERLOAD x the calibrated capacity,
+# INTERACTIVE_FRAC with a deadline of TARGET_MULT full-batch steps, the
+# rest BATCH_DEADLINE_MULT, images drawn from a pool of SERVE_POOL
+QAT_STEPS, QAT_EVAL_N, STEP_CHECK_WIDTH = 80, 256, 16
+STEP_LOSS_RTOL, STEP_GN_RTOL, STEP_ATOL, STEP_FLIP_SHARE = (
+    1e-5, 1e-4, 1e-5, 1e-3)
+AGREE_FLOOR = 0.75
+SERVE_BUCKETS, SERVE_REQUESTS, SERVE_POOL = (1, 2, 4, 8), 256, 256
+INTERACTIVE_FRAC, OVERLOAD, TARGET_MULT, BATCH_DEADLINE_MULT = (
+    0.25, 3.0, 5.0, 60.0)
 
 
 def log(msg: str) -> None:
@@ -888,6 +929,38 @@ def every_backend(torch, K, FT, P, compiled, x, split_budget, what: str
     return out
 
 
+def boundary_codec(torch, FT, TC, P, engine, ops, prog, x, what: str
+                   ) -> tuple:
+    """The codec entry points (kernels 4 and 5, one launch each) on the
+    trits at the boundary of ``prog``'s two-trunk split (after layer
+    ``SPLIT_AT``): the packed bytes must equal the trunk kernel's own
+    ``pack_out`` stream and unpack to the same trits.  Returns the
+    boundary and the two launch counts."""
+    head = engine.CutieProgram(prog.layers[:SPLIT_AT], prog.instance)
+    boundary = P.CutiePipeline(head, backend="fused", device=DEVICE).run(x)
+    reset_launches(TC)
+    packed = ops.pack_trits(boundary.reshape(1, -1))
+    trits = ops.unpack_trits(packed)
+    sync(torch)
+    launches = {"pack_trits": TC.LAUNCHES["pack_trits"],
+                "unpack_trits": TC.LAUNCHES["unpack_trits"]}
+    if DEVICE == "cuda" and tuple(launches.values()) != (1, 1):
+        raise RuntimeError(f"codec entry points launched {TC.LAUNCHES}")
+    stream = FT.fused_trunk(
+        x, *_trunk_operands(torch, prog.layers[:SPLIT_AT]),
+        metas=tuple((li.stride, li.pool) for li in prog.layers[:SPLIT_AT]),
+        pack_out=True)
+    n = boundary.numel()
+    if not (torch.equal(packed.reshape(-1), stream)
+            and torch.equal(trits.reshape(-1)[:n], boundary.reshape(-1))):
+        raise RuntimeError(f"codec entry points disagree with the trunk "
+                           f"kernel's packed boundary ({what} program)")
+    log(f"phase 4: pack_trits/unpack_trits on {what} split's boundary "
+        f"{tuple(boundary.shape)}: bytes equal the trunk kernel's pack_out "
+        "stream, round trip exact")
+    return boundary, launches
+
+
 def main_path(torch, K, FT, TC, ops, engine, thermometer, compiler, P
               ) -> dict:
     """The paper's CIFAR-10 network through `CutiePipeline.compile`:
@@ -954,30 +1027,9 @@ def main_path(torch, K, FT, TC, ops, engine, thermometer, compiler, P
     launches["fused_trunk"] = runs["fused"][0]
     launches["ternary_conv2d"] = runs["cuda"][1]
     launches["ternary_conv2d_packed"] = runs["packed"][2]
-    # the codec entry points on the split's boundary trits
-    head4 = engine.CutieProgram(prog.layers[:SPLIT_AT], prog.instance)
-    boundary = P.CutiePipeline(head4, backend="fused", device=DEVICE).run(x)
-    reset_launches(TC)
-    packed = ops.pack_trits(boundary.reshape(1, -1))
-    trits = ops.unpack_trits(packed)
-    sync(torch)
-    launches["pack_trits"] = TC.LAUNCHES["pack_trits"]
-    launches["unpack_trits"] = TC.LAUNCHES["unpack_trits"]
-    if DEVICE == "cuda" and (launches["pack_trits"], launches["unpack_trits"]
-                             ) != (1, 1):
-        raise RuntimeError(f"codec entry points launched {TC.LAUNCHES}")
-    stream = FT.fused_trunk(
-        x, *_trunk_operands(torch, prog.layers[:SPLIT_AT]),
-        metas=tuple((li.stride, li.pool) for li in prog.layers[:SPLIT_AT]),
-        pack_out=True)
-    n = boundary.numel()
-    if not (torch.equal(packed.reshape(-1), stream)
-            and torch.equal(trits.reshape(-1)[:n], boundary.reshape(-1))):
-        raise RuntimeError("codec entry points disagree with the trunk "
-                           "kernel's packed boundary")
-    log(f"phase 4: pack_trits/unpack_trits on the split's boundary "
-        f"{tuple(boundary.shape)}: bytes equal the trunk kernel's pack_out "
-        "stream, round trip exact")
+    boundary, codec_launches = boundary_codec(torch, FT, TC, P, engine, ops,
+                                              prog, x, "the CIFAR-10")
+    launches.update(codec_launches)
     return {"program": trunk, "compiled": prog, "x": x, "launches": launches,
             "boundary": boundary, "split_budget": split_budget}
 
@@ -1272,6 +1324,438 @@ def llm_main_path(torch, MM, TC, S, TF, DEC, C, codec, configs) -> dict:
             "paged": paged, "contiguous": contiguous,
             "launches": launches["ternary_matmul"], "logit_err": err,
             "trit": trit}
+
+
+# -- phase 4: the CNN train -> compile -> serve path --------------------------
+
+
+def _launch_counts(K, FT, TC) -> dict:
+    return {"thermometer": TC.LAUNCHES["thermometer"],
+            "ternary_conv2d": K.LAUNCHES["ternary_conv2d"],
+            "ternary_conv2d_packed": K.LAUNCHES["ternary_conv2d_packed"],
+            "fused_trunk": FT.LAUNCHES["fused_trunk"],
+            "pack_trits": TC.LAUNCHES["pack_trits"],
+            "unpack_trits": TC.LAUNCHES["unpack_trits"]}
+
+
+def _add_counts(total: dict, part: dict) -> None:
+    for k, v in part.items():
+        total[k] = total.get(k, 0) + v
+
+
+def qat_train(torch, Q, CNN, inq) -> dict:
+    """`train.cutie_qat.run` at full width on the card: batch 64,
+    ``QAT_STEPS`` steps of INQ Magnitude-Inverse (freeze_by 0.75, as the
+    reference), ``QAT_EVAL_N`` test images.  The loss must be finite and
+    fall, and after the final freeze every effective weight must be a
+    trit."""
+    rc = Q.QATRunConfig(width=CIFAR_WIDTH, steps=QAT_STEPS, batch=BATCH,
+                        eval_n=QAT_EVAL_N, seed=SEED)
+    t0 = time.perf_counter()
+    result = Q.run(rc, device=DEVICE)
+    sync(torch)
+    seconds = time.perf_counter() - t0
+    hist = result["history"]
+    losses = [h["loss"] for h in hist]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"QAT loss history {losses}: want finite and "
+                           "falling")
+    eff = inq.apply(result["model"].inq_state(),
+                    result["params"]["layers"])
+    for i, lp in enumerate(eff):
+        w = lp["w"]
+        if not bool(((w == -1) | (w == 0) | (w == 1)).all()):
+            raise RuntimeError(f"layer {i}: effective weights are not "
+                               "trits after the final freeze")
+    cfg = result["cfg"]
+    log(f"phase 4: QAT run on the card: width {cfg.width}, thermometer m "
+        f"{cfg.thermometer_m} ({cfg.in_channels} input channels), batch "
+        f"{rc.batch}, {rc.steps} steps, INQ {rc.strategy} (freeze_by "
+        f"{rc.freeze_by}), {seconds!r} s host clock; loss history "
+        f"{[(h['step'], h['loss'], h['acc'], h['inq_frac']) for h in hist]}"
+        f" (step, loss, batch acc, frozen share); test accuracy "
+        f"{result['accuracy']!r} on {rc.eval_n} images; weight sparsity "
+        f"{result['weight_sparsity']!r}; every effective weight a trit")
+    return result
+
+
+def qat_step_card_vs_cpu(torch, Q, CNN, adam, cifar, configs_cnn) -> None:
+    """One training step at width ``STEP_CHECK_WIDTH`` (batch 16) from
+    the same weights and the same 20%-frozen INQ state on the card and on
+    the CPU, TF32 switched off around it (and restored): the loss within
+    ``STEP_LOSS_RTOL``, the gradient norm within ``STEP_GN_RTOL``, every
+    updated tensor within ``STEP_ATOL`` except where a gradient's sign
+    flipped (at most ``STEP_FLIP_SHARE`` of the weights, each by at most
+    the step's bound 2 * lr + ``STEP_ATOL``)."""
+    import copy
+
+    cfg = configs_cnn.CutieCNNConfig(width=STEP_CHECK_WIDTH)
+    rc = Q.QATRunConfig(width=STEP_CHECK_WIDTH, steps=QAT_STEPS)
+    icfg, acfg = Q.inq_config(rc), Q.adam_config(rc)
+    cpu = CNN.CutieCNN(cfg, seed=SEED, device="cpu")
+    card = copy.deepcopy(cpu).to(DEVICE)
+    for m in (cpu, card):
+        Q.freeze(m, 0.2, icfg)
+    for a, b in zip(cpu.inq_state(), card.inq_state()):
+        for f in ("mask", "q"):
+            if not torch.equal(a["w"][f], b["w"][f].cpu()):
+                raise RuntimeError(f"INQ {f} on the card differs from the "
+                                   "CPU's")
+    data = cifar.SynthCifarConfig()
+    bc = cifar.encoded_batch(data, "train", 0, 16, device="cpu")
+    bg = cifar.encoded_batch(data, "train", 0, 16, device=DEVICE)
+    if not torch.equal(bc["x"], bg["x"].cpu()):
+        raise RuntimeError("encoded_batch on the card differs from the CPU's")
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        _, mc = Q.train_step(cpu, adam.init_state(cpu.trainable()), bc, acfg)
+        _, mg = Q.train_step(card, adam.init_state(card.trainable()), bg,
+                             acfg)
+        sync(torch)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    lc, lg = float(mc["loss"]), float(mg["loss"])
+    gc, gg = float(mc["grad_norm"]), float(mg["grad_norm"])
+    if abs(lc - lg) > STEP_LOSS_RTOL * abs(lc) or \
+            abs(gc - gg) > STEP_GN_RTOL * abs(gc):
+        raise RuntimeError(f"card step loss {lg!r} / grad norm {gg!r} vs "
+                           f"CPU {lc!r} / {gc!r}")
+    far = total = 0
+    worst = 0.0
+    for (name, a), b in zip(cpu.state_dict().items(),
+                            card.state_dict().values()):
+        d = (a - b.cpu()).abs()
+        worst = max(worst, float(d.max()))
+        if float(d.max()) > 2 * acfg.lr + STEP_ATOL:
+            raise RuntimeError(f"{name}: card step differs by "
+                               f"{float(d.max())!r}")
+        far += int((d > STEP_ATOL).sum())
+        total += d.numel()
+    if far > STEP_FLIP_SHARE * total:
+        raise RuntimeError(f"{far} of {total} updated values differ by more "
+                           f"than {STEP_ATOL}")
+    log(f"phase 4: one QAT step at width {STEP_CHECK_WIDTH} (TF32 off), card "
+        f"vs CPU: loss {lg!r} vs {lc!r}, grad norm {gg!r} vs {gc!r}, "
+        f"updated tensors max abs diff {worst!r}, {far} of {total} values "
+        f"past {STEP_ATOL}; INQ masks, frozen trits and encoded batch "
+        "identical")
+
+
+def qat_compile(torch, K, FT, TC, P, Q, engine, compiler, ops, result, x
+                ) -> tuple:
+    """`cutie_qat.compile(result, include_head=True, optimize=True)` on
+    the card, then on ``cuda``, ``packed``, ``fused`` and a two-trunk
+    ``fused`` split, equal to ``ref`` (`every_backend`); the codec entry
+    points on the split's boundary; the QAT graph's argmax against the
+    compiled head-less pipeline's (``AGREE_FLOOR``).  Returns the
+    compiled result and this sub-phase's launches."""
+    compiled = Q.compile(result, include_head=True, optimize=True)
+    prog = compiled.program
+    log(f"phase 4: cutie_qat.compile of the trained run with its head "
+        f"(optimize=True): {len(prog.layers)} layers, channels "
+        f"{[li.weights.shape[-1] for li in prog.layers]}, folded "
+        f"{compiled.folded_channels}, removed {compiled.removed_channels}, "
+        f"ops reduction {compiled.ops_reduction!r}")
+    budget = compiler.trunk_l2_bytes(prog.layers[:SPLIT_AT], tuple(x.shape))
+    runs = every_backend(torch, K, FT, P, compiled, x, budget,
+                         "trained CIFAR-10 + head")
+    launches = {"fused_trunk": runs["fused"][0] + runs["fused-split"][0],
+                "ternary_conv2d": (runs["cuda"][1] + runs["fused"][1]
+                                   + runs["fused-split"][1]),
+                "ternary_conv2d_packed": runs["packed"][2]}
+    _, codec_launches = boundary_codec(torch, FT, TC, P, engine, ops, prog,
+                                       x, "the trained")
+    launches.update(codec_launches)
+    model = result["model"]
+    feats = P.CutiePipeline(Q.to_program(result), backend="fused",
+                            device=DEVICE).run(x)
+    with torch.no_grad():
+        logits, _ = model(x.to(torch.float32), train=False, inq=True)
+        eng = feats.reshape(x.shape[0], -1).to(torch.float32) @ model.fc
+    agree = float((logits.argmax(-1) == eng.argmax(-1)).float().mean())
+    if agree < AGREE_FLOOR:
+        raise RuntimeError(f"QAT-graph vs pipeline argmax agreement {agree}"
+                           f" < {AGREE_FLOOR}")
+    log(f"phase 4: trained program: QAT-graph vs bit-true pipeline argmax "
+        f"agreement {agree!r} on {x.shape[0]} test images (floor "
+        f"{AGREE_FLOOR}; the QAT forward runs cuDNN's default TF32)")
+    return compiled, launches
+
+
+def serve_pool(torch, cifar, P, compiled) -> dict:
+    """``SERVE_POOL`` synthcifar test images encoded by kernel 6 on the
+    card (one launch), their int8 trits on the host for submit, and the
+    ``ref`` backend's output for each: the oracle of every response."""
+    b = cifar.encoded_batch(cifar.SynthCifarConfig(), "test", 0, SERVE_POOL,
+                            device=DEVICE)
+    x = b["x"].to(torch.int8)
+    ref = P.CutiePipeline(compiled.program, backend="ref",
+                          device=DEVICE).run(x)
+    return {"x": x, "imgs": list(x.cpu().numpy()),
+            "ref": list(ref.cpu().numpy())}
+
+
+def _serve_engine(S, P, compiled, scheduler: str, **kw):
+    """One engine serving the trained program as ``cnn-cuda`` (with a
+    SwitchingTracer) and ``cnn-fused``, buckets ``SERVE_BUCKETS``."""
+    eng = S.CutieEngine(scheduler, **kw)
+    eng.register("cnn-cuda", compiled, backend="cuda", device=DEVICE,
+                 buckets=SERVE_BUCKETS, tracer=P.SwitchingTracer())
+    eng.register("cnn-fused", compiled, backend="fused", device=DEVICE,
+                 buckets=SERVE_BUCKETS)
+    return eng
+
+
+def _calibrate_batch(torch, S, P, compiled, pool) -> float:
+    """Seconds per full-bucket engine step (every bucket warmed first),
+    the median of 3 on each model, the larger of the two."""
+    worst = 0.0
+    for model in ("cnn-cuda", "cnn-fused"):
+        eng = _serve_engine(S, P, compiled, "fcfs")
+        for b in SERVE_BUCKETS:
+            for i in range(b):
+                eng.submit(pool["imgs"][i], model=model)
+            eng.run()
+        ts = []
+        for _ in range(3):
+            for i in range(SERVE_BUCKETS[-1]):
+                eng.submit(pool["imgs"][i], model=model)
+            t0 = time.perf_counter()
+            eng.step()
+            ts.append(time.perf_counter() - t0)
+        worst = max(worst, float(np.median(ts)))
+    return worst
+
+
+def _load_trace(rate: float) -> list:
+    """The seeded open-loop Poisson trace: ``SERVE_REQUESTS`` arrivals at
+    ``rate`` per second, 25% interactive, each on one of the two models
+    and one pool image."""
+    rng = np.random.default_rng(SEED + 20)
+    t = np.cumsum(rng.exponential(1.0 / rate, size=SERVE_REQUESTS))
+    return [{"t": float(t[i]), "img": int(rng.integers(SERVE_POOL)),
+             "model": ("cnn-cuda", "cnn-fused")[int(rng.integers(2))],
+             "interactive": bool(rng.random() < INTERACTIVE_FRAC)}
+            for i in range(SERVE_REQUESTS)]
+
+
+def _drive_load(eng, trace, pool, target: float, loose: float) -> list:
+    """Open-loop replay: submit at trace times, step while busy."""
+    handles, i, t0 = [], 0, time.perf_counter()
+    while i < len(trace) or eng.busy():
+        now = time.perf_counter() - t0
+        while i < len(trace) and trace[i]["t"] <= now:
+            a = trace[i]
+            handles.append((a, eng.submit(
+                pool["imgs"][a["img"]], model=a["model"],
+                priority=int(a["interactive"]),
+                deadline=target if a["interactive"] else loose,
+                tag="interactive" if a["interactive"] else "batch")))
+            i += 1
+        if eng.busy():
+            if not eng.step():
+                raise RuntimeError("engine busy but made no progress")
+        elif i < len(trace):
+            time.sleep(min(max(trace[i]["t"] - now, 0.0), 1e-3))
+    return handles
+
+
+def serve_buckets(torch, K, FT, TC, S, P, compiler, compiled, pool
+                  ) -> dict:
+    """Every serving bucket on every backend: the trained program
+    registered alone with buckets ``(b,)`` on ``cuda``, ``packed``,
+    ``fused`` and a two-trunk ``fused`` split serves 8 pool images, each
+    response equal to ``ref``'s, every batch padded to ``b``, one program
+    variant.  Returns this sub-phase's launches."""
+    prog = compiled.program
+    reset_launches(K, FT, TC)
+    for b in SERVE_BUCKETS:
+        shape = (b,) + tuple(pool["x"].shape[1:])
+        split = P.FusedBackend(l2_budget=compiler.trunk_l2_bytes(
+            prog.layers[:SPLIT_AT], shape))
+        for label, backend in (("cuda", "cuda"), ("packed", "packed"),
+                               ("fused", "fused"), ("fused-split", split)):
+            eng = S.CutieEngine("fcfs")
+            ex = eng.register("m", compiled, backend=backend, device=DEVICE,
+                              buckets=(b,))
+            hs = [eng.submit(pool["imgs"][i], model="m") for i in range(8)]
+            eng.run()
+            bad = [i for i, h in enumerate(hs) if not np.array_equal(
+                h.request.result, pool["ref"][i])]
+            if bad or {x["padded"] for x in eng.batches} != {b} or \
+                    ex.n_jit_variants != 1:
+                raise RuntimeError(f"bucket {b} on {label}: responses {bad} "
+                                   "differ from ref, or batches/variants "
+                                   "are off")
+    sync(torch)
+    launches = _launch_counts(K, FT, TC)
+    log(f"phase 4: every bucket {SERVE_BUCKETS} on cuda, packed, fused and "
+        "fused-split (8 images each): responses equal to ref's, one "
+        f"program variant each; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
+def cnn_serve(torch, K, FT, TC, S, P, compiled, pool) -> dict:
+    """The trained program served through `CutieEngine` + the port's
+    `ProgramExecutor` on ``cuda`` and ``fused``: calibrated capacity, then
+    the open-loop trace at ``OVERLOAD`` x capacity under ``fcfs`` and
+    ``deadline``.  Every response must equal ``ref``'s bit for bit, every
+    handle must finish, and each model's program variants stay within its
+    buckets.  Returns the runs and this sub-phase's launches."""
+    t_batch = _calibrate_batch(torch, S, P, compiled, pool)
+    rate = OVERLOAD * SERVE_BUCKETS[-1] / t_batch
+    trace = _load_trace(rate)
+    target, loose = TARGET_MULT * t_batch, BATCH_DEADLINE_MULT * t_batch
+    reset_launches(K, FT, TC)
+    out = {"t_batch": t_batch, "rate": rate, "target": target}
+    for sched in ("fcfs", "deadline"):
+        eng = _serve_engine(S, P, compiled, sched)
+        t0 = time.perf_counter()
+        handles = _drive_load(eng, trace, pool, target, loose)
+        wall = time.perf_counter() - t0
+        bad = [a for a, h in handles if h.status is not S.RequestStatus.DONE
+               or not np.array_equal(h.request.result, pool["ref"][a["img"]])]
+        st = eng.stats()
+        if bad or len(handles) != SERVE_REQUESTS:
+            raise RuntimeError(f"serve under {sched}: {len(bad)} responses "
+                               "unfinished or unequal to ref")
+        if any(v > len(SERVE_BUCKETS) for v in st["jit_variants"].values()):
+            raise RuntimeError(f"jit_variants {st['jit_variants']} exceed "
+                               f"{len(SERVE_BUCKETS)} buckets")
+        out[sched] = {"stats": st, "wall": wall}
+    sync(torch)
+    launches = _launch_counts(K, FT, TC)
+    log(f"phase 4: CNN serve of the trained program (cnn-cuda with a "
+        f"SwitchingTracer, cnn-fused; buckets {SERVE_BUCKETS}): "
+        f"{SERVE_REQUESTS} requests under fcfs and under deadline at "
+        f"{rate!r} req/s ({OVERLOAD} x the capacity of a {t_batch!r} s "
+        "full-bucket step), 25% interactive: every response equal to ref's "
+        f"bit for bit; jit_variants {out['deadline']['stats']['jit_variants']}"
+        f"; energy_uj {out['deadline']['stats']['energy_uj']!r} (NaN: the "
+        "head's one-window map); launches in the serves "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return out, launches
+
+
+def cnn_faults(torch, S, P, compiled, pool) -> None:
+    """`benchmarks/fault_injection.py` scenarios 1 and 2 on the trained
+    program: chaos over a `FaultyExecutor` wrapping the ``fused``
+    `ProgramExecutor`, with a ``cuda`` fallback serving the same program
+    (no request lost, survivors equal ref's, poison isolated, quarantine
+    fired); then a burst past ``max_queue_depth`` (shedding caps the
+    queue, everything admitted completes)."""
+    n = 48
+    rng = np.random.default_rng(SEED + 21)
+    t = np.cumsum(rng.exponential(1.0 / 0.7, size=n))
+    trace = [{"t": float(t[i]), "tag": f"i{i}",
+              "img": int(rng.integers(SERVE_POOL))} for i in range(n)]
+    plan = S.FaultPlan(seed=SEED, raise_rate=0.12, slow_rate=0.05,
+                       nan_rate=0.08, poison_rate=0.08, slow_s=0.005,
+                       device_loss_at=12, device_loss_calls=6,
+                       start_after=2)
+    policy = S.FaultPolicy(max_retries=5, backoff_base=0.001,
+                           backoff_cap=0.01, quarantine_after=5)
+    eng = S.CutieEngine("fcfs", policy=policy)
+    eng.register("backup", compiled, backend="cuda", device=DEVICE,
+                 buckets=(1, 2, 4))
+    faulty = S.FaultyExecutor(S.ProgramExecutor(
+        compiled.pipeline("fused", device=DEVICE), buckets=(1, 2, 4)), plan)
+    eng.register("cnn", faulty, fallback="backup")
+    handles, i, steps = {}, 0, 0
+    while i < n or eng.busy():
+        while i < n and trace[i]["t"] <= steps:
+            handles[trace[i]["tag"]] = (trace[i], eng.submit(
+                pool["imgs"][trace[i]["img"]], model="cnn",
+                tag=trace[i]["tag"]))
+            i += 1
+        if eng.busy() and not eng.step():
+            raise RuntimeError("chaos: engine busy but made no progress")
+        steps += 1
+        if steps > 100_000:
+            raise RuntimeError("chaos trace did not drain")
+    poisoned = {x["tag"] for x in trace if plan.poisoned(x["tag"])}
+    terminal = (S.RequestStatus.DONE, S.RequestStatus.CANCELLED,
+                S.RequestStatus.FAILED)
+    done = {k: (a, h) for k, (a, h) in handles.items()
+            if h.status is S.RequestStatus.DONE}
+    faults = eng.stats()["faults"]
+    checks = {
+        "no_request_lost": len(handles) == n and all(
+            h.status in terminal for _, h in handles.values()),
+        "survivors_bitexact": bool(done) and all(
+            np.array_equal(h.request.result, pool["ref"][a["img"]])
+            for a, h in done.values()),
+        "poison_isolated": all(h.status is S.RequestStatus.DONE
+                               for k, (_, h) in handles.items()
+                               if k not in poisoned),
+        "quarantine_fired": faults["n_quarantines"] >= 1,
+    }
+    shed_eng = S.CutieEngine("fcfs", policy=S.FaultPolicy(max_queue_depth=3))
+    shed_eng.register("cnn", compiled, backend="fused", device=DEVICE,
+                      buckets=(1,))
+    admitted, shed = [], 0
+    for k in range(10):
+        try:
+            admitted.append(shed_eng.submit(pool["imgs"][k], model="cnn"))
+        except S.LoadShedError:
+            shed += 1
+    shed_eng.run()
+    checks["shedding_caps_queue"] = shed > 0 and len(admitted) <= 3
+    checks["shed_admitted_complete"] = all(
+        h.status is S.RequestStatus.DONE for h in admitted)
+    if not all(checks.values()):
+        raise RuntimeError(f"fault injection checks failed: {checks}")
+    log(f"phase 4: fault injection on the trained program: chaos {n} "
+        f"requests ({len(poisoned)} poisoned), {len(done)} done, injected "
+        f"{dict(faulty.injected)}, retries {faults['n_retries']}, "
+        f"quarantines {faults['n_quarantines']}, rerouted "
+        f"{faults['n_rerouted']}; shed {shed} of 10 at max_queue_depth 3; "
+        f"checks {checks}")
+
+
+def cnn_main_path(torch, K, FT, TC, P, S, Q, CNN, inq, adam, cifar,
+                  configs_cnn, engine, compiler, ops) -> dict:
+    """The third main path, train -> compile -> serve, driven with every
+    launch count set to 0 just before each sub-phase and read just after;
+    every kernel of the path must have launched."""
+    reset_launches(K, FT, TC)
+    result = qat_train(torch, Q, CNN, inq)
+    sync(torch)
+    launches = _launch_counts(K, FT, TC)
+    want_thermo = QAT_STEPS + -(-QAT_EVAL_N // 128)
+    if launches["thermometer"] != want_thermo and DEVICE == "cuda":
+        raise RuntimeError(f"training launched the thermometer kernel "
+                           f"{launches['thermometer']} times, want "
+                           f"{want_thermo} (one per training and eval batch)")
+    qat_step_card_vs_cpu(torch, Q, CNN, adam, cifar, configs_cnn)
+    reset_launches(TC)
+    x = cifar.encoded_batch(cifar.SynthCifarConfig(), "test", 0, BATCH,
+                            device=DEVICE)["x"].to(torch.int8)
+    sync(torch)
+    _add_counts(launches, {"thermometer": TC.LAUNCHES["thermometer"]})
+    compiled, part = qat_compile(torch, K, FT, TC, P, Q, engine, compiler,
+                                 ops, result, x)
+    _add_counts(launches, part)
+    reset_launches(TC)
+    pool = serve_pool(torch, cifar, P, compiled)
+    sync(torch)
+    _add_counts(launches, {"thermometer": TC.LAUNCHES["thermometer"]})
+    _add_counts(launches, serve_buckets(torch, K, FT, TC, S, P, compiler,
+                                        compiled, pool))
+    served, part = cnn_serve(torch, K, FT, TC, S, P, compiled, pool)
+    _add_counts(launches, part)
+    cnn_faults(torch, S, P, compiled, pool)
+    missing = [k for k, v in launches.items() if not v]
+    if missing and DEVICE == "cuda":
+        raise RuntimeError(f"train -> compile -> serve launched no {missing}")
+    log(f"phase 4: train -> compile -> serve launches per kernel {launches}")
+    return {"result": result, "compiled": compiled, "x": x, "pool": pool,
+            "served": served, "launches": launches}
 
 
 # -- phase 5: timing ---------------------------------------------------------
@@ -1994,6 +2478,134 @@ def trit_serving_numbers(torch, S, TC, codec, llm, card: str) -> None:
             f"median {float(np.median(dec))!r}; {card}")
 
 
+
+def _median_ms(torch, fn, reps: int = 10, warm: int = 3) -> tuple:
+    """Median and min host-clock ms of ``fn`` ending in a synchronize."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts)), min(ts)
+
+
+def cnn_numbers(torch, Q, CNN, S, P, adam, cifar, cnn, card: str) -> None:
+    """The train -> compile -> serve path's times: one QAT step at full
+    width (host clock ending in a synchronize) and its forward + backward
+    share, one evaluation batch, the serves' throughput and latencies per
+    scheduler and tag, one engine step per bucket and model, and the
+    device's busy share of a closed-loop serve under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    result, compiled, pool = cnn["result"], cnn["compiled"], cnn["pool"]
+    model, rc = result["model"], result["run_config"]
+    acfg = Q.adam_config(rc)
+    batch = cifar.encoded_batch(rc.data, "train", 0, rc.batch,
+                                device=DEVICE)
+    state = {"opt": adam.init_state(model.trainable())}
+
+    def step():
+        state["opt"], _ = Q.train_step(model, state["opt"], batch, acfg)
+
+    def fwd_bwd():
+        loss, _ = CNN.loss_fn(model, batch, train=True, inq=True)
+        torch.autograd.grad(loss, list(model.trainable().values()))
+
+    ev = cifar.encoded_batch(rc.data, "test", 0, 128, device=DEVICE)["x"]
+
+    def evaluate():
+        with torch.no_grad():
+            model(ev, train=False, inq=True)
+
+    for _ in range(2):                      # in turns: step, fwd+bwd
+        st, st_min = _median_ms(torch, step)
+        fb, fb_min = _median_ms(torch, fwd_bwd)
+        log(f"phase 5: QAT step at width {model.cfg.width}, batch "
+            f"{rc.batch} (cuDNN default TF32): median ms {st!r} (min "
+            f"{st_min!r}); forward + backward median {fb!r} (min {fb_min!r})"
+            f", optimizer + BN update the rest, {st - fb!r}; host clock, "
+            f"{card}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    evs = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in evs) / 1e6
+    log(f"phase 5: 5 QAT steps under torch.profiler: {wall!r} s host "
+        f"clock, device busy {busy!r} s (busy share {busy / wall!r}); "
+        f"{card}")
+    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  device {e.self_device_time_total / 1e3!r} ms in {e.count} "
+            f"calls: {e.key[:90]}")
+    ms, ms_min = _median_ms(torch, evaluate)
+    log(f"phase 5: QAT evaluation batch of 128 (inference BN, INQ "
+        f"weights): median ms {ms!r} (min {ms_min!r}); host clock, {card}")
+    served = cnn["served"]
+    for sched in ("fcfs", "deadline"):
+        s, wall = served[sched]["stats"], served[sched]["wall"]
+        tags = {t: (v["n"], v["p50"], v["p99"], v["deadline_met_frac"])
+                for t, v in s["by_tag"].items()}
+        log(f"phase 5: CNN serve under {sched}: {s['n_done']} images in "
+            f"{wall!r} s ({s['n_done'] / wall!r} images/s) at "
+            f"{served['rate']!r} req/s offered; latency s p50 "
+            f"{s['latency']['p50']!r} p99 {s['latency']['p99']!r}; by tag "
+            f"(n, p50, p99, deadline met) {tags}; interactive target "
+            f"{served['target']!r} s; batch occupancy "
+            f"{s['batch_occupancy']!r}; host clock, {card}")
+    ex = S.ProgramExecutor(compiled.pipeline("ref", device=DEVICE))
+    t0 = time.perf_counter()
+    for img in pool["imgs"]:
+        ex.validate(img)
+    us = (time.perf_counter() - t0) / len(pool["imgs"]) * 1e6
+    log(f"phase 5: ProgramExecutor.validate at submit (the reference's "
+        f"trit-domain check, host numpy): {us!r} us per {pool['imgs'][0].shape}"
+        f" image; {card}")
+    for model_name in ("cnn-cuda", "cnn-fused"):
+        eng = S.CutieEngine("fcfs")
+        backend = model_name.split("-")[1]
+        eng.register(model_name, compiled, backend=backend, device=DEVICE,
+                     buckets=SERVE_BUCKETS)
+        per = {}
+        for b in SERVE_BUCKETS:
+            ts = []
+            for rep in range(6):
+                for i in range(b):
+                    eng.submit(pool["imgs"][i], model=model_name)
+                t0 = time.perf_counter()
+                eng.step()
+                if rep:                     # the first builds the variant
+                    ts.append((time.perf_counter() - t0) * 1e3)
+            per[b] = float(np.median(ts))
+        log(f"phase 5: one engine step per bucket on {model_name} (ms, "
+            f"median of 5, host clock, response on the host): {per}; "
+            f"{card}")
+    eng = _serve_engine(S, P, compiled, "fcfs")
+    for i in range(16):                     # warm every variant
+        eng.submit(pool["imgs"][i], model=("cnn-cuda", "cnn-fused")[i % 2])
+    eng.run()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(SERVE_POOL):
+            eng.submit(pool["imgs"][i], model=("cnn-cuda", "cnn-fused")[i % 2])
+        eng.run()
+        wall = time.perf_counter() - t0
+    evs = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in evs) / 1e6
+    log(f"phase 5: closed-loop CNN serve of {SERVE_POOL} images under "
+        f"torch.profiler: {wall!r} s host clock, device busy {busy!r} s "
+        f"(busy share {busy / wall!r}, idle share {1 - busy / wall!r}); "
+        f"{card}")
+    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"  device {e.self_device_time_total / 1e3!r} ms in {e.count} "
+            f"calls: {e.key[:90]}")
+
+
 def main() -> int:
     import torch
 
@@ -2005,7 +2617,9 @@ def main() -> int:
     from repro_torch import compiler, configs
     from repro_torch import pipeline as P
     from repro_torch import serving as S
-    from repro_torch.core import codec, engine, thermometer
+    from repro_torch.configs import cutie_cnn as configs_cnn
+    from repro_torch.core import codec, engine, inq, thermometer
+    from repro_torch.data import cifar
     from repro_torch.kernels import _build
     from repro_torch.kernels import fused_trunk as FT
     from repro_torch.kernels import ops
@@ -2013,8 +2627,11 @@ def main() -> int:
     from repro_torch.kernels import ternary_matmul as MM
     from repro_torch.kernels import trit_codec as TC
     from repro_torch.models import common as C
+    from repro_torch.models import cutie_cnn as CNN
     from repro_torch.models import decoding as DEC
     from repro_torch.models import transformer as TF
+    from repro_torch.optim import adam
+    from repro_torch.train import cutie_qat as Q
 
     t0 = time.perf_counter()
     card = card_line()
@@ -2045,6 +2662,8 @@ def main() -> int:
     mp = main_path(torch, K, FT, TC, ops, engine, thermometer, compiler, P)
     compiled_programs(torch, K, FT, P, compiler)
     llm = llm_main_path(torch, MM, TC, S, TF, DEC, C, codec, configs)
+    cnn = cnn_main_path(torch, K, FT, TC, P, S, Q, CNN, inq, adam, cifar,
+                        configs_cnn, engine, compiler, ops)
     program_latency(torch, P, mp, card)
     kernels, conv_lib = time_kernels(torch, F, K, codec, engine, mp, card,
                                         worst)
@@ -2053,6 +2672,7 @@ def main() -> int:
     kernels += time_matmul_kernels(torch, MM, llm, card, worst)
     serving_numbers(torch, S, TF, llm, card)
     trit_serving_numbers(torch, S, TC, codec, llm, card)
+    cnn_numbers(torch, Q, CNN, S, P, adam, cifar, cnn, card)
     reset_launches(K, FT, TC, MM)          # timing launches are not counted
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -9,6 +9,7 @@ CutieProgram.
     result = compiler.compile_graph(g)          # CompileResult, on the card
     print(result.cost_table())                  # per-pass predicted cost
     pipe = result.pipeline(backend="fused")
+    eng = result.serve("net")                   # a CutieEngine serving it
 
 (or in one step: ``CutiePipeline.compile(g, backend="fused")``.)
 
@@ -78,12 +79,23 @@ class CompileResult:
         return pipe
 
     def serve(self, name: str = "default", *, engine=None,
-              scheduler="fcfs", backend=None, **executor_options):
-        """Not ported yet: registering a compiled CNN with a serving
-        engine needs its program executor."""
-        raise NotImplementedError(
-            "CompileResult.serve is not ported yet: see ROADMAP.md §1 item "
-            "7 (CNN serving: a torch ProgramExecutor for CutieEngine)")
+              scheduler="fcfs", backend=None, device=None,
+              **executor_options):
+        """Register the compiled program with a serving engine.
+
+        The compiler-side entry point to `repro_torch.serving`: compile a
+        Graph, then ``result.serve("resnet", engine=eng)`` to publish
+        (or hot-swap) it under a model name, bound to ``backend`` on
+        ``device`` (the card by default).  Creates a fresh `CutieEngine`
+        with ``scheduler`` when ``engine`` is None; returns the engine
+        either way.
+        """
+        from repro_torch.serving.engine import CutieEngine
+
+        eng = engine if engine is not None else CutieEngine(scheduler)
+        eng.register(name, self.pipeline(backend, device=device),
+                     **executor_options)
+        return eng
 
 
 def lower_graph(graph: Graph,

@@ -1,10 +1,11 @@
-"""Carry a compiled program or an LLM's parameters across from plain
-arrays.
+"""Carry a compiled program, the QAT CNN's or an LLM's parameters across
+from plain arrays.
 
 A `CutieProgram` of the reference package, exported as numpy arrays per
-layer, becomes the port's program; an LLM parameter tree exported as
-numpy arrays becomes the port's parameter dict.  Both packages then
-compute the same thing from the same weights.
+layer, becomes the port's program; the reference's QAT CNN parameters
+and INQ state become the port's `CutieCNN` (and back); an LLM parameter
+tree exported as numpy arrays becomes the port's parameter dict.  Both
+packages then compute the same thing from the same weights.
 """
 
 from __future__ import annotations
@@ -99,3 +100,53 @@ def llm_params_from_numpy(tree, cfg, device=None) -> dict:
     out = {k: _tree(v, dev) for k, v in tree.items() if k != "layers"}
     out["layers"] = _unstack(_tree(tree["layers"], dev), cfg.n_layers)
     return out
+
+
+CNN_LAYER_FIELDS = ("w", "gamma", "beta", "mean", "var")
+
+
+def cnn_params_from_numpy(params, cfg, inq_state=None, device=None):
+    """The reference's QAT CNN ``params`` tree (``{"layers": [{"w",
+    "gamma", "beta", "mean", "var"}, ...], "fc"}``, numpy arrays) and,
+    optionally, its INQ state (``{"layers": [{"w": {"mask", "q"}, ...},
+    ...], "fc": None}``) -> the port's `CutieCNN` for ``cfg`` on
+    ``resolve_device(device)``, values kept bit for bit."""
+    from repro_torch.models.cutie_cnn import CutieCNN
+
+    dev = resolve_device(device)
+    model = CutieCNN(cfg, device=dev)
+    if len(params["layers"]) != len(model.layers):
+        raise ValueError(f"{len(params['layers'])} layers, the config has "
+                         f"{len(model.layers)}")
+    with torch.no_grad():
+        for b, lp in zip(model.layers, params["layers"]):
+            for f in CNN_LAYER_FIELDS:
+                dst = getattr(b, f)
+                src = _tensor(lp[f], dev)
+                if src.shape != dst.shape:
+                    raise ValueError(f"layer {f} has shape "
+                                     f"{tuple(src.shape)}, the config "
+                                     f"{tuple(dst.shape)}")
+                dst.copy_(src)
+        model.fc.copy_(_tensor(params["fc"], dev))
+    if inq_state is not None:
+        model.load_inq_state(
+            [{"w": {k: _tensor(st["w"][k], dev) for k in ("mask", "q")}}
+             for st in inq_state["layers"]])
+    return model
+
+
+def cnn_params_to_numpy(model) -> tuple[dict, dict]:
+    """The inverse: a `CutieCNN` -> (params, INQ state) as the reference's
+    trees of numpy arrays."""
+    def a(t):
+        return t.detach().cpu().numpy().copy()
+
+    params = {"layers": [{f: a(getattr(b, f)) for f in CNN_LAYER_FIELDS}
+                         for b in model.layers],
+              "fc": a(model.fc)}
+    state = {"layers": [{"w": {"mask": a(b.mask), "q": a(b.q)},
+                         "gamma": None, "beta": None, "mean": None,
+                         "var": None} for b in model.layers],
+             "fc": None}
+    return params, state

@@ -1,7 +1,18 @@
-"""Ternary quantizers used at compile time (paper §II-A).
+"""Ternary quantization primitives (the paper's §II-A / §V-A substrate).
 
-Only the inference subset `compile_layer` and the compiler need; the
-straight-through estimators come with the training path.
+CUTIE computes with weights and activations drawn from {-1, 0, +1}.  This
+module provides:
+
+* threshold ternarization (TWN-style), with straight-through-estimator
+  (STE) gradients (a `torch.autograd.Function`) so the quantizers train
+  under autograd,
+* per-tensor / per-channel scale estimation (the scale is *not* computed
+  in hardware — it folds into the batch-norm thresholds, see
+  `folding.py`),
+* the Hardtanh activation used by the paper (its range [-1, 1] covers all
+  three ternary values, unlike ReLU — paper §V-A),
+* activation ternarization with the fixed ±0.5 thresholds the paper's
+  compiled networks use.
 
 The TWN reductions sum in the order of the reference's (`repro.core.
 ternary` under XLA on the CPU, `_window_sum`), so a layer compiled here
@@ -70,6 +81,11 @@ def ternarize(x: torch.Tensor, delta) -> torch.Tensor:
     return (x > delta).to(x.dtype) - (x < -delta).to(x.dtype)
 
 
+def binarize(x: torch.Tensor) -> torch.Tensor:
+    """Map x -> {-1, +1} (sign with sign(0) := +1), the BNN baseline."""
+    return torch.where(x >= 0, 1.0, -1.0).to(x.dtype)
+
+
 def twn_delta(w: torch.Tensor, axis=None, ratio: float = 0.7
               ) -> torch.Tensor:
     """TWN threshold delta = ratio * mean(|w|) (Li et al., 2016).
@@ -95,3 +111,97 @@ def twn_scale(w: torch.Tensor, wq: torch.Tensor, axis=None) -> torch.Tensor:
     if axis is None:
         num, den = num.reshape(()), den.reshape(())
     return num / torch.clamp(den, min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# STE (straight-through estimator) wrappers for QAT
+# ---------------------------------------------------------------------------
+
+
+class _STEIdentity(torch.autograd.Function):
+    """Forward: return q. Backward: gradient flows to x unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, q):
+        del ctx, x
+        return q.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        del ctx
+        return g, None
+
+
+def _ste_identity(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    return _STEIdentity.apply(x, q)
+
+
+def ternarize_ste(w: torch.Tensor, axis=None, ratio: float = 0.7,
+                  with_scale: bool = True) -> torch.Tensor:
+    """QAT weight ternarization: forward = alpha * ternarize(w), STE backward.
+
+    The gradient w.r.t. ``w`` is passed straight through (clipped
+    implicitly by the downstream Hardtanh in the paper's recipe, so no
+    extra clipping here).  ``alpha`` is a constant w.r.t. the backward
+    (standard TWN practice).
+    """
+    wd = w.detach()
+    delta = twn_delta(wd, axis=axis, ratio=ratio)
+    wq = ternarize(wd, delta)
+    if with_scale:
+        wq = twn_scale(wd, wq, axis=axis) * wq
+    return _ste_identity(w, wq)
+
+
+def binarize_ste(w: torch.Tensor, axis=None, with_scale: bool = True
+                 ) -> torch.Tensor:
+    """QAT weight binarization (XNOR-Net style): alpha * sign(w), STE grad."""
+    wd = w.detach()
+    wq = binarize(wd)
+    if with_scale:
+        dims = tuple(range(w.dim())) if axis is None else tuple(axis)
+        wq = wd.abs().mean(dim=dims, keepdim=axis is not None) * wq
+    return _ste_identity(w, wq)
+
+
+def hardtanh(x: torch.Tensor) -> torch.Tensor:
+    """Hardtanh activation, the paper's choice (covers all of {-1,0,1}).
+
+    A min of a max, not ``torch.clamp``: at exactly +-1 the gradient is
+    0.5, as the reference's ``jnp.clip`` gives under ``jax.grad`` (clamp
+    gives 1).  The bounds are filled on x's device, not copied from the
+    host (a copy from pageable memory would wait for the stream)."""
+    return torch.minimum(torch.maximum(x, x.new_full((), -1.0)),
+                         x.new_full((), 1.0))
+
+
+def ternarize_act_ste(x: torch.Tensor, threshold: float = 0.5
+                      ) -> torch.Tensor:
+    """Activation ternarization with STE through Hardtanh.
+
+    Forward: hardtanh -> threshold at +-0.5 -> {-1,0,+1}.
+    Backward: identity inside [-1, 1], zero outside (hardtanh's gradient).
+    """
+    xh = hardtanh(x)
+    return _ste_identity(xh, ternarize(xh.detach(), threshold))
+
+
+def binarize_act_ste(x: torch.Tensor) -> torch.Tensor:
+    """Activation binarization with hardtanh STE (BNN baseline)."""
+    xh = hardtanh(x)
+    return _ste_identity(xh, binarize(xh.detach()))
+
+
+# ---------------------------------------------------------------------------
+# Statistics used by the energy model and the experiment tables
+# ---------------------------------------------------------------------------
+
+
+def sparsity(x: torch.Tensor) -> torch.Tensor:
+    """Fraction of exact zeros (the paper's 'weight sparsity' column)."""
+    return (x == 0).to(torch.float32).mean()
+
+
+def trit_histogram(x: torch.Tensor) -> torch.Tensor:
+    """Counts of (-1, 0, +1) — input must already be ternary."""
+    return torch.stack([(x == -1).sum(), (x == 0).sum(), (x == 1).sum()])

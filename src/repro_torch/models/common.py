@@ -94,6 +94,7 @@ def linear(p, x, *, quant: str = "none"):
 
     quant modes:
       none           - plain matmul,
+      ternary        - QAT: STE-ternarized weights (per-column scale),
       ternary_packed - serving: ``x @ (decode(w_packed)[:d_in] * alpha)``
                        through the packed-trit kernel
                        (`repro_torch.kernels.ternary_matmul`), x flattened
@@ -109,12 +110,12 @@ def linear(p, x, *, quant: str = "none"):
         y = _mm.ternary_matmul(x.reshape(-1, x.shape[-1]), p["w_packed"],
                                scale=p["scale"], round_scale=True
                                ).reshape(*lead, -1)
+    elif quant == "ternary":
+        y = x @ T.ternarize_ste(p["w"], axis=(0,))
     elif quant == "none":
         y = x @ p["w"]
     else:
-        raise NotImplementedError(
-            f"linear(quant={quant!r}) comes with the training path "
-            "(ROADMAP.md §1 item 6)")
+        raise ValueError(f"unknown linear quant {quant!r}")
     if "b" in p:
         y = y + p["b"]
     return y

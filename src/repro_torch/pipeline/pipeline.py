@@ -72,6 +72,7 @@ class CutiePipeline:
         self._lowered = [self.backend.lower(i, self.device)
                          for i in program.layers]
         self._programs: dict[tuple, object] = {}   # built program fns
+        self._variants: set[tuple] = set()         # (input shape, traced)
 
     @classmethod
     def compile(cls, source, *,
@@ -125,6 +126,14 @@ class CutiePipeline:
         """Executed batches are padded to a multiple of this: 1, since
         the port runs on one device."""
         return 1
+
+    @property
+    def n_jit_variants(self) -> int:
+        """Distinct ``(input shape, traced)`` variants run so far, on
+        every backend (on ``fused`` each is a built program) — the
+        quantity a serving engine's batch bucketing keeps bounded; the
+        reference's count of jit specializations."""
+        return len(self._variants)
 
     def shapes(self, in_shape) -> list[tuple]:
         return program_shapes(self.program, in_shape)
@@ -204,6 +213,7 @@ class CutiePipeline:
         if x.dim() != 4:
             raise ValueError(f"expected (N, H, W, C) trits, got "
                              f"{tuple(x.shape)}")
+        self._variants.add((tuple(x.shape), tracer is not None))
         fn = self._program(x.shape, tracer)
         if fn is not None:
             out, counts = fn(self._lowered, x)
@@ -252,8 +262,20 @@ class CutiePipeline:
 
     # -- serving ------------------------------------------------------------
 
-    def engine(self, *args, **kwargs):
-        """Not ported yet: CNN serving comes with `repro_torch.serving`."""
-        raise NotImplementedError(
-            "CutiePipeline.engine is not ported yet: see ROADMAP.md, "
-            "'Modules still to port', item 7 (CNN serving and obs)")
+    def engine(self, scheduler="fcfs", *, model: str = "default",
+               buckets=None, head=None, tracer: Tracer | None = None,
+               trace: bool = True):
+        """A `CutieEngine` serving this pipeline under ``model``.
+
+        One submit -> schedule -> execute -> stream surface: pluggable
+        scheduler (``"fcfs"`` | ``"priority"`` | ``"deadline"`` or a
+        Scheduler instance), batch bucketing (program variants bounded
+        by ``buckets``), per-request handles with cancellation, and
+        first-class latency/energy stats.  Register further models on
+        the returned engine to serve them concurrently.
+        """
+        from repro_torch.serving.engine import CutieEngine
+
+        eng = CutieEngine(scheduler, trace=trace)
+        eng.register(model, self, buckets=buckets, head=head, tracer=tracer)
+        return eng

@@ -3,7 +3,8 @@
 The whole serving plane sits behind :class:`CutieEngine`'s
 submit → schedule → execute → stream lifecycle: pluggable schedulers
 (FCFS / priority / deadline), a multi-model hot-swappable registry, and
-first-class latency / queue-depth stats.  LLM decode memory is **paged**
+first-class latency / queue-depth stats.  Compiled CNN programs serve
+through the bucketed `ProgramExecutor`.  LLM decode memory is **paged**
 (:mod:`repro_torch.serving.blocks`): block-granular allocation,
 content-hash prefix reuse, LRU eviction and copy-on-write forks behind
 `LLMExecutor`'s split `prefill()` / `decode()` paths.
@@ -12,17 +13,18 @@ Failure handling is first-class: :mod:`repro_torch.serving.faults`
 provides a deterministic fault injector (`FaultPlan` / `FaultyExecutor`)
 and the engine's recovery policy (`FaultPolicy`).
 
-Not ported yet, each raising where it would be reached: the CNN
-`ProgramExecutor` (ROADMAP.md §1 item 7), speculative decoding and the
-serving-state snapshot (item 10 and item 8).
+Not ported yet, each raising where it would be reached: speculative
+decoding and the serving-state snapshot (ROADMAP.md §1 item 10 and
+item 8), and ``mesh=`` execution (item 9).
 """
 
 from repro_torch.serving.blocks import (BlockPool, KVPagedStore,  # noqa: F401
                                         OutOfBlocks, PagedSequenceManager,
                                         PrefixCache)
 from repro_torch.serving.engine import CutieEngine, percentiles  # noqa: F401
-from repro_torch.serving.executors import (ExecutionReport,  # noqa: F401
-                                           Executor)
+from repro_torch.serving.executors import (DEFAULT_BUCKETS,  # noqa: F401
+                                           ExecutionReport, Executor,
+                                           ProgramExecutor)
 from repro_torch.serving.faults import (FAULT_KINDS, DeviceLost,  # noqa: F401
                                         FaultPlan, FaultPolicy,
                                         FaultyExecutor, GarbageOutputError,
@@ -46,7 +48,7 @@ __all__ = [
     "Request", "RequestHandle", "RequestStatus", "RequestCancelled",
     "Scheduler", "FCFSScheduler", "PriorityScheduler", "DeadlineScheduler",
     "SCHEDULERS", "get_scheduler",
-    "Executor", "ExecutionReport",
+    "Executor", "ExecutionReport", "ProgramExecutor", "DEFAULT_BUCKETS",
     "LLMExecutor", "ServerConfig", "ExistingPrefix", "PrefillResult",
     "BlockPool", "OutOfBlocks", "PrefixCache", "PagedSequenceManager",
     "KVPagedStore",

@@ -11,10 +11,11 @@ returns a :class:`~repro_torch.serving.request.RequestHandle`; a pluggable
 :class:`~repro_torch.serving.scheduler.Scheduler` owns admission and batch
 formation (FCFS / priority / deadline); an
 :class:`~repro_torch.serving.executors.Executor` runs each admitted batch
-(the LLM decode loop: prefill the newcomers, one decode step for every
-resident slot); completed results stream back through ``stream()`` /
-``result()``.  A :class:`~repro_torch.serving.registry.ModelRegistry`
-serves multiple models concurrently with hot-swap.
+(a bucketed CNN program run, or the LLM decode loop: prefill the
+newcomers, one decode step for every resident slot); completed results
+stream back through ``stream()`` / ``result()``.  A
+:class:`~repro_torch.serving.registry.ModelRegistry` serves multiple
+compiled programs and models concurrently with hot-swap.
 
 Latency, queue-depth and tracer-derived switching-energy accounting are
 first-class: every request is timestamped through its lifecycle and
@@ -23,6 +24,8 @@ queue-time, queue depth, batch occupancy, deadline hit-rate, jit-variant
 counts and switching energy.
 
     engine = CutieEngine("deadline")
+    engine.register("cnn", graph_or_program, backend="cuda")
+    h = engine.submit(img, model="cnn", deadline=0.05)
     engine.register("llm", LLMExecutor(params, cfg, ServerConfig()))
     h = engine.submit(prompt_tokens, model="llm", deadline=0.05)
     y = h.result()                      # drives the engine
@@ -56,6 +59,7 @@ from typing import Any, Iterator, Optional
 import numpy as np
 
 from repro_torch import obs as _obs
+from repro_torch.serving.executors import ProgramExecutor
 from repro_torch.serving.faults import (FaultPolicy, GarbageOutputError,
                                         LoadShedError, ModelQuarantinedError,
                                         RequestTimeout, TransientFault)
@@ -186,6 +190,10 @@ class CutieEngine:
             for key, v in stats.items():
                 if isinstance(v, (int, float)):
                     g.set(float(v), model=name, stat=key)
+        if isinstance(ex, ProgramExecutor):
+            self.obs.metrics.gauge(
+                "jit_variants", "compiled jit specializations per model"
+            ).set(ex.n_jit_variants, model=name)
 
     def _publish_metrics(self) -> None:
         """Engine-level gauges refreshed at every metrics snapshot."""
@@ -870,11 +878,29 @@ class CutieEngine:
                 "tokens_per_step": toks / steps if steps else None,
             }
         occ = [b["live"] / b["padded"] for b in self.batches]
-        # jit variants, per-device occupancy and mesh topology are the
-        # reference's ProgramExecutor accounting (bucketed CNN batches on a
-        # mesh), which waits for ROADMAP.md §1 item 7: empty here
-        jit_variants: dict = {}
-        per_device_occupancy: dict = {}
+        jit_variants = {
+            name: ex.n_jit_variants
+            for name, ex in self.registry.items()
+            if isinstance(ex, ProgramExecutor)}
+        # per-data-parallel-device occupancy, per meshed model: how full
+        # each device's batch shard ran, averaged over executed batches.
+        # Hot-swapping a model across meshes changes the device count, so
+        # only batches matching the model's current degree are averaged.
+        current_dp = {
+            name: ex.data_parallel for name, ex in self.registry.items()
+            if isinstance(ex, ProgramExecutor)}
+        per_dev: dict = {}
+        for b in self.batches:
+            pdl = b.get("per_device_live")
+            if pdl and len(pdl) == current_dp.get(b["model"]):
+                per = b["padded"] / len(pdl)
+                per_dev.setdefault(b["model"], []).append(
+                    [n / per for n in pdl])
+        per_device_occupancy = {
+            model: [float(v) for v in np.mean(rows, axis=0)]
+            for model, rows in per_dev.items()}
+        # mesh topology per meshed model: mesh= execution waits for
+        # ROADMAP.md §1 item 9, so no model is meshed and this stays empty
         sharding: dict = {}
         # executor-specific accounting (paged-state block/prefix counters
         # from LLM executors ride in here; see Executor.extra_stats)

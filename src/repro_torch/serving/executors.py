@@ -6,19 +6,27 @@ hands it the admitted requests, and gets back an
 :class:`ExecutionReport` — completions plus batch accounting.  Two
 families:
 
-* one-shot: a request completes in a single call — the CUTIE CNN case
-  (the reference's bucketed ``ProgramExecutor``, which waits for
-  ROADMAP.md §1 item 7 here);
+* one-shot (`ProgramExecutor`): a request completes in a single call —
+  the CUTIE CNN case, one whole-program pipeline run per batch;
 * resident (the LLM decode loop in `repro_torch.serving.llm`): a
   request occupies a slot across many calls and completes later, so
   ``execute`` may return fewer completions than it was handed and
   ``has_resident()`` keeps the engine stepping while work is in flight.
+
+`ProgramExecutor` pads live requests up to a small fixed set of batch
+sizes (**buckets**) before running the pipeline, so the number of
+program variants (input shapes the pipeline has run) is bounded by
+``len(buckets)`` no matter what batch sizes the load produces, and
+steady-state batches stay full instead of flushing every slot each step.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Callable, Optional, Sequence
+
+import numpy as np
+import torch
 
 from repro_torch import obs as _obs
 
@@ -87,3 +95,140 @@ class Executor:
 
     def execute(self, requests) -> ExecutionReport:
         raise NotImplementedError
+
+
+DEFAULT_BUCKETS = (1, 2, 4, 8)
+
+_TRITS = (-1, 0, 1)
+
+
+class ProgramExecutor(Executor):
+    """Bucketed whole-program executor over a `CutiePipeline`.
+
+    A batch of live requests is padded with zero images up to the
+    smallest bucket that fits, sent to the pipeline's device as one
+    tensor, executed as one pipeline run and sliced back — at most
+    ``len(buckets)`` program variants per tracer configuration, full
+    batches in the loaded steady state.
+
+    ``head``: optional host-side callable mapping one request's final
+    trit array to its response.  ``tracer``: a pipeline Tracer whose
+    per-batch rows ride back on the ExecutionReport; a SwitchingTracer
+    additionally prices each batch with the calibrated energy model
+    (per-inference switching energy, padding slots included).
+
+    ``mesh=`` (multi-device execution) is not ported yet and raises.
+    """
+
+    def __init__(self, pipeline, *, buckets: Optional[Sequence[int]] = None,
+                 head: Optional[Callable] = None, tracer=None, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "ProgramExecutor(mesh=...) is not ported yet: see "
+                "ROADMAP.md, 'Modules still to port', item 9 "
+                "(launch/cutie_mesh.py on torch.distributed)")
+        self.pipeline = pipeline
+        self.data_parallel = 1                   # one device: no mesh
+        buckets = tuple(sorted(set(buckets or DEFAULT_BUCKETS)))
+        if not buckets or buckets[0] < 1:
+            raise ValueError(f"buckets must be positive ints, "
+                             f"got {buckets}")
+        self.buckets = buckets
+        self.head = head
+        self.tracer = tracer
+        self._shape: Optional[tuple] = None      # (H, W, C), set on first submit
+        self._energy_params = None
+
+    # -- engine protocol ----------------------------------------------------
+
+    def free_capacity(self) -> int:
+        return self.buckets[-1]
+
+    def validate(self, value) -> np.ndarray:
+        """Trit-domain validation: (H, W, C), values in {-1, 0, +1},
+        int8-coercible — rejected with a clear error, never silently cast."""
+        arr = np.asarray(value)
+        if arr.ndim != 3:
+            raise ValueError(f"expected (H, W, C) trit image, "
+                             f"got {arr.shape}")
+        if self._shape is None:
+            self._shape = arr.shape
+        elif arr.shape != self._shape:
+            raise ValueError(f"image {arr.shape} does not match serving "
+                             f"shape {self._shape}")
+        if arr.dtype.kind not in "biuf":
+            raise TypeError(f"trit image must be numeric, "
+                            f"got dtype {arr.dtype}")
+        if arr.dtype.kind == "f" and (not np.all(np.isfinite(arr))
+                                      or np.any(arr != np.rint(arr))):
+            raise ValueError(
+                "trit image is not int8-coercible: non-integral float "
+                "values (quantize to {-1, 0, +1} before submitting)")
+        ok = np.isin(arr, _TRITS)
+        if not ok.all():
+            bad = np.unique(np.asarray(arr)[~ok])[:5]
+            raise ValueError(f"trit image values must be in "
+                             f"{{-1, 0, +1}}, got {bad.tolist()}")
+        return arr.astype(np.int8)
+
+    def execute(self, requests) -> ExecutionReport:
+        live = len(requests)
+        size = self.bucket_for(live)
+        if self._shape is None:
+            # hot-swapped in with traffic already queued: the requests
+            # were validated by the predecessor, so lock to their shape
+            self._shape = tuple(requests[0].value.shape)
+        batch = np.zeros((size,) + self._shape, np.int8)
+        for i, req in enumerate(requests):
+            batch[i] = req.value
+        variants_before = self.pipeline.n_jit_variants
+        out = self.pipeline.run(
+            torch.from_numpy(batch).to(self.pipeline.device),
+            tracer=self.tracer)
+        if self.pipeline.n_jit_variants > variants_before:
+            # a new program variant ran inside this batch (on `fused`, a
+            # program built for its shape) — the latency outlier a trace
+            # should be able to explain
+            self.obs.trace.instant(
+                "jit_compile", cat="jit", bucket=size,
+                n_variants=self.pipeline.n_jit_variants)
+            self.obs.metrics.counter(
+                "jit_compiles_total",
+                "jit specializations compiled during serving").inc()
+        rows = None
+        if self.tracer is not None:
+            out, rows = out
+        feats = out.cpu().numpy()[:live]
+        completions = [
+            (req.uid, self.head(feats[i]) if self.head is not None
+             else feats[i])
+            for i, req in enumerate(requests)]
+        return ExecutionReport(completions, live, size, rows=rows,
+                               energy_uj=self._price(rows))
+
+    # -- internals ----------------------------------------------------------
+
+    def bucket_for(self, n: int) -> int:
+        """Smallest bucket holding n requests (n bounded by capacity)."""
+        for b in self.buckets:
+            if b >= n:
+                return b
+        raise ValueError(f"batch of {n} exceeds largest bucket "
+                         f"{self.buckets[-1]}")
+
+    def _price(self, rows) -> Optional[float]:
+        """Per-inference switching energy when tracing with SwitchingTracer."""
+        from repro_torch.pipeline.tracer import SwitchingTracer
+
+        if rows is None or not isinstance(self.tracer, SwitchingTracer):
+            return None
+        from repro_torch.energy import model as E
+
+        if self._energy_params is None:
+            self._energy_params = E.EnergyParams(
+                self.pipeline.program.instance.technology)
+        return E.network_energy(rows, self._energy_params)["energy_uj"]
+
+    @property
+    def n_jit_variants(self) -> int:
+        return self.pipeline.n_jit_variants

@@ -1,19 +1,23 @@
-"""Multi-model registry: executors served by name, hot-swappable.
+"""Multi-model registry: compiled programs served by name, hot-swappable.
 
 One engine serves many models concurrently; requests route by model
-name.  Registering an existing name replaces the executor in place
-(hot-swap): requests already queued under that name execute on the new
-model at their next admission.
+name.  ``register`` accepts anything on the compile path — a
+`repro_torch.compiler.Graph` (compiled via the graph compiler), a
+`CompileResult`, a raw `CutieProgram`, an already-bound `CutiePipeline`,
+or a custom `Executor` — and normalizes it to an executor.
 
-The reference also accepts the CNN compile path here (a Graph, a
-CompileResult, a CutieProgram or a CutiePipeline, normalized to a
-bucketed ``ProgramExecutor``); in the port that waits for ROADMAP.md §1
-item 7, and only an `Executor` instance registers.
+Registering an existing name replaces the executor in place (hot-swap):
+requests already queued under that name execute on the new model at
+their next admission.  The swapped-in model must accept the same input
+shape as any still-queued traffic, since inputs were validated against
+the old executor at submit time.
 """
 
 from __future__ import annotations
 
-from repro_torch.serving.executors import Executor
+from typing import Optional, Sequence
+
+from repro_torch.serving.executors import Executor, ProgramExecutor
 
 
 class ModelRegistry:
@@ -22,17 +26,52 @@ class ModelRegistry:
 
     # -- registration -------------------------------------------------------
 
-    def register(self, name: str, source, **options) -> Executor:
-        """Register the executor ``source`` under ``name``; returns it."""
-        if not isinstance(source, Executor) or options:
-            raise NotImplementedError(
-                f"cannot register a {type(source).__name__}"
-                f"{' with options ' + str(sorted(options)) if options else ''}"
-                ": CNN programs and their serving options wait for the "
-                "port's ProgramExecutor (ROADMAP.md §1 item 7); register an "
-                "Executor such as LLMExecutor")
-        self._executors[name] = source
-        return source
+    def register(self, name: str, source, *, backend=None,
+                 buckets: Optional[Sequence[int]] = None, head=None,
+                 tracer=None, instance=None, mesh=None, device=None,
+                 **compiler_options) -> Executor:
+        """Register ``source`` under ``name``; returns its executor.
+
+        ``backend``/``buckets``/``head``/``tracer`` configure the
+        ProgramExecutor built for program-like sources; ``device`` is
+        where a program, compile result or graph is bound (the card by
+        default); ``instance``/``compiler_options`` apply to the Graph
+        compile path only.  ``mesh`` is not ported yet and raises.  An
+        Executor instance is registered as-is.
+        """
+        executor = self._build(source, backend=backend, buckets=buckets,
+                               head=head, tracer=tracer, instance=instance,
+                               mesh=mesh, device=device, **compiler_options)
+        self._executors[name] = executor
+        return executor
+
+    def _build(self, source, *, backend, buckets, head, tracer, instance,
+               mesh=None, device=None, **compiler_options) -> Executor:
+        if isinstance(source, Executor):
+            return source
+
+        from repro_torch import compiler
+        from repro_torch.core import engine as core_engine
+        from repro_torch.pipeline import CutiePipeline
+
+        if isinstance(source, CutiePipeline):
+            pipe = source
+        elif isinstance(source, core_engine.CutieProgram):
+            pipe = CutiePipeline(source, backend=backend, device=device)
+        elif isinstance(source, compiler.CompileResult):
+            pipe = source.pipeline(backend, device=device)
+        elif isinstance(source, compiler.Graph):
+            kw = dict(compiler_options, backend=backend, device=device)
+            if instance is not None:
+                kw["instance"] = instance
+            pipe = CutiePipeline.compile(source, **kw)
+        else:
+            raise TypeError(
+                f"cannot register a {type(source).__name__}: expected "
+                "a Graph, CompileResult, CutieProgram, CutiePipeline "
+                "or Executor")
+        return ProgramExecutor(pipe, buckets=buckets, head=head,
+                               tracer=tracer, mesh=mesh)
 
     def unregister(self, name: str) -> Executor:
         if name not in self._executors:

@@ -718,3 +718,95 @@ def test_reduced_llm_serve_on_card(cuda):
         assert MM.LAUNCHES["ternary_matmul"] == 7 * cfg.n_layers * forwards
     assert outs[True] == outs[False]
     assert all(len(v) == 5 for v in outs[True].values())
+
+
+def _trained_cifar(cuda, width=128):
+    """The CIFAR-10 QAT model at ``width`` from a seed, INQ frozen to 100%
+    (pure trits, as `cutie_qat.run` ends), compiled with its head."""
+    from repro_torch.configs.cutie_cnn import CutieCNNConfig
+    from repro_torch.models import cutie_cnn as CNN
+    from repro_torch.train import cutie_qat as Q
+
+    cfg = CutieCNNConfig(width=width)
+    model = CNN.CutieCNN(cfg, seed=0, device=cuda)
+    Q.freeze(model, 1.0, Q.inq_config(Q.QATRunConfig(width=width)))
+    return Q.compile({"model": model, "cfg": cfg}, include_head=True,
+                     optimize=True)
+
+
+def test_serving_every_bucket_every_backend_equals_ref(cuda):
+    """The full-width CIFAR-10 program with its head served through
+    `CutieEngine` + `ProgramExecutor` on every backend (and a two-trunk
+    fused split), one bucket at a time (1, 2, 4, 8): every response
+    equal to the ``ref`` backend's on the card, variants within the
+    buckets."""
+    from repro_torch import compiler
+    from repro_torch.data import cifar
+    from repro_torch.serving import CutieEngine
+
+    compiled = _trained_cifar(cuda)
+    prog = compiled.program
+    x = cifar.encoded_batch(cifar.SynthCifarConfig(), "test", 0, 8,
+                            device=cuda)["x"].to(torch.int8)
+    want = compiled.pipeline("ref", device=cuda).run(x).cpu().numpy()
+    imgs = list(x.cpu().numpy())
+    for bucket in (1, 2, 4, 8):
+        budget = compiler.trunk_l2_bytes(prog.layers[:4],
+                                         (bucket,) + tuple(x.shape[1:]))
+        for backend in ("cuda", "packed", "fused",
+                        FusedBackend(l2_budget=budget)):
+            eng = CutieEngine("fcfs")
+            ex = eng.register("m", compiled, backend=backend, device=cuda,
+                              buckets=(bucket,))
+            hs = [eng.submit(im, model="m") for im in imgs]
+            eng.run()
+            for h, w in zip(hs, want):
+                assert np.array_equal(h.request.result, w), (bucket, backend)
+            assert {b["padded"] for b in eng.batches} == {bucket}
+            assert ex.n_jit_variants == 1
+
+
+def test_qat_step_on_card_matches_cpu(cuda):
+    """One INQ training step at width 16 from the same weights on the
+    card and on the CPU, TF32 off (restored after): the loss within
+    1e-5 relative, the gradient norm within 1e-4, updated tensors within
+    1e-5 except where a gradient's sign flipped (at most 0.1% of the
+    values, each within the step's bound 2 * lr)."""
+    import copy
+
+    from repro_torch.configs.cutie_cnn import CutieCNNConfig
+    from repro_torch.data import cifar
+    from repro_torch.models import cutie_cnn as CNN
+    from repro_torch.optim import adam
+    from repro_torch.train import cutie_qat as Q
+
+    rc = Q.QATRunConfig(width=16, steps=10)
+    icfg, acfg = Q.inq_config(rc), Q.adam_config(rc)
+    cpu = CNN.CutieCNN(CutieCNNConfig(width=16), seed=0, device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    for m in (cpu, card):
+        Q.freeze(m, 0.2, icfg)
+    bc = cifar.encoded_batch(rc.data, "train", 0, 16, device="cpu")
+    bg = cifar.encoded_batch(rc.data, "train", 0, 16, device=cuda)
+    assert torch.equal(bc["x"], bg["x"].cpu())
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        _, mc = Q.train_step(cpu, adam.init_state(cpu.trainable()), bc, acfg)
+        _, mg = Q.train_step(card, adam.init_state(card.trainable()), bg,
+                             acfg)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    assert float(mg["loss"]) == pytest.approx(float(mc["loss"]), rel=1e-5)
+    assert float(mg["grad_norm"]) == pytest.approx(float(mc["grad_norm"]),
+                                                   rel=1e-4)
+    far = total = 0
+    for a, b in zip(cpu.state_dict().values(), card.state_dict().values()):
+        d = (a - b.cpu()).abs()
+        assert float(d.max()) <= 2 * acfg.lr + 1e-5
+        far += int((d > 1e-5).sum())
+        total += d.numel()
+    assert far <= 1e-3 * total

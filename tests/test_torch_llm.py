@@ -304,6 +304,10 @@ def test_unported_surfaces_name_their_roadmap_item(model):
     ex = LLMExecutor(p, cfg, ServerConfig())
     with pytest.raises(NotImplementedError, match="item 8"):
         ex.snapshot()
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # the QAT quant is ported (tests/test_torch_train.py); an unknown
+    # quant is refused
+    assert C.linear({"w": torch.ones(2, 2)}, torch.ones(1, 2),
+                    quant="ternary").shape == (1, 2)
+    with pytest.raises(ValueError, match="unknown linear quant"):
         C.linear({"w": torch.zeros(2, 2)}, torch.zeros(1, 2),
-                 quant="ternary")
+                 quant="binary")

@@ -168,17 +168,15 @@ def test_unported_surfaces_name_their_roadmap_item():
                          device="cpu").backend_name == "fused"
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*cutie_mesh"):
         CutiePipeline(prog, device="cpu", mesh=8)
-    # ``compile`` is ported (tests/test_torch_compiler.py); serving a
-    # compiled program waits for CNN serving
+    # ``compile`` and CNN serving are ported (tests/test_torch_compiler.py,
+    # tests/test_torch_cnn_serving.py)
     from repro_torch import compiler
     g = compiler.Graph(in_channels=WIDTH, in_hw=(4, 4))
     g.conv(np.ones((3, 3, WIDTH, WIDTH), np.float32))
     result = compiler.compile_graph(g, device="cpu")
     assert result.pipeline("ref", device="cpu").compile_result is result
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 7"):
-        result.serve("cnn")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*serving"):
-        pipe.engine("fcfs")
+    assert result.serve("cnn", device="cpu").models() == ["cnn"]
+    assert pipe.engine("fcfs").models() == ["default"]
     with pytest.raises(ValueError, match="unknown backend"):
         CutiePipeline(prog, backend="pallas", device="cpu")
 

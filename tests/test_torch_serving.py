@@ -4,7 +4,8 @@ KV pages, and the engine's scheduling, cancellation and routing.
 Mirrors the reference's allocator and engine cases
 (tests/test_paged_state.py, tests/test_serving_engine.py); where those
 serve a CNN program, these serve a stub `Executor` (the port's
-`ProgramExecutor` waits for ROADMAP.md §1 item 7).  The KV page layout
+`ProgramExecutor` has its own suite, tests/test_torch_cnn_serving.py).
+The KV page layout
 and the trit KV codec are held against the reference's
 `repro.serving.blocks` on the same rows.
 """
@@ -332,7 +333,7 @@ def test_routing_hot_swap_and_registry():
     eng.register("a", _Stub(lambda v: -v))   # hot-swap
     assert queued.result() == -5
     reg = ModelRegistry()
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="cannot register"):
         reg.register("cnn", object())
     with pytest.raises(ValueError, match="unknown model"):
         reg["nope"]
