@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.compiler.graph import Graph, GraphError, Node, _err
-from repro_torch.core import engine
+from repro_torch.core import engine, folding
 from repro_torch.core import ternary as T
 
 _ID_BN = {"gamma": 1.0, "beta": 0.0, "mean": 0.0, "var": 1.0}
@@ -111,7 +111,7 @@ def ternarize_weights(graph: Graph) -> Graph:
         gamma, beta = f32("gamma", 1.0), f32("beta", 0.0)
         mean, var, bias = f32("mean", 0.0), f32("var", 1.0), f32("bias", 0.0)
         eps = float(bn.get("eps", 1e-5))
-        s = torch.sqrt(var + eps)
+        s = folding.sqrt_rn(var + eps)
         node.weights = trits.to(torch.int8)
         node.bn = {
             "gamma": (gamma * alpha).expand(c).clone(),

@@ -2,18 +2,18 @@
 
 ``get(name)`` returns the full-size ArchConfig.  The names are the
 reference's; an architecture the port does not run yet raises, naming
-its ROADMAP item and why: its family, or only its config file.
+its ROADMAP item: its family waits for ROADMAP.md §1 item 10.
 """
 
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["llama3_2_1b"]
+ARCH_IDS = ["internlm2_1_8b", "llama3_2_1b", "codeqwen1_5_7b",
+            "qwen2_5_32b"]
 
 # every architecture of the reference; those not in ARCH_IDS wait for
-# their family or, for the dense ones in CONFIG_PENDING, only for their
-# config file (ROADMAP.md §1 item 10)
+# their family (ROADMAP.md §1 item 10)
 KNOWN_IDS = [
     "whisper_medium",
     "mamba2_780m",
@@ -26,9 +26,6 @@ KNOWN_IDS = [
     "zamba2_2_7b",
     "llava_next_mistral_7b",
 ]
-
-# dense: the port runs their family; their config files are not ported yet
-CONFIG_PENDING = {"internlm2_1_8b", "codeqwen1_5_7b", "qwen2_5_32b"}
 
 ALIASES = {a.replace("_", "-"): a for a in KNOWN_IDS}
 ALIASES.update({
@@ -48,10 +45,6 @@ ALIASES.update({
 def get(name: str):
     mod_name = ALIASES.get(name, name).replace("-", "_").replace(".", "_")
     if mod_name not in ARCH_IDS:
-        if mod_name in CONFIG_PENDING:
-            raise NotImplementedError(
-                f"{name!r} is not ported yet: its config file is not "
-                "ported yet (ROADMAP.md §1 item 10, step 1)")
         if mod_name in KNOWN_IDS:
             raise NotImplementedError(
                 f"{name!r} is not ported yet: its family waits for "

@@ -10,6 +10,10 @@ with the compare direction flipped for g < 0 and a constant channel
 ternarize(c) for g == 0 (paper §III-C).  Average pooling is merged by
 summing z over the window and scaling both thresholds by its size; max
 pooling pools sign(g)*z.
+
+The square root is correctly rounded (`sqrt_rn`), as XLA's is on the CPU
+and CUDA's ``sqrtf`` is; PyTorch's CPU ``sqrt`` is not, and one ulp of
+``s`` can move a threshold by two.
 """
 
 from __future__ import annotations
@@ -33,6 +37,27 @@ class ChannelThresholds:
                                    for f in dataclasses.fields(self)))
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root on any device.
+
+    The root is taken in float64 and rounded, then settled exactly: the
+    float32 neighbours' midpoints have 25 significant bits, so their
+    squares are exact in float64 and say which side of each midpoint the
+    true root lies on.
+    """
+    xd = x.to(torch.float32).double()
+    r = torch.sqrt(xd).to(torch.float32)
+    up = torch.nextafter(r, torch.full_like(r, torch.inf))
+    r = torch.where(_mid_sq(r, up) < xd, up, r)
+    down = torch.nextafter(r, torch.zeros_like(r))
+    return torch.where(_mid_sq(r, down) > xd, down, r)
+
+
+def _mid_sq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    mid = (a.double() + b.double()) * 0.5
+    return mid * mid
+
+
 def fold_thresholds(alpha, bias, gamma, beta, mean, var, eps: float = 1e-5,
                     act_threshold: float = 0.5) -> ChannelThresholds:
     """Fold (scale, bias, BN, hardtanh+ternarize) into two thresholds.
@@ -40,7 +65,7 @@ def fold_thresholds(alpha, bias, gamma, beta, mean, var, eps: float = 1e-5,
     All arguments are per-output-channel float32 tensors (or scalars
     broadcastable to (C,)); ``alpha`` is the ternary weight scale.
     """
-    s = torch.sqrt(var + eps)
+    s = sqrt_rn(var + eps)
     g = gamma * alpha / s
     c = gamma * (bias - mean) / s + beta
     safe_g = torch.where(g == 0, torch.ones_like(g), g)

@@ -128,13 +128,22 @@ class CutieCNN(nn.Module):
         conv weights come from the INQ mask/q combination and the FC
         stays float (the INQ experiments of Table IV); otherwise every
         weight is STE-quantized.
+
+        Each layer's pre-activation (conv, BN, pool) is computed in
+        float64 and rounded once to float32 before the quantizer, so it
+        does not depend on the summation order of the device's conv or
+        reductions: the card and the CPU quantize the same trits (a value
+        within float32 noise of +-0.5 would otherwise flip a trit on one
+        of them and part the two runs).  The conv's gradients stay
+        float32 (`_Conv64`); the BN running stats stay float32, updated
+        from the rounded batch statistics.
         """
         cfg = self.cfg
         bn_updates = []
         for (_op, _mult, pool), b in zip(cfg.layout, self.layers):
             w = self.effective_weight(b, inq)
-            z = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
-                         padding=1).permute(0, 2, 3, 1)
+            z = _Conv64.apply(x.permute(0, 3, 1, 2),
+                              w.permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
             y, stats = _batchnorm(b, z, train)
             bn_updates.append(stats)
             # pooling happens BEFORE the activation quantizer — the
@@ -146,10 +155,32 @@ class CutieCNN(nn.Module):
                 yr = y.reshape(n, h // win, win, wd // win, win, c)
                 y = (yr.amax(dim=(2, 4)) if kind == "max"
                      else yr.mean(dim=(2, 4)))
-            x = _quant_act(y, cfg.act_mode)
+            x = _quant_act(y.float(), cfg.act_mode)
         feats = x.reshape(x.shape[0], -1)
         w_fc = self.fc if inq else _quant_w(self.fc, cfg.weight_mode)
         return feats @ w_fc, bn_updates
+
+
+class _Conv64(torch.autograd.Function):
+    """3x3 'same' conv of float32 NCHW ``x`` and OIHW ``w``: the value in
+    float64, whose rounding to float32 no summation order moves; the
+    gradients in float32, as the float32 conv's."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return F.conv2d(x.double(), w.double(), padding=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.nn.grad.conv2d_input(x.shape, w, g, padding=1)
+        if ctx.needs_input_grad[1]:
+            gw = torch.nn.grad.conv2d_weight(x, w.shape, g, padding=1)
+        return gx, gw
 
 
 def _quant_w(w, mode: str):
@@ -175,8 +206,10 @@ def _batchnorm(b: ConvBlock, z, train: bool):
     if train:
         mu = z.mean(dim=(0, 1, 2))
         var = z.var(dim=(0, 1, 2), correction=0)
-        new_mean = BN_MOMENTUM * b.mean + (1 - BN_MOMENTUM) * mu.detach()
-        new_var = BN_MOMENTUM * b.var + (1 - BN_MOMENTUM) * var.detach()
+        new_mean = (BN_MOMENTUM * b.mean
+                    + (1 - BN_MOMENTUM) * mu.detach().float())
+        new_var = (BN_MOMENTUM * b.var
+                   + (1 - BN_MOMENTUM) * var.detach().float())
     else:
         mu, var = b.mean, b.var
         new_mean, new_var = b.mean, b.var

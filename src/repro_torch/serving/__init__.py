@@ -11,11 +11,12 @@ content-hash prefix reuse, LRU eviction and copy-on-write forks behind
 
 Failure handling is first-class: :mod:`repro_torch.serving.faults`
 provides a deterministic fault injector (`FaultPlan` / `FaultyExecutor`)
-and the engine's recovery policy (`FaultPolicy`).
+and the engine's recovery policy (`FaultPolicy`), while
+:mod:`repro_torch.serving.snapshot` checkpoints the whole serving state
+so a killed engine resumes in-flight decodes bit-identically.
 
 Not ported yet, each raising where it would be reached: speculative
-decoding and the serving-state snapshot (ROADMAP.md §1 item 10 and
-item 8), and ``mesh=`` execution (item 9).
+decoding (ROADMAP.md §1 item 10) and ``mesh=`` execution (item 9).
 """
 
 from repro_torch.serving.blocks import (BlockPool, KVPagedStore,  # noqa: F401
@@ -41,6 +42,8 @@ from repro_torch.serving.scheduler import (SCHEDULERS,  # noqa: F401
                                            DeadlineScheduler, FCFSScheduler,
                                            PriorityScheduler, Scheduler,
                                            get_scheduler)
+from repro_torch.serving.snapshot import (  # noqa: F401
+    restore_serving_state, save_serving_state)
 
 __all__ = [
     "CutieEngine", "percentiles",
@@ -56,4 +59,5 @@ __all__ = [
     "TransientFault", "DeviceLost", "PoisonedRequestError",
     "GarbageOutputError", "LoadShedError", "ModelQuarantinedError",
     "RequestTimeout",
+    "save_serving_state", "restore_serving_state",
 ]

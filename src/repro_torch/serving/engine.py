@@ -46,8 +46,9 @@ outputs are guarded and retried, per-request ``timeout=`` budgets are
 enforced, admission sheds load past the policy's queue caps, and a
 model that fails repeatedly is quarantined (optionally rerouting its
 traffic to a registered fallback) while everything else keeps serving.
-Checkpointing the paged serving state (the reference's
-``serving/snapshot.py``) waits for ROADMAP.md §1 item 8.
+The paged serving state itself is checkpointable — see
+:mod:`repro_torch.serving.snapshot` for kill/restore with bit-identical
+continuation.
 """
 
 from __future__ import annotations

@@ -24,11 +24,13 @@ by construction.  Exact equality additionally wants
 ``cfg.attn_kv_chunk <= block_size`` so the flash kv-chunk grid is
 identical for full-prompt and suffix prefill.
 
-The reference's SSM branches (state slots in the same pool) wait for the
-mamba2 family (ROADMAP.md §1 item 10), and ``snapshot``/``restore`` for
-ROADMAP.md §1 item 8.  The reference's jit variant cache becomes the
-same bookkeeping of prefill bucket shapes, so ``n_jit_variants`` keeps
-its meaning: the shapes seen plus the decode step.
+`LLMExecutor.snapshot` / `restore` give the serving state to
+:mod:`repro_torch.serving.snapshot` in the reference's layout.  The
+reference's SSM branches (state slots in the same pool) wait for the
+mamba2 family (ROADMAP.md §1 item 10).  The reference's jit variant
+cache becomes the same bookkeeping of prefill bucket shapes, so
+``n_jit_variants`` keeps its meaning: the shapes seen plus the decode
+step.
 """
 
 from __future__ import annotations
@@ -81,6 +83,13 @@ class PrefillResult:
     prefix: ExistingPrefix
     prompt_len: int
     tokens_computed: int     # suffix tokens actually run (excl. padding)
+
+
+def _on_device(tree, dev):
+    """A dict tree of arrays as tensors on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _on_device(v, dev) for k, v in tree.items()}
+    return torch.as_tensor(tree).to(dev)
 
 
 def _bucket(n: int, floor: int) -> int:
@@ -401,15 +410,82 @@ class LLMExecutor(Executor):
 
     # -- serving-state checkpoint --------------------------------------------
 
-    def snapshot(self):
-        raise NotImplementedError(
-            "serving-state snapshots wait for the port's checkpoint "
-            "(ROADMAP.md §1 item 8)")
+    def snapshot(self) -> tuple[dict, dict]:
+        """All mutable serving state as ``(arrays, meta)``, in the
+        reference's layout.
 
-    def restore(self, tree, meta):
-        raise NotImplementedError(
-            "serving-state restore waits for the port's checkpoint "
-            "(ROADMAP.md §1 item 8)")
+        ``arrays`` holds the paged KV pages (or the contiguous caches),
+        the slot positions and pending tokens (int32, as the reference
+        keeps them) and, under ``rng_key``, the sampling generator's
+        state as uint32 words; the trit codec's pages are packed bytes and
+        go into the checkpoint as they are.  ``meta`` is JSON-safe host
+        bookkeeping (slot residency, emitted tokens, prompts,
+        pool/prefix/block-table state, the forward counts).  ``restore()``
+        is the exact inverse: a fresh executor built from the same
+        ``(params, cfg, scfg)`` continues bit-identically.
+        """
+        gen = self._gen.get_state().numpy()
+        tree: dict = {"pos": self.pos.astype(np.int32),
+                      "cur_tok": self.cur_tok.to(torch.int32),
+                      "rng_key": gen.view(np.uint32).copy()}
+        if self.scfg.paged:
+            tree["pages"] = self.kv_store.pages
+        else:
+            tree["caches"] = self.caches
+        meta: dict = {
+            "slots": [r.uid if r is not None else None
+                      for r in self.slots],
+            "tokens": {str(u): [int(t) for t in v]
+                       for u, v in self._tokens.items()},
+            "prompts": {str(u): np.asarray(v).tolist()
+                        for u, v in self._prompts.items()},
+            "prefill_tokens": int(self.prefill_tokens),
+            "prefill_tokens_computed": int(self.prefill_tokens_computed),
+            "pool": self.pool.state_dict(),
+            "cache": self.cache.state_dict(),
+            "prefills": int(self.n_prefills),
+            "decode_steps": int(self.n_decode_steps),
+        }
+        if self.scfg.paged:
+            meta["manager"] = self.manager.state_dict()
+        return tree, meta
+
+    def restore(self, tree: dict, meta: dict) -> None:
+        """Load a :meth:`snapshot` (the port's or the reference's) into
+        this executor (same config).
+
+        A reference snapshot's ``rng_key`` is a JAX key, not a generator
+        state: the generator is then seeded from its two words (greedy
+        decoding never draws from it).
+        """
+        dev = self.device
+        self.pos = np.asarray(tree["pos"], np.int64).copy()
+        self.cur_tok = torch.as_tensor(tree["cur_tok"]).to(
+            device=dev, dtype=torch.int64).reshape(self.scfg.n_slots, 1)
+        key = np.ascontiguousarray(np.asarray(tree["rng_key"], np.uint32))
+        state = self._gen.get_state()
+        if key.nbytes == state.numel():
+            self._gen.set_state(torch.from_numpy(key.view(np.uint8).copy()))
+        else:
+            self._gen.manual_seed(int(key[0]) << 32 | int(key[-1]))
+        if self.scfg.paged:
+            self.kv_store.pages = _on_device(tree["pages"], dev)
+        else:
+            self.caches = _on_device(tree["caches"], dev)
+        self.slots = [None if u is None else _Resident(int(u))
+                      for u in meta["slots"]]
+        self._tokens = {int(u): [int(t) for t in v]
+                        for u, v in meta["tokens"].items()}
+        self._prompts = {int(u): np.asarray(v, np.int64)
+                         for u, v in meta["prompts"].items()}
+        self.prefill_tokens = int(meta["prefill_tokens"])
+        self.prefill_tokens_computed = int(meta["prefill_tokens_computed"])
+        self.n_prefills = int(meta.get("prefills", 0))
+        self.n_decode_steps = int(meta.get("decode_steps", 0))
+        self.pool.load_state(meta["pool"])
+        self.cache.load_state(meta["cache"])
+        if self.scfg.paged:
+            self.manager.load_state(meta["manager"])
 
     # -- fork ----------------------------------------------------------------
 

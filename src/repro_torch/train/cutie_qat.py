@@ -7,8 +7,10 @@ the energy model.  The reference is `repro.train.cutie_qat`: the same
 schedule, optimizer and data, on ``device`` (the card unless
 ``device="cpu"``).
 
-The trainer changes no global torch flag: on the card, cuDNN runs the
-f32 convolutions in TF32 where torch's defaults allow it.
+The trainer changes no global torch flag.  The convolutions' values are
+float64 (`models.cutie_cnn.CutieCNN.forward`), so a step on the card
+quantizes the trits a step on the CPU does; their gradients are float32,
+in TF32 on the card where torch's defaults allow it.
 """
 
 from __future__ import annotations

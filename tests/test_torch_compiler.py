@@ -522,3 +522,81 @@ def test_cifar_full_width_compiles_to_the_reference_program(head, optimize):
     assert shapes[0] == (3, 3, 126, 128) and len(shapes) == depth
     if head:
         assert shapes[-1] == (1, 1, 128, 10)
+
+
+# -- the fold and the TWN reductions over many trained-like BN states -------
+
+
+def _trained_bn(rng, c):
+    """A BN state as QAT leaves it: gamma and beta near their init, running
+    means and variances spread over decades (var from 0.02 to 1100)."""
+    return {"gamma": (1 + 0.05 * rng.standard_normal(c)).astype(np.float32),
+            "beta": (0.02 * rng.standard_normal(c)).astype(np.float32),
+            "mean": (0.5 * rng.standard_normal(c)).astype(np.float32),
+            "var": np.exp(rng.uniform(-4, 7, c)).astype(np.float32)}
+
+
+def _bits(a):
+    return _np(a).astype(np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("shape,cases", [((3, 3, 126, 8), 300),
+                                         ((3, 3, 128, 128), 20)])
+@pytest.mark.parametrize("weights", ["trits", "float"])
+def test_fold_of_many_bn_states_bit_identical(shape, cases, weights):
+    """`twn_delta`, `twn_scale`, `fold_thresholds` and `compile_layer`
+    of seeded weights and BN states, at CIFAR-10 layer 0's shape (126
+    thermometer channels) and at the full width, bit for bit against the
+    reference.  Trit weights fold with alpha = 1, so the BN terms alone
+    decide the thresholds (as for an INQ-trained network)."""
+    from repro.core import folding as jfolding
+    from repro.core import ternary as jT
+    from repro_torch.core import ternary as T
+    rng = np.random.default_rng(41)
+    axes = (0, 1, 2)
+    for case in range(cases):
+        bn = _trained_bn(rng, shape[-1])
+        w = (_trits(rng, shape).astype(np.float32) if weights == "trits"
+             else 0.05 * _w(rng, shape))
+        got = engine.compile_layer(torch.from_numpy(w),
+                                   {k: torch.from_numpy(v)
+                                    for k, v in bn.items()}, device=CPU)
+        want = jengine.compile_layer(jnp.asarray(w), {
+            k: jnp.asarray(v) for k, v in bn.items()})
+        assert np.array_equal(_np(got.weights), np.asarray(want.weights))
+        for f in ("t_lo", "t_hi"):
+            assert np.array_equal(_bits(getattr(got.thresholds, f)), _bits(
+                getattr(want.thresholds, f))), (case, f)
+        if weights == "float":
+            tw, jw = torch.from_numpy(w), jnp.asarray(w)
+            delta, jdelta = T.twn_delta(tw, axis=axes), jT.twn_delta(
+                jw, axis=axes)
+            assert np.array_equal(_bits(delta), _bits(jdelta)), case
+            wq = T.ternarize(tw, delta)
+            alpha = T.twn_scale(tw, wq, axis=axes)
+            jalpha = jT.twn_scale(jw, jT.ternarize(jw, jdelta), axis=axes)
+            assert np.array_equal(_bits(alpha), _bits(jalpha)), case
+        else:
+            alpha = torch.ones(shape[-1])
+        th = folding.fold_thresholds(alpha=alpha.reshape(-1), bias=0.0, **{
+            k: torch.from_numpy(v) for k, v in bn.items()})
+        jth = jfolding.fold_thresholds(
+            alpha=jnp.asarray(_np(alpha)).reshape(-1), bias=0.0,
+            **{k: jnp.asarray(v) for k, v in bn.items()})
+        for f in ("t_lo", "t_hi"):
+            assert np.array_equal(_bits(getattr(th, f)),
+                                  _bits(getattr(jth, f))), (case, f)
+
+
+def test_sqrt_rn_is_correctly_rounded():
+    """`folding.sqrt_rn` against numpy's (IEEE) float32 square root over
+    random bit patterns, decades of magnitude, subnormals and the edges."""
+    rng = np.random.default_rng(42)
+    x = np.concatenate([
+        rng.integers(0, 0x7F800000, 200_000, dtype=np.int32).view(np.float32),
+        np.exp(rng.uniform(-10, 10, 200_000)).astype(np.float32),
+        np.array([0.0, 1e-45, 1.1754942e-38, 1.0, 2.0, 4.0, 3.4028235e38,
+                  np.inf], np.float32)])
+    got = folding.sqrt_rn(torch.from_numpy(x)).numpy()
+    assert np.array_equal(got.view(np.int32), np.sqrt(x).view(np.int32))
+    assert torch.isnan(folding.sqrt_rn(torch.tensor([np.nan, -1.0]))).all()

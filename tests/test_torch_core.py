@@ -124,6 +124,36 @@ def test_ternary_quantizers_match():
                                rtol=1e-6)
 
 
+TINY = np.float32(1e-45)      # the least float32 subnormal, 2**-149
+
+
+@pytest.mark.parametrize("w", [[TINY, TINY], [-TINY, -TINY], [TINY, 0.0],
+                               [np.float32(3e-39), TINY]])
+def test_subnormal_weights_follow_ieee_float32(w):
+    """The port keeps subnormals: ``twn_delta`` and ``ternarize`` on
+    subnormal weights give numpy's IEEE float32 results (the definition
+    ``q = +1 iff w > delta`` of `tests/test_core_properties.py`).  XLA
+    on the CPU flushes subnormals to zero, so the reference's delta on
+    these inputs is 0 and its compare sees 0: on ``[1e-45, 1e-45]`` both
+    packages give trits [0, 0] (the port's delta is 1e-45 itself), on
+    ``[1e-45, 0]`` the reference gives [0, 0] where the port and numpy
+    give [1, 0].  Trained weights are never subnormal (the least normal
+    float32 is 1.2e-38), so no compiled program differs."""
+    a = np.array(w, np.float32)
+    delta = ternary.twn_delta(_t(a))
+    want = np.float32(0.7) * ((np.abs(a[0]) + np.abs(a[1])) * np.float32(0.5))
+    assert float(delta) == float(want)
+    q = ternary.ternarize(_t(a), delta)
+    assert q.tolist() == ((a > want).astype(np.float32)
+                          - (a < -want).astype(np.float32)).tolist()
+    jd = float(jternary.twn_delta(jnp.asarray(a)))
+    assert jd in (0.0, float(want))           # flushed, or IEEE as here
+    if a.tolist() == [TINY, TINY]:
+        assert float(delta) == float(TINY)
+        assert q.tolist() == _np(jternary.ternarize(
+            jnp.asarray(a), jd)).tolist() == [0.0, 0.0]
+
+
 def test_thermometer_encodings_match():
     rng = np.random.default_rng(5)
     levels = rng.integers(0, 2 * 7 + 1, size=(4, 9)).astype(np.int32)

@@ -11,6 +11,9 @@ Elsewhere every test skips (no card).  Imports only torch, numpy and the
 port, so it runs where JAX is not installed.
 """
 
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -810,3 +813,157 @@ def test_qat_step_on_card_matches_cpu(cuda):
         far += int((d > 1e-5).sum())
         total += d.numel()
     assert far <= 1e-3 * total
+
+
+# -- compile on the card against the CPU; checkpoints; the restart ---------
+
+
+def _cifar_graph(compiler, cfg, seed=1):
+    """The full-width CIFAR-10 graph with its dense head, from seeded
+    float weights and BN states spread as training leaves them."""
+    rng = np.random.default_rng(seed)
+    g = compiler.Graph(in_channels=cfg.in_channels,
+                       in_hw=(cfg.img_hw, cfg.img_hw))
+    cin = cfg.in_channels
+    for _op, mult, pool in cfg.layout:
+        c = cfg.width * mult
+        bn = {"gamma": (1 + 0.05 * rng.standard_normal(c)).astype(np.float32),
+              "beta": (0.02 * rng.standard_normal(c)).astype(np.float32),
+              "mean": (0.5 * rng.standard_normal(c)).astype(np.float32),
+              "var": np.exp(rng.uniform(-4, 7, c)).astype(np.float32)}
+        g.conv(rng.standard_normal((3, 3, cin, c)).astype(np.float32), bn,
+               pool=pool)
+        cin = c
+    g.dense(rng.standard_normal((cin, cfg.n_classes)).astype(np.float32))
+    return g
+
+
+def _same_program(a, b):
+    assert len(a.layers) == len(b.layers)
+    for i, (x, y) in enumerate(zip(a.layers, b.layers)):
+        assert torch.equal(x.weights.cpu(), y.weights.cpu()), i
+        for f in ("t_lo", "t_hi", "flip", "const", "is_const"):
+            u, v = getattr(x.thresholds, f).cpu(), getattr(
+                y.thresholds, f).cpu()
+            if u.dtype == torch.float32:
+                u, v = u.view(torch.int32), v.view(torch.int32)
+            assert torch.equal(u, v), (i, f)
+
+
+def test_compile_on_card_equals_cpu(cuda):
+    """The full-width CIFAR-10 graph with its head (float weights: the
+    TWN reductions, the correctly rounded sqrt and the fold), and an
+    INQ-frozen model (trits: the fold alone), compiled on the card and
+    with ``device="cpu"``: equal array for array."""
+    from repro_torch import compiler
+    from repro_torch.configs.cutie_cnn import CONFIG, CutieCNNConfig
+    from repro_torch.models import cutie_cnn as CNN
+    from repro_torch.train import cutie_qat as Q
+
+    inst = engine.CutieInstance(n_layers=len(CONFIG.layout) + 1)
+    on = {dev: compiler.compile_graph(_cifar_graph(compiler, CONFIG),
+                                      instance=inst, device=dev).program
+          for dev in (cuda, "cpu")}
+    _same_program(on[cuda], on["cpu"])
+    models = {dev: CNN.CutieCNN(CutieCNNConfig(width=128), seed=0,
+                                device=dev) for dev in (cuda, "cpu")}
+    with torch.no_grad():        # the card's draw, carried to the CPU
+        for a, b in zip(models["cpu"].state_dict().values(),
+                        models[cuda].state_dict().values()):
+            a.copy_(b.cpu())
+    progs = []
+    for m in models.values():
+        Q.freeze(m, 1.0, Q.inq_config(Q.QATRunConfig(width=128)))
+        progs.append(Q.compile({"model": m, "cfg": m.cfg},
+                               include_head=True, optimize=True).program)
+    _same_program(*progs)
+
+
+def test_sqrt_rn_on_card(cuda):
+    from repro_torch.core import folding
+
+    rng = np.random.default_rng(5)
+    x = np.concatenate([
+        rng.integers(0, 0x7F800000, 1 << 20, dtype=np.int32).view(np.float32),
+        np.exp(rng.uniform(-20, 20, 1 << 20)).astype(np.float32)])
+    got = folding.sqrt_rn(torch.as_tensor(x, device=cuda)).cpu().numpy()
+    assert np.array_equal(got.view(np.int32), np.sqrt(x).view(np.int32))
+
+
+def test_checkpoint_packs_trit_leaves_on_the_card(cuda, tmp_path):
+    """A card-resident int8 trit leaf is packed by kernel 4 before its copy
+    to the host and unpacked by kernel 5 after its copy back; the bytes on
+    disk are the host packing's."""
+    from repro_torch import checkpoint as ckpt
+
+    rng = np.random.default_rng(6)
+    trits = rng.integers(-1, 2, (3, 3, 126, 128)).astype(np.int8)
+    odd = rng.integers(-1, 2, (1001,)).astype(np.int8)
+    tree = {"w": torch.as_tensor(trits, device=cuda),
+            "odd": torch.as_tensor(odd, device=cuda),
+            "f": torch.randn(7, device=cuda)}
+    TC.reset_launches()
+    path = ckpt.save(str(tmp_path), 1, tree)
+    assert TC.LAUNCHES["pack_trits"] == 2
+    man = json.load(open(os.path.join(path, "manifest.json")))
+    for e in man["leaves"]:
+        if e["path"] in ("w", "odd"):
+            a = trits if e["path"] == "w" else odd
+            assert e["encoding"] == "trit5"
+            host = codec.pack_trits(torch.from_numpy(a).reshape(-1))
+            assert np.array_equal(np.load(os.path.join(path, e["file"])),
+                                  host.numpy())
+    TC.reset_launches()
+    out, _ = ckpt.restore(str(tmp_path), tree)
+    assert TC.LAUNCHES["unpack_trits"] == 2
+    for k in tree:
+        assert out[k].device.type == "cuda"
+        assert torch.equal(out[k], tree[k])
+
+
+@pytest.mark.parametrize("kv_codec", ["raw", "trit"])
+def test_serving_snapshot_restores_bit_identically_on_card(cuda, tmp_path,
+                                                           kv_codec):
+    """The reduced llama3.2-1B (2 layers) served on the card, snapshotted
+    mid-decode and restored into a fresh engine: tokens and every sampled
+    logits tensor bit for bit as the uninterrupted serve."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.config import reduce_for_smoke
+    from repro_torch.serving import (CutieEngine, LLMExecutor, ServerConfig,
+                                     restore_serving_state,
+                                     save_serving_state)
+
+    cfg = reduce_for_smoke(configs.get("llama3.2-1b")).replace(
+        n_layers=2, quant="ternary_packed", attn_kv_chunk=8)
+    params = TF.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    scfg = ServerConfig(n_slots=2, max_new_tokens=6, max_len=64,
+                        block_size=8, kv_codec=kv_codec)
+    prompts = [np.array(list(np.arange(20) % 50) + [100 + i, i])
+               for i in range(5)]
+
+    def fresh():
+        eng, ex = CutieEngine("fcfs"), LLMExecutor(params, cfg, scfg)
+        seen, sample = [], ex._sample
+        ex._sample = lambda lg: (seen.append(lg.clone()), sample(lg))[1]
+        eng.register("llm", ex)
+        return eng, seen
+
+    ref, want_lg = fresh()
+    for p in prompts:
+        ref.submit(p, model="llm")
+    want = ref.run()
+    eng, got_lg = fresh()
+    for p in prompts:
+        eng.submit(p, model="llm")
+    for _ in range(3):
+        eng.step()
+    save_serving_state(eng, str(tmp_path))
+    eng2, rest_lg = fresh()
+    handles = restore_serving_state(eng2, str(tmp_path))
+    eng2.run()
+    assert {u: h.request.result for u, h in handles.items()} == {
+        u: want[u] for u in handles}
+    both = got_lg + rest_lg
+    assert len(both) == len(want_lg)
+    assert all(torch.equal(a, b) for a, b in zip(both, want_lg))

@@ -292,18 +292,22 @@ def test_unported_surfaces_name_their_roadmap_item(model):
     with pytest.raises(NotImplementedError, match="item 10") as e:
         configs.get("mamba2-780m")
     assert "its family waits" in str(e.value)
-    for arch in ("internlm2-1.8b", "codeqwen1.5-7b", "qwen2.5-32b"):
-        with pytest.raises(NotImplementedError, match="item 10") as e:
+    for arch in ("deepseek-moe-16b", "zamba2-2.7b", "whisper-medium",
+                 "llava-next-mistral-7b"):
+        with pytest.raises(NotImplementedError, match="item 10"):
             configs.get(arch)
-        assert "config file is not ported yet" in str(e.value)
-        assert "family" not in str(e.value)
+    # the dense config files and the serving snapshot are ported
+    # (tests/test_torch_snapshot.py)
+    for arch in ("internlm2-1.8b", "codeqwen1.5-7b", "qwen2.5-32b"):
+        assert configs.get(arch).family == "dense"
     with pytest.raises(NotImplementedError, match="item 10"):
         TF.init_params(cfg.replace(family="moe"), torch.Generator())
     with pytest.raises(NotImplementedError, match="item 10"):
         LLMExecutor(p, cfg.replace(family="ssm"), ServerConfig())
     ex = LLMExecutor(p, cfg, ServerConfig())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ex.snapshot()
+    tree, meta = ex.snapshot()
+    assert set(tree) == {"pos", "cur_tok", "rng_key", "pages"}
+    assert meta["slots"] == [None] * ServerConfig().n_slots
     # the QAT quant is ported (tests/test_torch_train.py); an unknown
     # quant is refused
     assert C.linear({"w": torch.ones(2, 2)}, torch.ones(1, 2),

@@ -31,6 +31,9 @@ Tolerances, stated once:
 """
 
 import dataclasses
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -494,26 +497,108 @@ def _assert_step_close(got, want, lr):
 # ---------------------------------------------------------------------------
 
 
+#: synthcifar seeds a sample with ``hash(split)``, which Python salts per
+#: process, so the short run trains on other images in every process.
+#: Both runs draw their images as a process started with this
+#: ``PYTHONHASHSEED`` would.  Under salt 11 the reference's trained BN
+#: state has a running variance whose float32 square root PyTorch's CPU
+#: ``sqrt`` rounds one ulp off, which moved layer 0's ``t_lo`` by two
+#: ulps before the fold took a correctly rounded root.
+RUN_HASH_SEED = 11
+
+
+def _salted_hash(seed):
+    """``hash`` with the split names hashed as in a process with
+    ``PYTHONHASHSEED = seed`` (other values, such as the frozen config a
+    dataclass hashes, as in this one)."""
+    out = subprocess.run(
+        [sys.executable, "-c", "print(hash('train'), hash('test'))"],
+        env={**os.environ, "PYTHONHASHSEED": str(seed)}, check=True,
+        capture_output=True, text=True).stdout.split()
+    table = dict(zip(("train", "test"), map(int, out)))
+
+    def salted(v):
+        return table[v] if isinstance(v, str) else hash(v)
+    return salted
+
+
 @pytest.fixture(scope="module")
 def runs():
     """The reference's short run and the port's from the same init (the
-    port's model built from the reference's init_params)."""
-    jr = jqat.run(jqat.QATRunConfig(**RUN))
-    _, _, npp = _ref_init({"width": RUN["width"]}, seed=RUN["seed"])
-    start = _port_model(npp, {"width": RUN["width"]})
-
-    def init(cfg, seed, device):
-        assert (cfg, seed, torch.device(device)) == (
-            start.cfg, RUN["seed"], start.device)
-        return start
-
+    port's model built from the reference's init_params), on the images
+    of hash salt ``RUN_HASH_SEED`` in both packages."""
     mp = pytest.MonkeyPatch()
-    mp.setattr(cutie_qat.cutie_cnn, "CutieCNN", init)
+    salted = _salted_hash(RUN_HASH_SEED)
+    for mod in (jcifar, cifar):
+        mp.setattr(mod, "hash", salted, raising=False)
     try:
+        jr = jqat.run(jqat.QATRunConfig(**RUN))
+        _, _, npp = _ref_init({"width": RUN["width"]}, seed=RUN["seed"])
+        start = _port_model(npp, {"width": RUN["width"]})
+
+        def init(cfg, seed, device):
+            assert (cfg, seed, torch.device(device)) == (
+                start.cfg, RUN["seed"], start.device)
+            return start
+
+        mp.setattr(cutie_qat.cutie_cnn, "CutieCNN", init)
         tr = cutie_qat.run(cutie_qat.QATRunConfig(**RUN), device=CPU)
     finally:
         mp.undo()
     return jr, tr
+
+
+def test_runs_draw_the_images_of_the_pinned_salt():
+    """The pin reaches both packages' samples and changes them: the
+    salt's images differ from this process's own."""
+    mp = pytest.MonkeyPatch()
+    salted = _salted_hash(RUN_HASH_SEED)
+    try:
+        for mod in (jcifar, cifar):
+            mp.setattr(mod, "hash", salted, raising=False)
+        pinned = [cifar.batch(cifar.SynthCifarConfig(), "train", 0, 2),
+                  jcifar.batch(jcifar.SynthCifarConfig(), "train", 0, 2)]
+    finally:
+        mp.undo()
+    assert salted("train") != hash("train")
+    assert np.array_equal(pinned[0]["images"], pinned[1]["images"])
+    own = cifar.batch(cifar.SynthCifarConfig(), "train", 0, 2)
+    assert not np.array_equal(own["images"], pinned[0]["images"])
+
+
+#: Layer 0's BN state (gamma, beta, mean, var as float32 bits, 8
+#: channels) after the reference's short run under hash salt 11: the
+#: running variance of channel 3, 242.47282, is one of those whose
+#: square root PyTorch's CPU ``sqrt`` rounds one ulp off.
+SALT_11_LAYER_0_BN = {
+    "gamma": [0x3f805489, 0x3f8064b4, 0x3f7d6d16, 0x3f7f86c2, 0x3f7e6b6b,
+              0x3f7ec991, 0x3f815e71, 0x3f80113c],
+    "beta": [0x3be0b6ae, 0xbbbac33b, 0x3b637b28, 0xbb9c278b, 0x3c08e724,
+             0xbc11d55a, 0x3a946262, 0xbb950227],
+    "mean": [0x3be251fc, 0xbc781631, 0x3e86a20d, 0xbe6571f1, 0x3e8dbb91,
+             0x3ccf76c8, 0x3dc44f2a, 0xbf115d81],
+    "var": [0x4358458a, 0x4397efcc, 0x433c9dfa, 0x4372790b, 0x43734b90,
+            0x433d5177, 0x43441c20, 0x43a6313b],
+}
+
+
+def test_trained_layer_0_thresholds_bit_identical():
+    """Layer 0 of the salt-11 run (INQ trits, so alpha = 1) compiled by
+    both packages: the same thresholds bit for bit, channel 3 included,
+    whatever this process's salt."""
+    bn = {k: np.array(v, np.uint32).view(np.float32)
+          for k, v in SALT_11_LAYER_0_BN.items()}
+    w = np.random.default_rng(11).integers(-1, 2, (3, 3, 126, 8)).astype(
+        np.float32)
+    got = engine.compile_layer(torch.from_numpy(w), {
+        k: torch.from_numpy(v) for k, v in bn.items()}, device=CPU)
+    want = jengine.compile_layer(jnp.asarray(w), {
+        k: jnp.asarray(v) for k, v in bn.items()})
+    for f in ("t_lo", "t_hi"):
+        a = _np(getattr(got.thresholds, f)).view(np.int32)
+        assert np.array_equal(a, np.asarray(getattr(
+            want.thresholds, f)).view(np.int32)), f
+    assert _np(got.thresholds.t_lo).view(np.int32)[3] == -1057069622
 
 
 def test_short_run_matches_reference(runs):
