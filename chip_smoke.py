@@ -82,6 +82,23 @@ Phases, each of which fails the script (no result line) when it fails:
    serve's, and the restored serve must launch kernels 4, 5 and 7; the
    snapshot's and the restore's wall time, bytes on disk and codec
    launches are printed.
+   Then speculative decoding (`spec_path`): the same target and requests
+   through `SpecExecutor` with three drafts (the target's first 2 layers
+   sharing its embedding and head, the target itself, a random 2-layer
+   llama3.2-1B), then the truncated draft with ``kv_codec="trit"`` and at
+   temperature 0.8: greedy tokens must follow the plain serve's under the
+   top-2 margin rule, a self-draft rejection must sit at a near tie,
+   kernel 7 must launch 7 x (16 x target forwards + draft layers x draft
+   steps) times and kernels 4 and 5 only in the trit run; tokens/s,
+   tokens per verify, acceptance, k and the propose and verify medians
+   are printed.  Then the LLM training path (`llm_train_path`):
+   full-width llama3.2-1B QAT (``quant="ternary"``, batch 8, seq 128, 6
+   steps) through `python -m repro_torch.launch.train`, in this process
+   and then in subprocesses checkpointed every 3 steps and preempted at
+   step 4, then resumed: the loss finite, the ternarized projections
+   alpha times trits, the resumed losses within ``TRAIN_RESUME_ATOL`` of
+   the uninterrupted run's; step ms, the forward + backward share,
+   launches per step, peak memory and the loss history are printed.
    Then the third main path, train -> compile -> serve (`cnn_main_path`):
    `train.cutie_qat.run` trains the full-width CIFAR-10 QAT network
    (width 128, thermometer m 42, batch 64) for ``QAT_STEPS`` steps of INQ
@@ -144,6 +161,7 @@ import copy
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -232,6 +250,32 @@ AGREE_FLOOR = 0.75
 # resident and decoding, 4 queued); the hash salt the script runs under
 RESTART_STEPS = 6
 HASH_SEED = "0"
+# speculative decoding: the margin rule of tests/test_torch_llm.py (a spec
+# token may differ from the plain serve's only where the plain top-2 logit
+# margin is at most 2 x SPEC_LOGIT_TOL); the truncated and random drafts'
+# depth
+SPEC_LOGIT_TOL, SPEC_DRAFT_LAYERS = 2.0 ** -4, 2
+# a self-draft's decode-step rows against the verify's suffix-forward rows
+# of the same positions, and the plain serve's decode rows against one
+# forward over the same tokens, at full width: 16 layers round their
+# activations to bf16 along two paths that differ in attention and in the
+# head matmul's algorithm.  On an H100 80GB HBM3 at 700 W (max |logit|
+# about 5, a bf16 ulp 2**-5 there): reordering only kernel 7's f32 sums
+# moves the full-width prefill's logits by 0.0625, the plain serve's
+# decode rows differ from one forward over the same tokens by up to
+# 0.0625, and the self-draft's rows by up to 0.078125 (half of them past
+# 2**-4).  The reduced CPU tests hold 2**-4; the card holds these rows
+# within the next power of two.
+SPEC_ROW_TOL = 2.0 ** -3
+# the LLM training path: full-width llama3.2-1B QAT through launch.train,
+# checkpointed every TRAIN_CKPT_EVERY steps and preempted at TRAIN_FAIL_AT;
+# the resumed run's losses within TRAIN_RESUME_ATOL of the uninterrupted
+# run's (eager CUDA backward ops such as the embedding's index_add sum with
+# atomics, so two runs are not bit-identical on the card)
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 6, 128, 8
+TRAIN_CKPT_EVERY, TRAIN_FAIL_AT, TRAIN_RESUME_ATOL = 3, 4, 2.0 ** -4
+# the INQ check's steps: the paper's schedule compressed into two freezes
+TRAIN_INQ_STEPS = 2
 SERVE_BUCKETS, SERVE_REQUESTS, SERVE_POOL = (1, 2, 4, 8), 256, 256
 INTERACTIVE_FRAC, OVERLOAD, TARGET_MULT, BATCH_DEADLINE_MULT = (
     0.25, 3.0, 5.0, 60.0)
@@ -1356,7 +1400,7 @@ def llm_main_path(torch, MM, TC, S, TF, DEC, C, codec, configs) -> dict:
         f"(tolerance {LOGIT_TOL}, max |logit| {float(b.abs().max())!r}), "
         f"argmax equal on {same!r} of positions")
     return {"cfg": cfg, "params": params, "prompts": prompts,
-            "paged": paged, "contiguous": contiguous,
+            "paged": paged, "contiguous": contiguous, "raw": raw,
             "launches": launches["ternary_matmul"], "logit_err": err,
             "trit": trit}
 
@@ -1505,6 +1549,486 @@ def restore_main(root: str) -> int:
                                           MM.LAUNCHES["ternary_matmul"]}},
                   f)
     return 0
+
+
+# -- phase 4: speculative decoding ------------------------------------------
+
+
+def _record_verifies(ex) -> list:
+    """Wrap a spec executor: per verify, (k, the first rejected index or
+    None, the verify row's gap between its argmax and the rejected
+    proposal, the largest |draft row - verify row| of each proposal
+    before the first rejection).  The last entry is a running sha256 of
+    every draft and verify row, in order."""
+    seen: list = [hashlib.sha256()]
+    propose, verify = ex.draft.propose, ex.verifier.verify_kv
+
+    def propose_(slot, uid, tokens, k):
+        props, lgs = propose(slot, uid, tokens, k)
+        seen.append((props, lgs))
+        return props, lgs
+
+    def verify_(*a):
+        rows = verify(*a)
+        props, lgs = seen.pop()
+        seen[0].update(np.ascontiguousarray(lgs).tobytes())
+        seen[0].update(np.ascontiguousarray(rows).tobytes())
+        greedy = rows.argmax(-1)
+        j = next((i for i, d in enumerate(props) if greedy[i] != d), None)
+        gap = None if j is None else float(rows[j].max() - rows[j][props[j]])
+        n = len(props) if j is None else j
+        errs = np.abs(lgs[:n] - rows[:n]).max(-1).tolist()
+        seen.append(("done", len(props), j, gap, errs))
+        return rows
+
+    ex.draft.propose, ex.verifier.verify_kv = propose_, verify_
+    return seen
+
+
+def spec_serve(torch, MM, TC, S, params, cfg, prompts, dparams, dcfg,
+               **scfg) -> dict:
+    """The requests through CutieEngine + SpecExecutor (target ``params``,
+    draft ``dparams``): tokens, stats, host-clock seconds, the medians of
+    the propose and verify spans, each verify's rejection record, and the
+    kernel launches of the serve against the formula: kernel 7 launches
+    7 x (n_layers x target forwards + draft layers x draft steps)."""
+    eng = S.CutieEngine("fcfs")
+    ex = S.SpecExecutor(params, cfg, S.ServerConfig(max_new_tokens=LLM_NEW,
+                                                    **scfg), dparams, dcfg)
+    seen = _record_verifies(ex)
+    eng.register("llm", ex)
+    hs = [eng.submit(pr, model="llm") for pr in prompts]
+    sync(torch)
+    reset_launches(MM, TC)
+    t0 = time.perf_counter()
+    out = eng.run()
+    sync(torch)
+    secs = time.perf_counter() - t0
+    launches = {**MM.LAUNCHES, **TC.LAUNCHES}
+    st = ex.extra_stats()
+    sp = st["spec"]
+    target = st["prefills"] + sp["verify_steps"] + sp["plain_steps"]
+    want = 7 * (cfg.n_layers * target + dcfg.n_layers * ex.draft.n_steps) \
+        if DEVICE == "cuda" else 0
+    if launches["ternary_matmul"] != want or launches["ternary_matmul_dense"]:
+        raise RuntimeError(
+            f"spec: ternary_matmul launched {launches}, want 7 x "
+            f"({cfg.n_layers} x {target} target forwards + {dcfg.n_layers} "
+            f"x {ex.draft.n_steps} draft steps) = {want}")
+    spans: dict = {"spec_propose": [], "spec_verify": []}
+    open_: dict = {}
+    for ev in eng.trace_export()["traceEvents"]:
+        if ev["name"] not in spans:
+            continue
+        key = (ev["name"], ev.get("tid"))
+        if ev["ph"] == "B":
+            open_[key] = ev["ts"]
+        elif ev["ph"] == "E":
+            spans[ev["name"]].append((ev["ts"] - open_.pop(key)) / 1e3)
+    tokens = [out[h.uid] for h in hs]
+    if [len(t) for t in tokens] != [LLM_NEW] * LLM_REQUESTS:
+        raise RuntimeError(f"spec: token counts {[len(t) for t in tokens]}")
+    return {"tokens": tokens, "stats": st, "seconds": secs,
+            "launches": launches, "target_forwards": target,
+            "draft_steps": ex.draft.n_steps, "want": want,
+            "verifies": [v[1:] for v in seen[1:] if v[0] == "done"],
+            "rows_sha256": seen[0].hexdigest(),
+            "propose_ms": float(np.median(spans["spec_propose"])),
+            "verify_ms": float(np.median(spans["spec_verify"]))}
+
+
+def _margin_rule(tokens, plain, margins) -> tuple:
+    """Spec tokens against the plain serve's: equal up to the first
+    difference per request, which must sit at a plain top-2 margin of at
+    most 2 x SPEC_LOGIT_TOL.  Returns (tokens compared, differences as
+    (request, step, plain margin))."""
+    n, diffs = 0, []
+    for r, (g, w, gaps) in enumerate(zip(tokens, plain, margins)):
+        j = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if j is None:
+            n += len(w)
+            continue
+        if gaps[j] > 2 * SPEC_LOGIT_TOL:
+            raise RuntimeError(f"spec: request {r} token {j} {g[j]} vs the "
+                               f"plain serve's {w[j]} at top-2 margin "
+                               f"{gaps[j]} > {2 * SPEC_LOGIT_TOL}")
+        n += j
+        diffs.append((r, j, gaps[j]))
+    return n, diffs
+
+
+def _decode_vs_forward(torch, S, DEC, params, cfg, prompt) -> list:
+    """The reference's rounding gap without spec code: one request through
+    the plain paged serve, keeping the row each decode step samples from,
+    then one forward over the prompt and the generated tokens
+    (`DEC.prefill_with_prefix`, the verify's path).  Returns, per decode
+    step, max |decode row - forward row| of the same position."""
+    eng = S.CutieEngine("fcfs")
+    ex = S.LLMExecutor(params, cfg, S.ServerConfig(max_new_tokens=LLM_NEW))
+    rows, sample = [], ex._sample
+
+    def sample_(lg):
+        i = next((i for i, r in enumerate(ex.slots) if r is not None), 0)
+        rows.append(lg[i, :cfg.vocab].float().cpu().numpy())
+        return sample(lg)
+
+    ex._sample = sample_
+    eng.register("llm", ex)
+    h = eng.submit(prompt, model="llm")
+    out = eng.run()[h.uid]
+    toks = np.concatenate([prompt, out[:-1]])
+    x = torch.as_tensor(np.pad(toks, (0, PREFILL_M - len(toks)))[None],
+                        device=DEVICE)
+    empty = {n: torch.zeros((cfg.n_layers, 1, 0, cfg.n_kv, cfg.d_head),
+                            dtype=torch.bfloat16, device=DEVICE)
+             for n in ("k", "v")}
+    lg, _ = DEC.prefill_with_prefix(params, x, empty, cfg)
+    fwd = lg[0, len(prompt):len(toks), :cfg.vocab].float().cpu().numpy()
+    return np.abs(np.stack(rows[1:]) - fwd).max(-1).tolist()
+
+
+def spec_path(torch, MM, TC, S, TF, DEC, codec, llm, card: str) -> dict:
+    """Speculative decoding on the LLM main path's target (full-width
+    llama3.2-1B, every projection ternary_packed, paged, 4 slots) and its
+    8 requests, with three drafts as tests/test_spec_decode.py builds
+    them: (a) the target's first SPEC_DRAFT_LAYERS layers sharing its
+    embedding and head, (b) the target itself, (c) a random
+    SPEC_DRAFT_LAYERS-layer llama3.2-1B seeded 1; then (a) with
+    ``kv_codec="trit"`` (kernels 4 and 5 on the target's and the draft's
+    pages), served again with the codec's plain versions, which must give
+    the same tokens and the same draft and verify rows bit for bit, and
+    (a) at temperature 0.8.  Greedy tokens are held to the plain serve's
+    under the margin rule; a self-draft rejection must sit where the
+    verify row holds the proposal within 2 x SPEC_LOGIT_TOL of its argmax,
+    and draft and verify rows before a rejection (the same positions and
+    tokens, decode step against suffix forward) within SPEC_ROW_TOL, as
+    must the plain serve's decode rows against one forward over the same
+    tokens; the kernel launches equal the formula in every run."""
+    cfg, params, prompts = llm["cfg"], llm["params"], llm["prompts"]
+    raw = llm["raw"]
+    dcfg = cfg.replace(n_layers=SPEC_DRAFT_LAYERS)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 1)
+    drafts = {
+        "truncated": (dict(params,
+                           layers=params["layers"][:SPEC_DRAFT_LAYERS]),
+                      dcfg),
+        "self": (params, cfg),
+        "random": (TF.init_params(dcfg, gen), dcfg),
+    }
+    runs: dict = {}
+    for name, (dp, dc) in drafts.items():
+        runs[name] = spec_serve(torch, MM, TC, S, params, cfg, prompts, dp,
+                                dc)
+    runs["truncated trit"] = spec_serve(torch, MM, TC, S, params, cfg,
+                                        prompts, *drafts["truncated"],
+                                        kv_codec="trit")
+    saved, codec._tc = codec._tc, _PlainCodec(TC)
+    try:
+        plain_trit = spec_serve(torch, MM, TC, S, params, cfg, prompts,
+                                *drafts["truncated"], kv_codec="trit")
+    finally:
+        codec._tc = saved
+    kern = runs["truncated trit"]
+    if (plain_trit["tokens"] != kern["tokens"]
+            or plain_trit["rows_sha256"] != kern["rows_sha256"]
+            or plain_trit["verifies"] != kern["verifies"]):
+        raise RuntimeError(
+            "spec truncated trit: with the plain codec the tokens or the "
+            "draft and verify rows differ from those with the codec kernels"
+            f" (first difference per request "
+            f"{_first_diffs(plain_trit['tokens'], kern['tokens'])}, rows "
+            f"{plain_trit['rows_sha256'][:16]} vs {kern['rows_sha256'][:16]})")
+    log(f"phase 4: spec truncated trit draft served again with the codec's "
+        f"plain versions (pack/unpack_trits launched "
+        f"{plain_trit['launches']['pack_trits']}/"
+        f"{plain_trit['launches']['unpack_trits']}): tokens identical, "
+        f"{len(kern['verifies'])} verifies' draft and verify rows "
+        f"bit-identical (sha256 {kern['rows_sha256'][:16]})")
+    runs["truncated t=0.8"] = spec_serve(torch, MM, TC, S, params, cfg,
+                                         prompts, *drafts["truncated"],
+                                         temperature=0.8)
+    base = _decode_vs_forward(torch, S, DEC, params, cfg, prompts[0])
+    if max(base) > SPEC_ROW_TOL:
+        raise RuntimeError(f"llm: decode rows against one forward over the "
+                           f"same tokens differ by {max(base)} > "
+                           f"{SPEC_ROW_TOL}")
+    log(f"phase 4: plain serve, request 0: decode-step rows against one "
+        f"prefill_with_prefix forward over the same {LLM_PROMPT + LLM_NEW - 1}"
+        f" tokens, max |err| per step {base} (max {max(base)!r}, "
+        f"{sum(e > SPEC_LOGIT_TOL for e in base)} of {len(base)} over "
+        f"{SPEC_LOGIT_TOL}, tolerance {SPEC_ROW_TOL}); {card}")
+    for name, run in runs.items():
+        sp = run["stats"]["spec"]
+        trit = "trit" in name
+        if DEVICE == "cuda" and (
+                trit != bool(run["launches"]["pack_trits"]) or
+                trit != bool(run["launches"]["unpack_trits"])):
+            raise RuntimeError(f"spec {name}: codec launches "
+                               f"{run['launches']}")
+        if trit and DEVICE == "cuda":
+            forwards = run["target_forwards"] + run["draft_steps"]
+            if not (run["launches"]["pack_trits"] == 2 * forwards and
+                    run["launches"]["unpack_trits"] <= 2 * forwards):
+                raise RuntimeError(f"spec {name}: codec launches "
+                                   f"{run['launches']} for {forwards} "
+                                   "forwards, want 2 writes per forward")
+        if "t=" in name or trit:
+            note = "tokens not compared" if "t=" in name else (
+                "tokens and rows identical with the plain codec; against "
+                "the plain trit serve, first difference per request "
+                f"{_first_diffs(run['tokens'], llm['trit']['tokens'])}")
+        else:
+            n, diffs = _margin_rule(run["tokens"], raw["tokens"],
+                                    raw["margins"])
+            note = (f"{n} of {LLM_REQUESTS * LLM_NEW} tokens equal to the "
+                    f"plain serve's, differences (request, step, plain "
+                    f"margin) {diffs}")
+        rej = [v for v in run["verifies"] if v[1] is not None]
+        errs = [e for v in run["verifies"] for e in v[3]]  # a self-draft's
+        if name == "self":
+            bad = [v for v in rej if v[2] > 2 * SPEC_LOGIT_TOL]
+            if bad or sp["tokens_per_verify"] <= 2:
+                raise RuntimeError(f"spec self-draft: rejections away from "
+                                   f"a near tie {bad}, tokens_per_verify "
+                                   f"{sp['tokens_per_verify']}")
+            if max(errs) > SPEC_ROW_TOL:
+                raise RuntimeError(f"spec self-draft: draft and verify rows "
+                                   f"of the same positions differ by "
+                                   f"{max(errs)} > {SPEC_ROW_TOL}")
+        toks = sum(len(t) for t in run["tokens"])
+        log(f"phase 4: spec {name} draft ({run['draft_steps']} draft steps "
+            f"of {drafts[name.split()[0]][1].n_layers} layers): "
+            f"{toks / run['seconds']!r} tokens/s ({run['seconds']!r} s); "
+            f"tokens_per_verify {sp['tokens_per_verify']!r}, acceptance "
+            f"{sp['acceptance_rate']!r}, k_current {sp['k_current']}, "
+            f"{sp['verify_steps']} verifies + {sp['plain_steps']} plain "
+            f"steps; propose ms median {run['propose_ms']!r}, verify ms "
+            f"median {run['verify_ms']!r}; ternary_matmul launched "
+            f"{run['launches']['ternary_matmul']} = formula {run['want']}, "
+            f"pack/unpack_trits {run['launches']['pack_trits']}/"
+            f"{run['launches']['unpack_trits']}; {len(rej)} verifies "
+            f"rejected (gaps at the rejection "
+            f"{[round(v[2], 6) for v in rej][:12]})"
+            + (f", draft (decode step) vs verify rows before a rejection: "
+               f"{len(errs)} rows, max |err| {max(errs)!r}, median "
+               f"{float(np.median(errs))!r}, "
+               f"{sum(e > SPEC_LOGIT_TOL for e in errs)} over "
+               f"{SPEC_LOGIT_TOL} (tolerance {SPEC_ROW_TOL})"
+               if name == "self" else "")
+            + f"; {note}; {card}")
+    return runs
+
+
+def _first_diffs(tokens, other) -> list:
+    return [next((j for j, (a, b) in enumerate(zip(t, o)) if a != b), None)
+            for t, o in zip(tokens, other)]
+
+
+# -- phase 4: the LLM training path -------------------------------------------
+
+
+def _train_argv(history: str, *extra) -> list:
+    return ["--arch", LLM_ARCH, "--full-config", "--quant", "ternary",
+            "--steps", str(TRAIN_STEPS), "--seq", str(TRAIN_SEQ), "--batch",
+            str(TRAIN_BATCH), "--log-every", "1", "--history", history,
+            *extra]
+
+
+def _read_history(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def llm_inq_check(torch, TF, loop, inq, cfg) -> str:
+    """Full-width QAT with the paper's INQ schedule through `loop.train`
+    for TRAIN_INQ_STEPS steps (the schedule's phases compressed into
+    them: 70% of every matrix frozen before step 0, the rest before step
+    1).  Each freeze quantizes its group to 0 and +-one scale of its own,
+    so every matrix ends fully frozen, its effective weights equal to the
+    stored q and taking at most as many nonzero magnitudes as there were
+    freezes; every loss finite."""
+    from repro_torch.data import tokens
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import adam
+
+    src = tokens.for_arch(cfg, ShapeSpec("cli", TRAIN_SEQ, TRAIN_BATCH,
+                                         "train"))
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    res = loop.train(
+        lambda p, b: TF.forward_loss(TF.unstack_layers(p), b, cfg),
+        TF.stack_layers(TF.init_params(cfg, gen)),
+        lambda s: {k: torch.as_tensor(v, dtype=torch.int64, device=DEVICE)
+                   for k, v in src.batch(s).items()},
+        loop.TrainLoopConfig(total_steps=TRAIN_INQ_STEPS, log_every=1,
+                             inq=inq.INQConfig()),
+        adam.AdamConfig(total_steps=TRAIN_INQ_STEPS, warmup_steps=1))
+    hist, st = res["history"], res["inq_state"]
+    losses = [r["loss"] for r in hist]
+    freezes = len({r["inq_frac"] for r in hist})
+    mags = []
+    for s_, w in zip(inq._state_leaves(st, keep_none=True),
+                     inq._leaves(inq.apply(st, res["params"]))):
+        if s_ is None:
+            continue
+        if not bool((s_["mask"] > 0).all()) or not torch.equal(w, s_["q"]):
+            raise RuntimeError("llm INQ: a matrix is not wholly frozen to "
+                               "its q values")
+        a = w.abs()
+        mags.append(int(torch.unique(a[a > 0]).numel()))
+    if not all(np.isfinite(losses)) or max(mags) > freezes:
+        raise RuntimeError(f"llm INQ: losses {losses}, nonzero magnitudes "
+                           f"per matrix {mags} for {freezes} freezes")
+    return (f"INQ run through loop.train ({TRAIN_INQ_STEPS} steps, frozen "
+            f"fractions {[r['inq_frac'] for r in hist]}, losses {losses}): "
+            f"{len(mags)} matrices wholly frozen, nonzero magnitudes per "
+            f"matrix {mags} (at most {freezes}, one scale per freeze), "
+            f"weight sparsity {inq.weight_sparsity(st, res['params'])!r}")
+
+
+def llm_train_path(torch, TF, inq, loop, card: str) -> None:
+    """Full-width llama3.2-1B QAT (``quant="ternary"``, batch TRAIN_BATCH,
+    seq TRAIN_SEQ) through `python -m repro_torch.launch.train`: an
+    uninterrupted TRAIN_STEPS-step run in this process, then a run in a
+    subprocess checkpointing every TRAIN_CKPT_EVERY steps and preempted at
+    TRAIN_FAIL_AT (it must raise PreemptionError), then the same command
+    without the preemption, which must resume from the checkpoint and
+    give the uninterrupted run's losses within TRAIN_RESUME_ATOL.  Prints
+    the step ms, the forward + backward share, launches per step, peak
+    memory and the loss history; every loss finite.  Between the two,
+    `llm_inq_check`: the frozen weights of an INQ run are trits times
+    their freeze's scale."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.launch import train as launch_train
+
+    with tempfile.TemporaryDirectory() as root:
+        free = shutil.disk_usage(root).free
+        hist = os.path.join(root, "full.jsonl")
+        torch.cuda.reset_peak_memory_stats()
+        res = launch_train.main(_train_argv(hist))
+        sync(torch)
+        peak = torch.cuda.max_memory_allocated()
+        full = _read_history(hist)
+        losses = [r["loss"] for r in full]
+        if not all(np.isfinite(losses)) or len(full) != TRAIN_STEPS:
+            raise RuntimeError(f"llm train: history {full}")
+        cfg = configs.get(LLM_ARCH).replace(quant="ternary")
+        step, batch = _train_step_parts(torch, TF, loop, cfg, res)
+        del res
+        fb, fb_min = _median_ms(torch, batch, reps=3, warm=1)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            sync(torch)
+            wall = (time.perf_counter() - t0) * 1e3
+        ev = prof.key_averages()
+        # the kernels' own rows: the CPU ops' rows carry their kernels'
+        # device time too, and would count it twice
+        dev = [e for e in ev if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+        kernels = sum(e.count for e in dev)
+        launch_calls = sum(e.count for e in ev if e.key in (
+            "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+        busy = sum(e.self_device_time_total for e in dev) / 1e3
+        step_ms = [r["dt_s"] * 1e3 for r in full[1:]]
+        st = float(np.median(step_ms))
+        log(f"phase 4: llm QAT {LLM_ARCH} full width (quant='ternary', "
+            f"batch {TRAIN_BATCH}, seq {TRAIN_SEQ}) through launch.train: "
+            f"loss history {losses}; step ms median {st!r} over steps "
+            f"1-{TRAIN_STEPS - 1} (loop's clock, {step_ms}); peak memory "
+            f"{peak / 2**30!r} GiB; {card}")
+        log(f"phase 4: llm QAT forward + backward median ms {fb!r} (min "
+            f"{fb_min!r}; {fb / st!r} of the step median); one step under "
+            f"torch.profiler ({wall!r} ms): {kernels} device kernels, "
+            f"{launch_calls} kernel launch calls, device busy {busy!r} ms "
+            f"(busy share {busy / wall!r}); {card}")
+        for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:6]:
+            log(f"  device {e.self_device_time_total / 1e3!r} ms in "
+                f"{e.count} calls: {e.key[:90]}")
+        del step, batch
+        torch.cuda.empty_cache()
+        log(f"phase 4: llm QAT {llm_inq_check(torch, TF, loop, inq, cfg)}; "
+            f"{card}")
+        torch.cuda.empty_cache()
+
+        ckpt = os.path.join(root, "ckpt")
+        env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+        cmd = [sys.executable, "-m", "repro_torch.launch.train"]
+        t0 = time.perf_counter()
+        cut = subprocess.run(
+            cmd + _train_argv(os.path.join(root, "cut.jsonl"), "--ckpt-dir",
+                              ckpt, "--ckpt-every", str(TRAIN_CKPT_EVERY),
+                              "--fail-at-step", str(TRAIN_FAIL_AT)),
+            env=env, cwd=ROOT, capture_output=True, text=True, timeout=900)
+        cut_s = time.perf_counter() - t0
+        if cut.returncode == 0 or "PreemptionError" not in cut.stderr:
+            raise RuntimeError(f"llm train: the preempted run exited "
+                               f"{cut.returncode}: {cut.stderr[-3000:]}")
+        nbytes = _dir_bytes(os.path.join(ckpt,
+                                         f"step_{TRAIN_CKPT_EVERY:09d}"))
+        t0 = time.perf_counter()
+        again = subprocess.run(
+            cmd + _train_argv(os.path.join(root, "resumed.jsonl"),
+                              "--ckpt-dir", ckpt, "--ckpt-every",
+                              str(TRAIN_CKPT_EVERY)),
+            env=env, cwd=ROOT, capture_output=True, text=True, timeout=900)
+        again_s = time.perf_counter() - t0
+        want = f"(restored from checkpoint step {TRAIN_CKPT_EVERY})"
+        if again.returncode or want not in again.stdout:
+            raise RuntimeError(f"llm train: the resumed run exited "
+                               f"{again.returncode}: {again.stdout[-2000:]}"
+                               f" {again.stderr[-3000:]}")
+        resumed = _read_history(os.path.join(root, "resumed.jsonl"))
+    got = {r["step"]: r["loss"] for r in resumed}
+    ref = {r["step"]: r["loss"] for r in full}
+    if sorted(got) != list(range(TRAIN_CKPT_EVERY + 1, TRAIN_STEPS)) or any(
+            abs(got[s] - ref[s]) > TRAIN_RESUME_ATOL for s in got):
+        raise RuntimeError(f"llm train: resumed losses {got} against the "
+                           f"uninterrupted run's {ref}")
+    log(f"phase 4: llm QAT preempted at step {TRAIN_FAIL_AT} "
+        f"(PreemptionError, {cut_s!r} s with the step-{TRAIN_CKPT_EVERY} "
+        f"checkpoint, {nbytes} bytes; {free / 2**30!r} GiB free before), "
+        f"resumed from step {TRAIN_CKPT_EVERY} in a fresh process "
+        f"({again_s!r} s): losses {got} against the uninterrupted run's "
+        f"{ {s: ref[s] for s in got} } (|diff| max "
+        f"{max(abs(got[s] - ref[s]) for s in got)!r}, tolerance "
+        f"{TRAIN_RESUME_ATOL}); {card}")
+
+
+def _train_step_parts(torch, TF, loop, cfg, res) -> tuple:
+    """One QAT step (`loop.make_step`) and its forward + backward alone,
+    on the trained run's params and Adam state and batch 0."""
+    from repro_torch.data import tokens
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import adam
+
+    src = tokens.for_arch(cfg, ShapeSpec("cli", TRAIN_SEQ, TRAIN_BATCH,
+                                         "train"))
+    batch = {k: torch.as_tensor(v, dtype=torch.int64, device=DEVICE)
+             for k, v in src.batch(0).items()}
+    acfg = adam.AdamConfig(total_steps=TRAIN_STEPS, warmup_steps=1)
+    step_fn = loop.make_step(
+        lambda p, b: TF.forward_loss(TF.unstack_layers(p), b, cfg), acfg,
+        loop.TrainLoopConfig(total_steps=TRAIN_STEPS))
+    state = {"p": res["params"], "opt": res["opt_state"]}
+
+    def step():
+        state["p"], state["opt"], _ = step_fn(state["p"], state["opt"],
+                                              None, batch)
+
+    def fwd_bwd():
+        leaves = [t.detach().requires_grad_(True)
+                  for t in loop._leaves(state["p"])]
+        p = loop._rebuild(state["p"], iter(leaves))
+        loss, _ = TF.forward_loss(TF.unstack_layers(p), batch, cfg)
+        torch.autograd.grad(loss, leaves)
+
+    return step, fwd_bwd
 
 
 # -- phase 4: the CNN train -> compile -> serve path --------------------------
@@ -2886,6 +3410,7 @@ def main() -> int:
     from repro_torch import serving as S
     from repro_torch.configs import cutie_cnn as configs_cnn
     from repro_torch.core import codec, engine, inq, thermometer
+    from repro_torch.core import ternary as T
     from repro_torch.data import cifar
     from repro_torch.kernels import _build
     from repro_torch.kernels import fused_trunk as FT
@@ -2899,6 +3424,7 @@ def main() -> int:
     from repro_torch.models import transformer as TF
     from repro_torch.optim import adam
     from repro_torch.train import cutie_qat as Q
+    from repro_torch.train import loop
 
     t0 = time.perf_counter()
     card = card_line()
@@ -2930,6 +3456,8 @@ def main() -> int:
     compiled_programs(torch, K, FT, P, compiler)
     llm = llm_main_path(torch, MM, TC, S, TF, DEC, C, codec, configs)
     restart_path(torch, TC, S, llm)
+    spec_path(torch, MM, TC, S, TF, DEC, codec, llm, card)
+    llm_train_path(torch, TF, inq, loop, card)
     cnn = cnn_main_path(torch, K, FT, TC, P, S, Q, CNN, inq, adam, cifar,
                         configs_cnn, engine, compiler, ops)
     program_latency(torch, P, mp, card)

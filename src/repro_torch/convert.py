@@ -74,17 +74,6 @@ def _tree(node, dev):
     return _tensor(node, dev)
 
 
-def _unstack(node, n: int) -> list:
-    """A tree of tensors stacked on a leading axis of ``n`` -> ``n`` trees."""
-    if isinstance(node, Mapping):
-        parts = {k: _unstack(v, n) for k, v in node.items()}
-        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
-    if node.shape[0] != n:
-        raise ValueError(f"a layer leaf stacks {node.shape[0]} layers, the "
-                         f"config has {n}")
-    return list(node.unbind(0))
-
-
 def llm_params_from_numpy(tree, cfg, device=None) -> dict:
     """The reference's LLM ``init_params`` tree, as numpy arrays, -> the
     port's parameters (`repro_torch.models.transformer`).
@@ -97,9 +86,18 @@ def llm_params_from_numpy(tree, cfg, device=None) -> dict:
 
     TF.require_ported(cfg)
     dev = resolve_device(device)
-    out = {k: _tree(v, dev) for k, v in tree.items() if k != "layers"}
-    out["layers"] = _unstack(_tree(tree["layers"], dev), cfg.n_layers)
-    return out
+    out = {k: _tree(v, dev) for k, v in tree.items()}
+    n = {t.shape[0] for t in _leaves(out["layers"])}
+    if n != {cfg.n_layers}:
+        raise ValueError(f"the layer leaves stack {sorted(n)} layers, the "
+                         f"config has {cfg.n_layers}")
+    return TF.unstack_layers(out)
+
+
+def _leaves(node) -> list:
+    if isinstance(node, Mapping):
+        return [x for v in node.values() for x in _leaves(v)]
+    return [node]
 
 
 CNN_LAYER_FIELDS = ("w", "gamma", "beta", "mean", "var")

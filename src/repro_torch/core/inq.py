@@ -95,7 +95,9 @@ def _quantize(w: torch.Tensor, cfg: INQConfig, group=None) -> torch.Tensor:
         if cfg.with_scale:
             q = q * mean_abs
         return q
-    delta = cfg.ratio * mean_abs
+    # the ratio in w's dtype, as the reference's weakly typed product
+    delta = torch.full((), cfg.ratio, dtype=w.dtype, device=w.device) \
+        * mean_abs
     q = ternary.ternarize(w, delta)
     if cfg.with_scale:
         nz = (q != 0) * group

@@ -76,6 +76,14 @@ def _lead_sum(y: torch.Tensor, r: int) -> torch.Tensor:
     return _lead_sum(acc, r)
 
 
+def _sum(x: torch.Tensor, axes) -> torch.Tensor:
+    """`_window_sum` in at least float32, rounded back to x's dtype: the
+    reference's jnp reductions of a bf16 (or f16) tensor accumulate in
+    float32 and round the result, and XLA rounds at every op boundary."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    return _window_sum(x.to(acc), axes).to(x.dtype)
+
+
 def ternarize(x: torch.Tensor, delta) -> torch.Tensor:
     """Map x -> {-1, 0, +1}: +1 if x > delta, -1 if x < -delta, else 0."""
     return (x > delta).to(x.dtype) - (x < -delta).to(x.dtype)
@@ -92,22 +100,26 @@ def twn_delta(w: torch.Tensor, axis=None, ratio: float = 0.7
 
     ``axis=None`` gives a per-tensor threshold; reduction axes give one
     per output channel (``axis=(0, 1, 2)`` for HWIO kernels).  The mean
-    multiplies by 1/n, as XLA turns the reference's division by n.
+    multiplies by 1/n, as XLA turns the reference's division by n; for a
+    bf16 ``w`` the mean and ``ratio`` are rounded to bf16 first, as the
+    reference's weakly typed ``ratio * mean`` is.
     """
     axes = tuple(range(w.dim())) if axis is None else tuple(axis)
     n = 1
     for a in axes:
         n *= w.shape[a]
-    mean = _window_sum(w.abs(), axes) * (1.0 / n)
-    return ratio * (mean.reshape(()) if axis is None else mean)
+    acc = torch.promote_types(w.dtype, torch.float32)
+    mean = (_window_sum(w.abs().to(acc), axes) * (1.0 / n)).to(w.dtype)
+    r = torch.full((), ratio, dtype=w.dtype, device=w.device)
+    return r * (mean.reshape(()) if axis is None else mean)
 
 
 def twn_scale(w: torch.Tensor, wq: torch.Tensor, axis=None) -> torch.Tensor:
     """Optimal TWN scale: mean |w| over the non-zero support of ``wq``."""
     axes = tuple(range(w.dim())) if axis is None else tuple(axis)
     nz = (wq != 0).to(w.dtype)
-    num = _window_sum(w.abs() * nz, axes)
-    den = _window_sum(nz, axes)
+    num = _sum(w.abs() * nz, axes)
+    den = _sum(nz, axes)
     if axis is None:
         num, den = num.reshape(()), den.reshape(())
     return num / torch.clamp(den, min=1.0)

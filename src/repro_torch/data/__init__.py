@@ -1,1 +1,2 @@
-"""Data: synthcifar (the CNN's dataset) and a background prefetcher."""
+"""Data: synthcifar (the CNN's dataset), synthetic LM tokens and a
+background prefetcher."""

@@ -11,7 +11,9 @@ full-prompt prefill (see `repro_torch.serving.llm`).
 
 Scores, softmax statistics and the P·V sums are f32; products of bf16
 operands are exact in f32, as with the reference's
-``preferred_element_type=f32``.
+``preferred_element_type=f32``.  With ``cfg.attn_bf16_scores`` the score
+tile is rounded to bf16 and its max-subtracted exponentials stay bf16,
+while m and l accumulate in f32, as the reference's flag does.
 """
 
 from __future__ import annotations
@@ -57,12 +59,13 @@ def _project_qkv(p, x, cfg, positions):
 
 
 def flash_attention(q, k, v, *, q_chunk: int, kv_chunk: int,
-                    q_offset: int = 0):
+                    q_offset: int = 0, bf16_scores: bool = False):
     """Causal online-softmax attention, MHA layout: q,k,v (B,S|T,H,D);
     query row i sits at absolute position ``q_offset + i``.
 
     GQA callers repeat kv to the full head count first, as the reference
-    does.
+    does.  ``bf16_scores``: the score tile and its exponentials in bf16
+    (f32 m/l accumulation).
     """
     b, s, h, d = q.shape
     t = k.shape[1]
@@ -85,7 +88,8 @@ def flash_attention(q, k, v, *, q_chunk: int, kv_chunk: int,
     scale = d ** -0.5
     mask_tail = t_valid != t
     dev = q.device
-    neg_inf = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
+    sc_dtype = torch.bfloat16 if bf16_scores else torch.float32
+    neg_inf = torch.full((), NEG_INF, dtype=sc_dtype, device=dev)
     kf = k.to(torch.float32)
     outs = []
     for qi in range(nq):
@@ -98,15 +102,16 @@ def flash_attention(q, k, v, *, q_chunk: int, kv_chunk: int,
             kblk = kf[:, ki * ck:(ki + 1) * ck]
             vblk = v[:, ki * ck:(ki + 1) * ck]
             kpos = ki * ck + torch.arange(ck, device=dev)
-            sc = torch.einsum("bqhd,bkhd->bhqk", qblk, kblk) * scale
+            sc = torch.einsum("bqhd,bkhd->bhqk", qblk, kblk).to(sc_dtype) \
+                * scale
             mask = qpos[:, None] >= kpos[None, :]
             if mask_tail:
                 mask = mask & (kpos < t_valid)[None, :]
             sc = torch.where(mask[None, None], sc, neg_inf)
-            m_new = torch.maximum(m, sc.amax(dim=-1))
+            m_new = torch.maximum(m, sc.amax(dim=-1).to(torch.float32))
             alpha = torch.exp(m - m_new)
-            pexp = torch.exp(sc - m_new[..., None])
-            ls = ls * alpha + pexp.sum(dim=-1)
+            pexp = torch.exp(sc - m_new[..., None].to(sc_dtype))
+            ls = ls * alpha + pexp.sum(dim=-1, dtype=torch.float32)
             pv = torch.einsum("bhqk,bkhd->bhqd",
                               pexp.to(vblk.dtype).to(torch.float32),
                               vblk.to(torch.float32))
@@ -142,7 +147,8 @@ def attend(p, x, cfg, positions, prefix_kv):
     kr = torch.repeat_interleave(kf, g, dim=2) if g > 1 else kf
     vr = torch.repeat_interleave(vf, g, dim=2) if g > 1 else vf
     out = flash_attention(q, kr, vr, q_chunk=cfg.attn_q_chunk,
-                          kv_chunk=cfg.attn_kv_chunk, q_offset=n_cached)
+                          kv_chunk=cfg.attn_kv_chunk, q_offset=n_cached,
+                          bf16_scores=cfg.attn_bf16_scores)
     b, s, _, _ = out.shape
     y = C.linear(p["wo"], out.reshape(b, s, -1), quant=cfg.quant)
     return y, (k, v)

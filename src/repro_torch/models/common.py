@@ -47,9 +47,13 @@ def rmsnorm_init(dim, dtype=torch.bfloat16, device=None):
     return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
 
 
-def rmsnorm(p, x, eps: float = 1e-6):
+def rmsnorm(p, x, eps: float = 1e-6, bf16_mul: bool = False):
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if bf16_mul:
+        # f32 reduction only; the full-width normalize stays in x.dtype
+        inv = torch.rsqrt(var + eps).to(x.dtype)
+        return x * inv * p["scale"]
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * p["scale"]
 
 

@@ -77,6 +77,14 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
 def reduce_for_smoke(cfg: ArchConfig) -> ArchConfig:
     """Same-family reduced config for CPU smoke tests."""
     kw = dict(

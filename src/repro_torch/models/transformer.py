@@ -5,32 +5,31 @@ Parameters are a plain dict: ``embed`` (V_padded, D), ``ln_f``, an
 untied ``head`` where the config asks for one, and ``layers``, a list of
 per-layer dicts (the reference stacks them on a leading axis and scans;
 here the stack is a Python loop).  The other families raise, naming
-their ROADMAP item.
+their ROADMAP item.  ``cfg.remat`` ``"full"`` or ``"block"`` checkpoints
+each block (`torch.utils.checkpoint`) when the forward records a
+gradient; the reference's ``"block"`` policy (keep the matmul outputs)
+has no counterpart, so both recompute the whole block.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import common as C
-from repro_torch.models import mlp
+from repro_torch.models import losses, mlp
 from repro_torch.models.config import ArchConfig
 
 PORTED_FAMILIES = ("dense",)
 
 
 def require_ported(cfg: ArchConfig) -> None:
-    """Raise for a family, or a reference execution flag, the port does
-    not run yet."""
+    """Raise for a family the port does not run yet."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
             "ROADMAP.md §1 item 10 (LLM stack)")
-    if cfg.attn_bf16_scores or cfg.norm_bf16_mul:
-        raise NotImplementedError(
-            "attn_bf16_scores / norm_bf16_mul (bf16 score tiles, bf16 "
-            "normalize) are not ported yet: ROADMAP.md §1 item 10")
 
 
 def vocab_padded(cfg: ArchConfig) -> int:
@@ -50,7 +49,7 @@ def _norm_init(cfg, device):
 
 def _norm(cfg, p, x):
     if cfg.norm == "rmsnorm":
-        return C.rmsnorm(p, x)
+        return C.rmsnorm(p, x, bf16_mul=cfg.norm_bf16_mul)
     return C.layernorm(p, x)
 
 
@@ -83,6 +82,32 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
     return p
 
 
+def stack_layers(p) -> dict:
+    """The parameters in the reference's layout: each layer leaf stacked
+    on a leading ``n_layers`` axis (a copy).  The training loop keeps
+    this layout, so INQ ranks, weight decay (``ndim >= 2``) and checkpoint
+    leaves are the reference's."""
+    def stack(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return torch.stack(nodes)
+
+    return {**p, "layers": stack(p["layers"])}
+
+
+def unstack_layers(p) -> dict:
+    """`stack_layers`'s inverse, as views: gradients through the per-layer
+    tensors reach the stacked ones."""
+    def unstack(node):
+        if isinstance(node, dict):
+            parts = {k: unstack(v) for k, v in node.items()}
+            n = len(next(iter(parts.values())))
+            return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+        return list(node.unbind(0))
+
+    return {**p, "layers": unstack(p["layers"])}
+
+
 def head_weight(p, cfg):
     return p["embed"].T if cfg.tie_embeddings else p["head"]
 
@@ -100,9 +125,33 @@ def backbone(p, x, cfg, positions):
     """Run the layer stack; returns the hidden states (the reference also
     returns the MoE aux losses, zero for the dense family)."""
     require_ported(cfg)
+    remat = cfg.remat != "none" and torch.is_grad_enabled()
     for lp in p["layers"]:
-        x = dense_block(lp, x, cfg, positions)
+        if remat:
+            x = checkpoint(dense_block, lp, x, cfg, positions,
+                           use_reentrant=False)
+        else:
+            x = dense_block(lp, x, cfg, positions)
     return x
+
+
+def forward_loss(p, batch, cfg):
+    """Training forward -> (scalar loss, metrics).  ``batch`` holds
+    ``tokens`` and ``labels`` (B, S); the encdec and vlm families (frames,
+    patches) wait for ROADMAP.md §1 item 10."""
+    require_ported(cfg)
+    tokens = batch["tokens"]
+    s = tokens.shape[1]
+    positions = torch.arange(s, device=tokens.device)[None]
+    x = _embed(p, tokens, cfg)
+    x = backbone(p, x, cfg, positions)
+    x = _norm(cfg, p["ln_f"], x)
+    loss, cnt = losses.chunked_xent(x, head_weight(p, cfg), batch["labels"],
+                                    chunk=cfg.loss_chunk)
+    zero = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    aux = {"lb_loss": zero, "z_loss": zero}
+    total = loss + 1e-2 * aux["lb_loss"] + 1e-3 * aux["z_loss"]
+    return total, {"xent": loss, **aux, "tokens": cnt}
 
 
 def forward_logits(p, batch, cfg):

@@ -14,9 +14,11 @@ provides a deterministic fault injector (`FaultPlan` / `FaultyExecutor`)
 and the engine's recovery policy (`FaultPolicy`), while
 :mod:`repro_torch.serving.snapshot` checkpoints the whole serving state
 so a killed engine resumes in-flight decodes bit-identically.
+:mod:`repro_torch.serving.spec` (`SpecExecutor`) is speculative decoding
+over the same paged state.
 
-Not ported yet, each raising where it would be reached: speculative
-decoding (ROADMAP.md §1 item 10) and ``mesh=`` execution (item 9).
+Not ported yet, raising where it would be reached: ``mesh=`` execution
+(ROADMAP.md §1 item 9).
 """
 
 from repro_torch.serving.blocks import (BlockPool, KVPagedStore,  # noqa: F401
@@ -44,6 +46,7 @@ from repro_torch.serving.scheduler import (SCHEDULERS,  # noqa: F401
                                            get_scheduler)
 from repro_torch.serving.snapshot import (  # noqa: F401
     restore_serving_state, save_serving_state)
+from repro_torch.serving.spec import SpecConfig, SpecExecutor  # noqa: F401
 
 __all__ = [
     "CutieEngine", "percentiles",
@@ -60,4 +63,5 @@ __all__ = [
     "GarbageOutputError", "LoadShedError", "ModelQuarantinedError",
     "RequestTimeout",
     "save_serving_state", "restore_serving_state",
+    "SpecConfig", "SpecExecutor",
 ]

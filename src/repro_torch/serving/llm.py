@@ -294,9 +294,11 @@ class LLMExecutor(Executor):
         return {n: torch.zeros(shape, dtype=torch.bfloat16,
                                device=self.device) for n in ("k", "v")}
 
-    def _run_suffix(self, tokens: np.ndarray, n_cached: int, prefix_kv):
-        """Shared paged/contiguous suffix prefill: bucket, run, slice."""
-        suffix = np.asarray(tokens[n_cached:], np.int64)
+    def _suffix_forward(self, suffix: np.ndarray, n_cached: int, prefix_kv):
+        """One bucketed forward of ``suffix`` tokens at positions
+        ``n_cached ..`` over the prefix rows: ``(logits (1, S, V), kv,
+        n_real)``.  Prefill and speculative verification share it, and
+        its bucket shapes."""
         n_real = len(suffix)
         sb = _bucket(n_real, self.scfg.block_size)
         padded = np.zeros((1, sb), np.int64)
@@ -305,6 +307,12 @@ class LLMExecutor(Executor):
         logits, kv = DEC.prefill_with_prefix(
             self.params, torch.as_tensor(padded, device=self.device),
             prefix_kv, self.cfg)
+        return logits, kv, n_real
+
+    def _run_suffix(self, tokens: np.ndarray, n_cached: int, prefix_kv):
+        """Shared paged/contiguous suffix prefill: bucket, run, slice."""
+        logits, kv, n_real = self._suffix_forward(
+            np.asarray(tokens[n_cached:], np.int64), n_cached, prefix_kv)
         self.n_prefills += 1
         return logits[0, n_real - 1], kv, n_real
 

@@ -967,3 +967,171 @@ def test_serving_snapshot_restores_bit_identically_on_card(cuda, tmp_path,
     both = got_lg + rest_lg
     assert len(both) == len(want_lg)
     assert all(torch.equal(a, b) for a, b in zip(both, want_lg))
+
+
+def _reduced_llm(quant, **kw):
+    """The reduced llama3.2-1B (2 layers), parameters drawn on the CPU so
+    the card and the CPU hold the same bits."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.config import reduce_for_smoke
+
+    cfg = reduce_for_smoke(configs.get("llama3.2-1b")).replace(
+        n_layers=2, quant=quant, attn_kv_chunk=8, **kw)
+    return cfg, TF.init_params(cfg, torch.Generator().manual_seed(0))
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+SPEC_TOL = 2.0 ** -4       # the margin rule of tests/test_torch_llm.py
+
+
+def test_reduced_spec_serve_on_card_matches_cpu(cuda):
+    """Speculative decoding (a 1-layer truncated draft) on the card: the
+    packed kernel launches 7 x (layers x target forwards + draft layers x
+    draft steps), and its tokens, like the CPU spec serve's, follow the
+    CPU's plain greedy serve under the margin rule."""
+    from repro_torch.kernels import ternary_matmul as MM
+    from repro_torch.serving import (CutieEngine, LLMExecutor, ServerConfig,
+                                     SpecExecutor)
+
+    cfg, cpu_params = _reduced_llm("ternary_packed")
+    scfg = ServerConfig(n_slots=2, max_new_tokens=8, max_len=64,
+                        block_size=8)
+    prompts = [np.array(list(np.arange(20) % 50) + [100 + i, i])
+               for i in range(4)]
+
+    def serve(ex, margins=None):
+        eng = CutieEngine("fcfs")
+        eng.register("llm", ex)
+        hs = [eng.submit(pr, model="llm") for pr in prompts]
+        out = eng.run()
+        return [out[h.uid] for h in hs], [h.uid for h in hs]
+
+    plain = LLMExecutor(cpu_params, cfg, scfg)
+    rows: dict = {}
+    admitting, prefill, sample = [], plain.prefill, plain._sample
+
+    def prefill_(uid, tokens):
+        admitting.append(uid)
+        return prefill(uid, tokens)
+
+    def sample_(lg):
+        top = lg[:, :cfg.vocab].float().topk(2, dim=-1).values
+        gap = (top[:, 0] - top[:, 1]).tolist()
+        if admitting:
+            rows.setdefault(admitting.pop(), []).append(gap[0])
+        else:
+            for i, r in enumerate(plain.slots):
+                if r is not None:
+                    rows[r.uid].append(gap[i])
+        return sample(lg)
+
+    plain.prefill, plain._sample = prefill_, sample_
+    want, uids = serve(plain)
+    margins = [rows[u] for u in uids]
+    dcfg = cfg.replace(n_layers=1)
+    for dev in ("cpu", cuda):
+        params = _to(cpu_params, dev)
+        ex = SpecExecutor(params, cfg, scfg,
+                          dict(params, layers=params["layers"][:1]), dcfg)
+        MM.reset_launches()
+        got, _ = serve(ex)
+        st = ex.extra_stats()
+        if dev == cuda:
+            forwards = st["prefills"] + st["spec"]["verify_steps"] + \
+                st["spec"]["plain_steps"]
+            assert MM.LAUNCHES["ternary_matmul"] == 7 * (
+                cfg.n_layers * forwards + dcfg.n_layers * ex.draft.n_steps)
+        assert st["spec"]["verify_steps"] > 0
+        for g, w, m in zip(got, want, margins):
+            assert len(g) == len(w)
+            j = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b),
+                     None)
+            assert j is None or m[j] <= 2 * SPEC_TOL, (dev, j, m[j])
+
+
+# the share of a QAT step's updated values that may differ card vs CPU at
+# all (each by at most the step's bound 2 * lr and one bf16 ulp): the
+# step's first Adam update is +-lr per value, so a value differs where
+# its bf16 gradient's sign (or zero) differs between the two; 42 of
+# 90,432 (4.6e-4) did on an H100 80GB HBM3 at 700 W
+LLM_STEP_FAR_SHARE = 2e-3
+
+
+def test_llm_qat_step_on_card_matches_cpu(cuda):
+    """Two training steps of the reduced llama3.2-1B QAT (quant
+    "ternary") through `loop.make_step` on the card and on the CPU from
+    the same parameters and batches: each step's loss within 2**-6; after
+    the first step every updated tensor within 2 * lr and one bf16 ulp of
+    the CPU's, and at most LLM_STEP_FAR_SHARE of all values differing."""
+    from repro_torch.data import tokens
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import adam
+    from repro_torch.train import loop
+
+    cfg, p0 = _reduced_llm("ternary")
+    src = tokens.for_arch(cfg, ShapeSpec("t", 32, 4, "train"))
+    acfg = adam.AdamConfig(total_steps=3, warmup_steps=1)
+    out = {}
+    for dev in ("cpu", cuda):
+        params = _to(TF.stack_layers(p0), dev)
+        opt = adam.init_state(loop._leaves(params))
+        step = loop.make_step(
+            lambda p, b: TF.forward_loss(TF.unstack_layers(p), b, cfg),
+            acfg, loop.TrainLoopConfig(total_steps=3))
+        losses, first = [], None
+        for i in range(2):
+            batch = {k: torch.as_tensor(v, dtype=torch.int64, device=dev)
+                     for k, v in src.batch(i).items()}
+            params, opt, m = step(params, opt, None, batch)
+            losses.append(float(m["loss"]))
+            first = first or [t.cpu() for t in loop._leaves(params)]
+        out[str(dev)] = (losses, first)
+    (lc, pc), (lg, pg) = out["cpu"], out[str(cuda)]
+    assert np.isfinite(lg).all()
+    assert np.abs(np.subtract(lc, lg)).max() <= 2.0 ** -6, (lc, lg)
+    lr = adam.schedule(acfg, 1)
+    far = total = 0
+    for a, b in zip(pc, pg):
+        a, b = a.float(), b.float()
+        d = (a - b).abs()
+        assert bool((d <= 2 * lr + 2.0 ** -7 * a.abs()).all())
+        far += int((d > 0).sum())
+        total += d.numel()
+    print(f"llm QAT step card vs CPU: losses {lc} vs {lg}, {far} of {total}"
+          f" updated values differ")
+    assert far <= LLM_STEP_FAR_SHARE * total
+
+
+def test_bf16_flags_on_card_match_cpu(cuda):
+    """``attn_bf16_scores`` (flash attention with bf16 score tiles) and
+    ``norm_bf16_mul`` (rmsnorm's bf16 normalize) on the card against the
+    same calls on the CPU."""
+    from repro_torch.models import attention as ATT
+    from repro_torch.models import common as C
+
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.tensor(rng.standard_normal((2, 40, 4, 16)),
+                            dtype=torch.float32).to(torch.bfloat16)
+               for _ in range(3))
+    for flag in (False, True):
+        a = ATT.flash_attention(q, k, v, q_chunk=16, kv_chunk=16, q_offset=3,
+                                bf16_scores=flag)
+        b = ATT.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                                q_chunk=16, kv_chunk=16, q_offset=3,
+                                bf16_scores=flag)
+        assert (a.float() - b.float().cpu()).abs().max() <= 2.0 ** -6
+    x = torch.tensor(rng.standard_normal((3, 5, 64)) * 3).to(torch.bfloat16)
+    s = {"scale": torch.tensor(rng.standard_normal(64)).to(torch.bfloat16)}
+    for flag in (False, True):
+        a = C.rmsnorm(s, x, bf16_mul=flag).float()
+        b = C.rmsnorm(_to(s, cuda), x.to(cuda), bf16_mul=flag).float().cpu()
+        assert (a - b).abs().max() <= 2.0 ** -7 * a.abs().max()
