@@ -99,6 +99,22 @@ Phases, each of which fails the script (no result line) when it fails:
    alpha times trits, the resumed losses within ``TRAIN_RESUME_ATOL`` of
    the uninterrupted run's; step ms, the forward + backward share,
    launches per step, peak memory and the loss history are printed.
+   Then the moe and ssm families (`moe_path`, `ssm_path`): full-width
+   deepseek-moe-16b (31 GB of seeded weights; routed experts dense bf16)
+   and mamba2-780m, ``ternary_packed``, serve the same requests: kernel
+   7 launches 196 per deepseek forward and 3 x 48 per mamba2 token step;
+   paged and contiguous tokens identical; a second deepseek serve
+   bit-identical in tokens and logits; deepseek's plain-matmul prefill
+   held layer by layer and end to end (`moe_plain_prefill_check`), its
+   trit-KV serve against the plain codec, its route histogram and
+   dropped assignments printed; mamba2's mixers with kernel 7 against
+   the plain matmul on the same inputs and states, at M = 1 and 4
+   (`ssm_plain_check`), its chunked forward over 5 chunks against its
+   recurrence (`ssm_chunked_check`), a mid-decode `snapshot`/`restore`
+   in process, a speculative serve of the 8 requests in two waves with
+   a 2-layer truncated draft under the margin rule and the trit
+   `StatePagedStore` on the card; each
+   with its serving times and device busy share.
    Then the third main path, train -> compile -> serve (`cnn_main_path`):
    `train.cutie_qat.run` trains the full-width CIFAR-10 QAT network
    (width 128, thermometer m 42, batch 64) for ``QAT_STEPS`` steps of INQ
@@ -157,6 +173,7 @@ again under ``PYTHONHASHSEED=0`` (synthcifar's samples are seeded with
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import hashlib
 import json
@@ -166,6 +183,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -276,6 +294,35 @@ TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 6, 128, 8
 TRAIN_CKPT_EVERY, TRAIN_FAIL_AT, TRAIN_RESUME_ATOL = 3, 4, 2.0 ** -4
 # the INQ check's steps: the paper's schedule compressed into two freezes
 TRAIN_INQ_STEPS = 2
+# the moe and ssm paths: deepseek-moe-16b and mamba2-780m at full width and
+# depth, ternary_packed, serving the LLM path's requests with its
+# ServerConfig.  deepseek's prefill with the plain matmul: each layer on
+# the kernel run's input and routes, its increment (output minus input)
+# within MOE_LAYER_ULPS bf16 ulps of the position's largest |increment|
+# (each projection rounds its bf16 output at most one or two ulps apart);
+# the logits, routed as the kernel's, within MOE_LOGIT_TOL.  Seeded
+# deepseek weights (experts drawn with fan-in E, as the reference's init)
+# carry a residual stream of |h| up to about 1,100 by layer 27, and a
+# position's rounding differences grow from layer to layer: on an H100
+# 80GB HBM3 at 700 W the logits of positions 0-22 of the main path's
+# first prompt stayed within 0.03, positions 23-39 reached 0.30-0.51 (max
+# |logit| 4.97), while every layer's increment stayed within 0.5 ulp.
+# mamba2's mixers with the plain matmul, each on the
+# kernel run's input and state: output within SSM_MIXER_ULPS bf16 ulps of
+# the position's largest |output|, over the first prompt at M = 1 and
+# SSM_CHECK_STEPS steps at M = 4.  mamba2's chunked forward (chunk
+# SSM_CHECK_CHUNK, 5 chunks of the 40-token prompt) against its
+# token-by-token recurrence: each layer on the same input within
+# SSM_LAYER_RTOL of its largest |output|; end to end a correlation above
+# SSM_CORR and the step's argmax among the forward's top 5 (48 seeded
+# layers compound the bf16 differences of the two paths).  On the same
+# card: every mixer within 0.5 ulp; the chunked forward per layer within
+# 0.0316 of its largest output, correlation 0.949.  The ssm path's
+# speculative draft depth
+MOE_ARCH, SSM_ARCH = "deepseek-moe-16b", "mamba2-780m"
+MOE_LAYER_ULPS, MOE_LOGIT_TOL = 4, 1.0
+SSM_MIXER_ULPS, SSM_CHECK_STEPS, SSM_CHECK_CHUNK = 4, 8, 8
+SSM_LAYER_RTOL, SSM_CORR, SSM_DRAFT_LAYERS = 2.0 ** -4, 0.9, 2
 SERVE_BUCKETS, SERVE_REQUESTS, SERVE_POOL = (1, 2, 4, 8), 256, 256
 INTERACTIVE_FRAC, OVERLOAD, TARGET_MULT, BATCH_DEADLINE_MULT = (
     0.25, 3.0, 5.0, 60.0)
@@ -1209,15 +1256,18 @@ def _record_margins(ex) -> dict:
     return margins
 
 
-def serve(torch, S, params, cfg, prompts, margins=False, **scfg) -> dict:
+def serve(torch, S, params, cfg, prompts, margins=False, digests=False,
+          **scfg) -> dict:
     """The requests through CutieEngine + LLMExecutor; returns tokens,
     stats, host-clock seconds and the trace's prefill/decode spans (and,
     with ``margins``, each sampled row's top-2 logit margin per request,
-    in request order)."""
+    in request order; with ``digests``, the sha256 of every sampled logits
+    tensor, in order)."""
     eng = S.CutieEngine("fcfs")
     ex = S.LLMExecutor(params, cfg, S.ServerConfig(max_new_tokens=LLM_NEW,
                                                    **scfg))
     gaps = _record_margins(ex) if margins else None
+    seen = _logit_digests(ex) if digests else None
     eng.register("llm", ex)
     hs = [eng.submit(pr, model="llm") for pr in prompts]
     sync(torch)
@@ -1237,10 +1287,11 @@ def serve(torch, S, params, cfg, prompts, margins=False, **scfg) -> dict:
             spans[ev["name"]].append((ev["ts"] - open_.pop(key)) / 1e3)
     return {"tokens": [out[h.uid] for h in hs], "executor": ex,
             "stats": eng.stats(), "seconds": secs, "spans": spans,
-            "margins": gaps and [gaps[h.uid] for h in hs]}
+            "margins": gaps and [gaps[h.uid] for h in hs], "digests": seen}
 
 
-def trit_kv_serve(torch, TC, S, codec, params, cfg, prompts, raw) -> dict:
+def trit_kv_serve(torch, TC, S, codec, params, cfg, prompts, raw,
+                  label: str = "llm") -> dict:
     """The same requests with the paged KV rows stored ternarized, 5 trits
     per byte (``kv_codec="trit"``): the codec kernels' KV forms ternarize
     and pack every written row (`ternarize_pack`, kernel 4) and unpack and
@@ -1264,7 +1315,7 @@ def trit_kv_serve(torch, TC, S, codec, params, cfg, prompts, raw) -> dict:
             launches["pack_trits"] == 2 * forwards
             and 2 * st["decode_steps"] <= launches["unpack_trits"]
             <= 2 * forwards and launches["unpack_trits"] % 2 == 0):
-        raise RuntimeError(f"llm trit: codec launches {launches} for "
+        raise RuntimeError(f"{label} trit: codec launches {launches} for "
                            f"{st['prefills']} prefills + "
                            f"{st['decode_steps']} decode steps, want 2 per "
                            "K and V write and gather")
@@ -1275,15 +1326,15 @@ def trit_kv_serve(torch, TC, S, codec, params, cfg, prompts, raw) -> dict:
     finally:
         codec._tc = saved
     if plain["tokens"] != trit["tokens"]:
-        raise RuntimeError("llm trit: tokens with the codec kernels differ "
-                           "from those with the plain codec")
+        raise RuntimeError(f"{label} trit: tokens with the codec kernels "
+                           "differ from those with the plain codec")
     first = []
     for t, r, gaps in zip(trit["tokens"], raw["tokens"], raw["margins"]):
         j = next((j for j, (a, b) in enumerate(zip(t, r)) if a != b), None)
         first.append(None if j is None else (j, gaps[j]))
     same = sum(a == b for t, r in zip(trit["tokens"], raw["tokens"])
                for a, b in zip(t, r))
-    log(f"phase 4: llm kv_codec='trit' paged: pack_trits (ternarize_pack) "
+    log(f"phase 4: {label} kv_codec='trit' paged: pack_trits (ternarize_pack) "
         f"launched {launches['pack_trits']} times, unpack_trits "
         f"(unpack_dequant) {launches['unpack_trits']} ({st['prefills']} "
         f"prefills + {st['decode_steps']} decode steps); tokens identical "
@@ -1371,38 +1422,57 @@ def llm_main_path(torch, MM, TC, S, TF, DEC, C, codec, configs) -> dict:
     if raw["tokens"] != paged["tokens"]:
         raise RuntimeError("llm: a second paged serve gave other tokens")
     trit = trit_kv_serve(torch, TC, S, codec, params, cfg, prompts, raw)
-    # one prefill with the plain matmul on the card against the kernel
-    toks = torch.as_tensor(np.pad(prompts[0], (0, PREFILL_M - LLM_PROMPT))
+    err = plain_prefill_check(torch, MM, DEC, C, params, cfg, prompts[0],
+                              "llm")
+    return {"cfg": cfg, "params": params, "prompts": prompts,
+            "paged": paged, "contiguous": contiguous, "raw": raw,
+            "launches": launches["ternary_matmul"], "logit_err": err,
+            "trit": trit}
+
+
+@contextlib.contextmanager
+def plain_matmul(MM, C):
+    """Inside the block, `linear(quant="ternary_packed")` reaches kernel
+    7's plain version instead of the kernel."""
+    saved = C._mm
+    C._mm = types.SimpleNamespace(ternary_matmul=MM.ternary_matmul_plain)
+    try:
+        yield
+    finally:
+        C._mm = saved
+
+
+def _prefill(torch, DEC, params, cfg, prompt):
+    """One cold prefill of ``prompt`` (padded to bucket PREFILL_M): its
+    positions' logits over the vocabulary, in float64."""
+    toks = torch.as_tensor(np.pad(prompt, (0, PREFILL_M - len(prompt)))
                            [None], device=DEVICE)
     empty = {n: torch.zeros((cfg.n_layers, 1, 0, cfg.n_kv, cfg.d_head),
                             dtype=torch.bfloat16, device=DEVICE)
              for n in ("k", "v")}
     lg, _ = DEC.prefill_with_prefix(params, toks, empty, cfg)
+    return lg[0, :len(prompt), :cfg.vocab].double()
 
-    class _Plain:                  # `linear` reaches the plain version
-        ternary_matmul = staticmethod(MM.ternary_matmul_plain)
 
-    saved, C._mm = C._mm, _Plain
-    try:
-        lg_plain, _ = DEC.prefill_with_prefix(params, toks, empty, cfg)
-    finally:
-        C._mm = saved
+def plain_prefill_check(torch, MM, DEC, C, params, cfg, prompt,
+                        label: str) -> float:
+    """One prefill of ``prompt`` (bucket PREFILL_M) with kernel 7 against
+    the same prefill with its plain version on the card: logits within
+    LOGIT_TOL.  Returns the max |err|."""
+    a = _prefill(torch, DEC, params, cfg, prompt)
+    with plain_matmul(MM, C):
+        b = _prefill(torch, DEC, params, cfg, prompt)
     sync(torch)
-    a = lg[0, :LLM_PROMPT, :cfg.vocab].double()
-    b = lg_plain[0, :LLM_PROMPT, :cfg.vocab].double()
     err = float((a - b).abs().max())
     if not (bool(torch.isfinite(a).all()) and err <= LOGIT_TOL):
-        raise RuntimeError(f"llm: kernel and plain prefill logits differ by "
-                           f"{err} (tolerance {LOGIT_TOL})")
+        raise RuntimeError(f"{label}: kernel and plain prefill logits differ "
+                           f"by {err} (tolerance {LOGIT_TOL})")
     same = float((a.argmax(-1) == b.argmax(-1)).double().mean())
-    log(f"phase 4: llm prefill of {LLM_PROMPT} tokens (bucket {PREFILL_M}) "
-        f"with the plain matmul on the card: logits max |err| {err!r} "
-        f"(tolerance {LOGIT_TOL}, max |logit| {float(b.abs().max())!r}), "
-        f"argmax equal on {same!r} of positions")
-    return {"cfg": cfg, "params": params, "prompts": prompts,
-            "paged": paged, "contiguous": contiguous, "raw": raw,
-            "launches": launches["ternary_matmul"], "logit_err": err,
-            "trit": trit}
+    log(f"phase 4: {label} prefill of {len(prompt)} tokens (bucket "
+        f"{PREFILL_M}) with the plain matmul on the card: logits max |err| "
+        f"{err!r} (tolerance {LOGIT_TOL}, max |logit| "
+        f"{float(b.abs().max())!r}), argmax equal on {same!r} of positions")
+    return err
 
 
 # -- phase 4: the restart path ------------------------------------------------
@@ -2029,6 +2099,556 @@ def _train_step_parts(torch, TF, loop, cfg, res) -> tuple:
         torch.autograd.grad(loss, leaves)
 
     return step, fwd_bwd
+
+
+# -- phase 4: the moe and ssm families ---------------------------------------
+
+
+def moe_launches_per_forward(cfg) -> int:
+    """Kernel 7's launches in one forward of a moe config: 4 attention
+    projections per layer, 3 per leading dense layer's FFN and 3 per MoE
+    layer's shared-expert SwiGLU (the router and the routed experts are
+    plain matmuls)."""
+    n_moe = cfg.n_layers - cfg.first_dense
+    return (4 * cfg.n_layers + 3 * cfg.first_dense
+            + (3 * n_moe if cfg.n_shared_experts else 0))
+
+
+@contextlib.contextmanager
+def routes(torch, moe, forced=None):
+    """Wrap `moe.route` inside the block: yields the list of each call's
+    (experts (T, k), router probabilities (T, E)); with ``forced``, the
+    list of an earlier run, call i routes to forced[i]'s experts (the
+    gates renormalized over this run's own probabilities)."""
+    seen, route = [], moe.route
+
+    def route_(p, xt, cfg):
+        logits, probs, gates, idx = route(p, xt, cfg)
+        if forced is not None:
+            idx = forced[len(seen)][0]
+            top = probs.gather(1, idx)
+            gates = top / torch.clamp(top.sum(-1, keepdim=True), min=1e-9)
+        seen.append((idx, probs))
+        return logits, probs, gates, idx
+
+    moe.route = route_
+    try:
+        yield seen
+    finally:
+        moe.route = route
+
+
+def _route_counts(idx, cfg, cap: int) -> tuple:
+    """(assignments per expert, assignments dropped past ``cap``) of one
+    route call's experts idx (T, k): dispatch keeps an expert's first
+    ``cap`` assignments in token order."""
+    per = idx.reshape(-1).bincount(minlength=cfg.n_experts).tolist()
+    return per, sum(max(0, c - cap) for c in per)
+
+
+def _param_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_param_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_param_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def moe_path(torch, MM, TC, S, TF, DEC, C, codec, moe, configs, card: str,
+             cfg=None) -> dict:
+    """deepseek-moe-16b, ternary_packed, at full width and depth with
+    seeded weights on the card, serving the LLM path's 8 requests through
+    CutieEngine + LLMExecutor: kernel 7 launches `moe_launches_per_forward`
+    per forward (196), paged and contiguous give the same tokens, a second
+    paged serve the same tokens and logits bits (the combine adds in a
+    fixed order), one prefill with the plain matmul agrees with the
+    kernel's within LOGIT_TOL, and the serve with ``kv_codec="trit"``
+    (kernels 4 and 5) gives the tokens of the same serve with the codec's
+    plain versions; the route histogram of one decode step, the dropped
+    assignments of one prefill, then the serving times and the device's
+    busy share."""
+    cfg = cfg or configs.get(MOE_ARCH).replace(quant="ternary_packed",
+                                               attn_kv_chunk=16)
+    t0 = time.perf_counter()
+    params = llm_params(torch, TF, cfg)
+    sync(torch)
+    init_s = time.perf_counter() - t0
+    n_moe = cfg.n_layers - cfg.first_dense
+    experts = sum(_param_bytes({k: lp["moe"][k] for k in (
+        "gate_proj", "up_proj", "down_proj")}) for lp in params["layers"])
+    per_fwd = moe_launches_per_forward(cfg)
+    prompts = llm_prompts(cfg)
+    log(f"phase 4: moe {cfg.name} ternary_packed (d_model {cfg.d_model}, "
+        f"{cfg.n_layers} layers of which {cfg.first_dense} dense, "
+        f"{cfg.n_experts} experts top-{cfg.topk} of width "
+        f"{cfg.d_ff_expert}, {cfg.n_shared_experts} shared): parameters "
+        f"{_param_bytes(params) / 1e9!r} GB on the card (routed experts "
+        f"{experts / 1e9!r} GB bf16), drawn in {init_s!r} s; kernel 7 per "
+        f"forward 4 x {cfg.n_layers} + 3 x {cfg.first_dense} + 3 x {n_moe} "
+        f"= {per_fwd}")
+    reset_launches(MM, TC)
+    paged = serve(torch, S, params, cfg, prompts, margins=True, digests=True)
+    sync(torch)
+    launches = dict(MM.LAUNCHES)
+    st = paged["stats"]["paged_state"]["llm"]
+    forwards = st["prefills"] + st["decode_steps"]
+    want = per_fwd * forwards if DEVICE == "cuda" else 0
+    lens = [len(t) for t in paged["tokens"]]
+    if lens != [LLM_NEW] * LLM_REQUESTS:
+        raise RuntimeError(f"moe: token counts {lens}, want {LLM_NEW} each")
+    if not st["prefix_hit_rate"] > 0:
+        raise RuntimeError(f"moe: prefix_hit_rate {st['prefix_hit_rate']}")
+    if launches["ternary_matmul"] != want or \
+            launches["ternary_matmul_dense"] or any(TC.LAUNCHES.values()):
+        raise RuntimeError(f"moe: launches {launches} {TC.LAUNCHES}, want "
+                           f"ternary_matmul = {per_fwd} x {forwards} "
+                           f"forwards = {want}")
+    log(f"phase 4: moe {LLM_REQUESTS} requests x {LLM_PROMPT} tokens -> "
+        f"{LLM_NEW} tokens each; prefix_hit_rate {st['prefix_hit_rate']!r}, "
+        f"prefill tokens computed {st['prefill_tokens_computed']} of "
+        f"{st['prefill_tokens']}; {st['prefills']} prefills + "
+        f"{st['decode_steps']} decode steps; ternary_matmul launched "
+        f"{launches['ternary_matmul']} times ({per_fwd} x {forwards})")
+    contiguous = serve(torch, S, params, cfg, prompts, paged=False)
+    if contiguous["tokens"] != paged["tokens"]:
+        diff = _first_diffs(contiguous["tokens"], paged["tokens"])
+        raise RuntimeError(f"moe: paged and contiguous tokens differ {diff}")
+    with routes(torch, moe) as calls:
+        again = serve(torch, S, params, cfg, prompts, digests=True)
+    if again["tokens"] != paged["tokens"] or \
+            again["digests"] != paged["digests"]:
+        raise RuntimeError("moe: a second paged serve gave other tokens or "
+                           "other logits bits")
+    log(f"phase 4: moe paged and contiguous tokens identical; a second "
+        f"paged serve identical, tokens and the bits of all "
+        f"{len(paged['digests'])} sampled logits tensors")
+    slots = S.ServerConfig().n_slots
+    first = calls[:n_moe]
+    t_pre = first[0][0].shape[0]
+    cap = moe._capacity(t_pre, cfg)
+    dropped = [_route_counts(idx, cfg, cap)[1] for idx, _ in first]
+    i = next(i for i, c in enumerate(calls) if c[0].shape[0] == slots)
+    step = [_route_counts(idx, cfg, moe._capacity(slots, cfg))[0]
+            for idx, _ in calls[i:i + n_moe]]
+    log(f"phase 4: moe routing: first prefill ({t_pre} tokens, the "
+        f"bucket-padded prompt, capacity {cap}): dropped assignments per "
+        f"MoE layer {dropped} (sum {sum(dropped)}); first decode step "
+        f"({slots} tokens, capacity {moe._capacity(slots, cfg)}): layer "
+        f"{cfg.first_dense} assignments per expert {step[0]}; experts hit "
+        f"per layer {[sum(v > 0 for v in c) for c in step]}, busiest "
+        f"expert's assignments per layer {[max(c) for c in step]}")
+    moe_plain_prefill_check(torch, MM, DEC, C, moe, params, cfg, prompts[0])
+    trit = trit_kv_serve(torch, TC, S, codec, params, cfg, prompts, paged,
+                         label="moe")
+    _serving_line(f"moe {cfg.name} ternary_packed paged (first run)", paged,
+                  card)
+    _serving_line(f"moe {cfg.name} ternary_packed contiguous", contiguous,
+                  card)
+    _serving_line(f"moe {cfg.name} ternary_packed paged (second run)", again,
+                  card)
+    serving_profile(torch, S, params, cfg, prompts, card,
+                    label=f"moe {cfg.name} ternary_packed paged")
+    return {"launches": launches["ternary_matmul"],
+            "codec": {k: trit["launches"][k] for k in ("pack_trits",
+                                                       "unpack_trits")}}
+
+
+def _ulps(torch, got, want):
+    """The largest |got - want| per position (last axis) in bf16 ulps of
+    that position's largest |want| (rows (..., D)); a 0-d tensor."""
+    w, g = want.float(), got.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().amax(-1))) - 7)
+    return ((w - g).abs().amax(-1) / ulp).max()
+
+
+def moe_plain_prefill_check(torch, MM, DEC, C, moe, params, cfg,
+                            prompt) -> None:
+    """`plain_prefill_check` for a moe model, in two parts.  Layer by
+    layer: a plain-matmul prefill that takes each layer's input and each
+    token's experts from the kernel's prefill (teacher forcing) gives
+    every layer's increment (output minus input, so the residual stream
+    does not dilute it) within MOE_LAYER_ULPS bf16 ulps of the
+    increment's largest |value| at each position.  End to end: a plain
+    prefill routed as the kernel's gives logits within MOE_LOGIT_TOL of
+    the kernel's (the 28 layers of seeded weights carry a residual stream
+    of |h| up to about a thousand, and a position's rounding differences
+    grow from layer to layer there, as MOE_LOGIT_TOL's note says).
+    Routes are held because routing is discontinuous: where a token's
+    k-th and (k+1)-th router probabilities nearly tie, a plain prefill
+    routed on its own may pick another expert."""
+    def prefill(forced=None, inputs=None):
+        """(logits, route choices, each layer's (input, output)); with
+        ``inputs`` each layer runs on the given input instead of the
+        previous layer's output."""
+        block, io = DEC._suffix_attn_block, []
+
+        def block_(lp, h, *args):
+            if inputs is not None:
+                h = inputs[len(io)]
+            out = block(lp, h, *args)
+            io.append((h, out[0]))
+            return out
+
+        DEC._suffix_attn_block = block_
+        try:
+            with routes(torch, moe, forced) as seen:
+                return _prefill(torch, DEC, params, cfg, prompt), seen, io
+        finally:
+            DEC._suffix_attn_block = block
+
+    n = len(prompt)
+    a, kernel_routes, io = prefill()
+    with plain_matmul(MM, C):
+        _, _, io_plain = prefill(kernel_routes, [h for h, _ in io])
+        b, _, _ = prefill(kernel_routes)
+    layers = [float(_ulps(torch, (got.float() - h.float())[0, :n],
+                          (want.float() - h.float())[0, :n]))
+              for (h, want), (_, got) in zip(io, io_plain)]
+    err = float((a - b).abs().max())
+    log(f"phase 4: moe prefill of {n} tokens (bucket {PREFILL_M}) with the "
+        f"plain matmul on the card: layer by layer (each layer on the "
+        f"kernel run's input and routes) max |err| of the layer's "
+        f"increment in bf16 ulps of the position's largest |increment| "
+        f"{[round(e, 3) for e in layers]} (tolerance {MOE_LAYER_ULPS}); end "
+        f"to end routed as the kernel's, logits max |err| {err!r} "
+        f"(tolerance {MOE_LOGIT_TOL}, max |logit| {float(a.abs().max())!r})")
+    if not (bool(torch.isfinite(a).all()) and max(layers) <= MOE_LAYER_ULPS
+            and err <= MOE_LOGIT_TOL):
+        raise RuntimeError(f"moe: kernel and plain prefill differ: layers "
+                           f"{max(layers)} ulps (tolerance {MOE_LAYER_ULPS})"
+                           f", logits {err} (tolerance {MOE_LOGIT_TOL})")
+
+
+def _clone_tree(torch, tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(torch, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone_tree(torch, v) for v in tree]
+    if torch.is_tensor(tree):
+        return tree.clone()
+    return np.array(tree, copy=True)
+
+
+class _Req:
+    def __init__(self, uid, value):
+        self.uid, self.value = uid, value
+
+
+def _drain(ex, done: dict) -> None:
+    while ex.has_resident():
+        done.update(ex.execute([]).completions)
+
+
+def ssm_restore(torch, S, params, cfg, prompts) -> str:
+    """`LLMExecutor.snapshot` mid-decode (RESTART_STEPS steps into the
+    first n_slots requests) and `restore` into a fresh executor in this
+    process: the restored serve must emit the same tokens and the same
+    bits of every sampled logits tensor as the uninterrupted one."""
+    import gc
+
+    def make():
+        ex = S.LLMExecutor(params, cfg, S.ServerConfig(
+            max_new_tokens=LLM_NEW))
+        return ex, _logit_digests(ex)
+
+    ex, seen = make()
+    reqs = [_Req(i + 1, p) for i, p in enumerate(prompts[:ex.scfg.n_slots])]
+    done = dict(ex.execute(reqs).completions)
+    for _ in range(RESTART_STEPS - 1):
+        done.update(ex.execute([]).completions)
+    tree, meta = ex.snapshot()
+    tree = _clone_tree(torch, tree)
+    n0 = len(seen)
+    _drain(ex, done)
+    tail = seen[n0:]
+    del ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    ex2, seen2 = make()
+    t0 = time.perf_counter()
+    ex2.restore(tree, meta)
+    sync(torch)
+    restore_s = time.perf_counter() - t0
+    done2: dict = {}
+    _drain(ex2, done2)
+    if done2 != {u: done[u] for u in done2} or seen2 != tail \
+            or len(done2) != len(reqs):
+        raise RuntimeError("ssm: the restored executor's tokens or logits "
+                           "differ from the uninterrupted serve's")
+    pages = sum(p.numel() * p.element_size() for p in tree["pages"])
+    del ex2, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (f"snapshot after {RESTART_STEPS} steps ({pages / 1e9!r} GB of "
+            f"state pages) restored in {restore_s!r} s: {len(done2)} "
+            f"requests finished with the same tokens and the bits of "
+            f"{len(tail)} sampled logits tensors")
+
+
+def ssm_spec(torch, MM, TC, S, params, cfg, prompts, plain) -> str:
+    """The LLM path's requests through SpecExecutor with the target's
+    first SSM_DRAFT_LAYERS layers as the draft (sharing its embedding and
+    head), two waves of n_slots, so that slots are freed and admitted
+    again: greedy tokens under the margin rule against the plain serve's;
+    kernel 7 launches 3 x (layers x target token steps + draft layers x draft
+    steps), a target token step being a prefill token, a verified token
+    (k + 1 per verify) or a plain decode step."""
+    dcfg = cfg.replace(n_layers=SSM_DRAFT_LAYERS)
+    dparams = dict(params, layers=params["layers"][:SSM_DRAFT_LAYERS])
+    eng = S.CutieEngine("fcfs")
+    ex = S.SpecExecutor(params, cfg, S.ServerConfig(max_new_tokens=LLM_NEW),
+                        dparams, dcfg)
+    eng.register("llm", ex)
+    hs = [eng.submit(pr, model="llm") for pr in prompts]
+    sync(torch)
+    reset_launches(MM, TC)
+    t0 = time.perf_counter()
+    out = eng.run()
+    sync(torch)
+    secs = time.perf_counter() - t0
+    tokens = [out[h.uid] for h in hs]
+    st = ex.extra_stats()
+    sp = st["spec"]
+    steps = (st["prefill_tokens_computed"] + sp["proposed_tokens"]
+             + sp["verify_steps"] + sp["plain_steps"])
+    want = 3 * (cfg.n_layers * steps + dcfg.n_layers * ex.draft.n_steps) \
+        if DEVICE == "cuda" else 0
+    if MM.LAUNCHES["ternary_matmul"] != want:
+        raise RuntimeError(f"ssm spec: ternary_matmul launched "
+                           f"{MM.LAUNCHES['ternary_matmul']}, want 3 x "
+                           f"({cfg.n_layers} x {steps} + {dcfg.n_layers} x "
+                           f"{ex.draft.n_steps}) = {want}")
+    if [len(t) for t in tokens] != [LLM_NEW] * LLM_REQUESTS:
+        raise RuntimeError(f"ssm spec: token counts "
+                           f"{[len(t) for t in tokens]}")
+    n, diffs = _margin_rule(tokens, plain["tokens"], plain["margins"])
+    return (f"spec with a {SSM_DRAFT_LAYERS}-layer truncated draft, "
+            f"{LLM_REQUESTS} requests in two waves: "
+            f"{sum(len(t) for t in tokens) / secs!r} tokens/s ({secs!r} s), "
+            f"tokens_per_verify {sp['tokens_per_verify']!r}, acceptance "
+            f"{sp['acceptance_rate']!r}, {sp['verify_steps']} verifies + "
+            f"{sp['plain_steps']} plain steps; ternary_matmul launched "
+            f"{MM.LAUNCHES['ternary_matmul']} = formula {want}; {n} of "
+            f"{LLM_REQUESTS * LLM_NEW} tokens equal to the plain serve's, "
+            f"differences (request, step, plain margin) {diffs}")
+
+
+def ssm_trit_store(torch, TC, codec, cfg) -> dict:
+    """`StatePagedStore(codec_name="trit")` on a trit-valued state of the
+    serve's shapes on the card: the round trip is exact, kernels 4 and 5
+    launch once per leaf written and read, and the pages equal those the
+    codec's plain versions write."""
+    from repro_torch.models import decoding as DEC
+    from repro_torch.serving.blocks import StatePagedStore
+
+    one = DEC.init_caches(cfg, 1, 16, device=DEVICE)["ssm"]
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 9)
+    state = {k: torch.randint(-1, 2, v[:, 0].shape, generator=gen,
+                              device=DEVICE).to(v.dtype)
+             for k, v in one.items()}
+    reset_launches(TC)
+    store = StatePagedStore(3, state, codec_name="trit")
+    store.write_(1, state)
+    back = store.read_([1])
+    sync(torch)
+    launches = {k: TC.LAUNCHES[k] for k in ("pack_trits", "unpack_trits")}
+    if any(not torch.equal(back[k][0], v) for k, v in state.items()):
+        raise RuntimeError("ssm: the trit state store's round trip differs")
+    if DEVICE == "cuda" and launches != {"pack_trits": len(state),
+                                         "unpack_trits": len(state)}:
+        raise RuntimeError(f"ssm: trit state store launches {launches}, "
+                           f"want one pack and one unpack per leaf")
+    saved, codec._tc = codec._tc, _PlainCodec(TC)
+    try:
+        plain = StatePagedStore(3, state, codec_name="trit")
+        plain.write_(1, state)
+    finally:
+        codec._tc = saved
+    if any(not torch.equal(a, b) for a, b in zip(store.pages, plain.pages)):
+        raise RuntimeError("ssm: trit state pages differ from the plain "
+                           "codec's")
+    log(f"phase 4: ssm StatePagedStore(codec_name='trit') on the card: a "
+        f"trit-valued state of the serve's shapes "
+        f"{ {k: tuple(v.shape) for k, v in state.items()} } round-trips "
+        f"exactly, {store.bytes_per_block()} B per block packed (raw "
+        f"{sum(v.numel() * v.element_size() for v in state.values())} B); "
+        f"pack/unpack_trits launched {launches['pack_trits']}/"
+        f"{launches['unpack_trits']}; pages equal the plain codec's")
+    return launches
+
+
+def ssm_plain_check(torch, MM, DEC, C, params, cfg, prompts,
+                    card: str) -> None:
+    """Kernel 7 against its plain version inside mamba2's mixers, at the
+    full-width shapes the serve gives it: `DEC.ssm_prefill` over the
+    first prompt (M = 1, as the serve's prefill steps) and over the first
+    SSM_CHECK_STEPS tokens of n_slots prompts at once (M = n_slots, a
+    decode step's batch); every mixer call runs again with the plain
+    matmul on the kernel run's input and state, and its output must lie
+    within SSM_MIXER_ULPS bf16 ulps of the position's largest |output|."""
+    from repro_torch.models import mamba2
+
+    slots = DECODE_M
+    step, errs = mamba2.decode_step, []
+
+    def step_(lp, u, lcfg, state):
+        y, new = step(lp, u, lcfg, state)
+        with plain_matmul(MM, C):
+            want, _ = step(lp, u, lcfg, state)
+        errs.append(_ulps(torch, y, want))
+        return y, new
+
+    batches = (prompts[0][None],
+               np.stack([p[:SSM_CHECK_STEPS] for p in prompts[:slots]]))
+    mamba2.decode_step = step_
+    try:
+        for toks in batches:
+            t = torch.as_tensor(toks, device=DEVICE)
+            DEC.ssm_prefill(params, t, DEC.init_caches(
+                cfg, t.shape[0], 16, device=DEVICE), cfg)
+    finally:
+        mamba2.decode_step = step
+    per = torch.stack(errs).reshape(-1, cfg.n_layers).amax(0).tolist()
+    log(f"phase 4: ssm kernel 7 against its plain version in every mixer "
+        f"call of a token-by-token prefill (M = 1, {len(prompts[0])} steps) "
+        f"and of {SSM_CHECK_STEPS} steps at M = {slots}: wz, wx "
+        f"({cfg.d_model} -> {cfg.d_inner}) and out_proj ({cfg.d_inner} -> "
+        f"{cfg.d_model}), each mixer on the kernel run's input and state; "
+        f"max |err| of its output per layer in bf16 ulps of the position's "
+        f"largest |output| {[round(e, 3) for e in per]} (tolerance "
+        f"{SSM_MIXER_ULPS}); {card}")
+    if not max(per) <= SSM_MIXER_ULPS:
+        raise RuntimeError(f"ssm: kernel 7 and its plain version differ by "
+                           f"{max(per)} ulps in a mixer (tolerance "
+                           f"{SSM_MIXER_ULPS})")
+
+
+def ssm_chunked_check(torch, TF, DEC, params, cfg, prompt) -> None:
+    """The chunked SSD forward, at chunk SSM_CHECK_CHUNK so that the
+    prompt spans several chunks, against the token-by-token recurrence.
+    Layer by layer, on the same input (the chunked forward's hidden
+    state): each mixer's `apply` against its `decode_step` loop, within
+    SSM_LAYER_RTOL of the layer's largest |output| (the two round their
+    convolutions and sums differently in bf16).  End to end (a prompt's
+    last-position logits from `forward_logits` against `ssm_prefill`'s):
+    48 layers of seeded weights compound those differences, so the
+    reference's reduced-size rule (test_decode_matches_prefill:
+    correlation above 0.99, |err| within 0.3 + 0.3 |logit|) is reported,
+    and held are a correlation above SSM_CORR and the step's argmax among
+    the forward's top 5."""
+    from repro_torch.models import mamba2
+
+    ccfg = cfg.replace(chunk=SSM_CHECK_CHUNK)
+    toks = torch.as_tensor(prompt[None], device=DEVICE)
+    x = TF._embed(params, toks, cfg)
+    layers = []
+    for lp in params["layers"]:
+        xn = TF._norm(cfg, lp["ln"], x)
+        full = mamba2.apply(lp["mixer"], xn, ccfg)
+        st, steps = mamba2.init_state(cfg, 1, device=DEVICE), []
+        for t in range(xn.shape[1]):
+            y, st = mamba2.decode_step(lp["mixer"], xn[:, t:t + 1], cfg, st)
+            steps.append(y)
+        d = (torch.cat(steps, 1).float() - full.float()).abs().max()
+        layers.append(float(d / full.float().abs().max()))
+        x = x + full
+    full = TF.forward_logits(params, {"tokens": toks}, ccfg)[0, -1,
+                                                             :cfg.vocab]
+    step, _ = DEC.ssm_prefill(params, toks,
+                              DEC.init_caches(cfg, 1, 16, device=DEVICE), cfg)
+    a, f = step[0, -1, :cfg.vocab].double(), full.double()
+    corr = float(torch.corrcoef(torch.stack([a, f]))[0, 1])
+    err = float((a - f).abs().max())
+    ref_rule = corr > 0.99 and bool(((a - f).abs()
+                                     <= 0.3 + 0.3 * f.abs()).all())
+    top5 = int(a.argmax()) in f.topk(5).indices.tolist()
+    log(f"phase 4: ssm chunked forward (SSD, chunk {SSM_CHECK_CHUNK}: "
+        f"{len(prompt) // SSM_CHECK_CHUNK} chunks, the inter-chunk "
+        f"recurrence included) against the token-by-token "
+        f"recurrence: layer by layer on the same input, max |err| / max "
+        f"|output| per layer {[round(e, 4) for e in layers]} (tolerance "
+        f"{SSM_LAYER_RTOL}); end to end, last of {len(prompt)} positions: "
+        f"correlation {corr!r} (held above {SSM_CORR}), max |err| {err!r} "
+        f"(max |logit| {float(f.abs().max())!r}), argmax {int(a.argmax())} "
+        f"vs {int(f.argmax())} (held among the forward's top 5: {top5}); "
+        f"the reference's reduced-size rule holds: {ref_rule}")
+    if max(layers) > SSM_LAYER_RTOL or not (corr > SSM_CORR and top5):
+        raise RuntimeError("ssm: the chunked forward and the token-by-token "
+                           "prefill disagree")
+
+
+def ssm_path(torch, MM, TC, S, TF, DEC, C, codec, configs, card: str,
+             cfg=None) -> dict:
+    """mamba2-780m, ternary_packed, at full width and depth with seeded
+    weights on the card, serving the LLM path's 8 requests paged with
+    prefix caching (block-boundary state snapshots): kernel 7 launches
+    3 x 48 per token through the model (prompt tokens one by one), paged
+    and contiguous give the same tokens, kernel 7 agrees with its plain
+    version in every mixer call of a prefill, the chunked forward's last logits
+    agree with the token-by-token prefill under the reference's
+    test_decode_matches_prefill rule, a mid-decode snapshot restores
+    bit-identically, a speculative serve with a 2-layer truncated draft
+    follows the plain tokens under the margin rule, and the trit state
+    store round-trips on the card; then the serving times and the
+    device's busy share."""
+    cfg = cfg or configs.get(SSM_ARCH).replace(quant="ternary_packed")
+    params = llm_params(torch, TF, cfg)
+    prompts = llm_prompts(cfg)
+    per_tok = 3 * cfg.n_layers
+    sync(torch)
+    reset_launches(MM, TC)
+    paged = serve(torch, S, params, cfg, prompts, margins=True)
+    sync(torch)
+    launches = dict(MM.LAUNCHES)
+    st = paged["stats"]["paged_state"]["llm"]
+    steps = st["prefill_tokens_computed"] + st["decode_steps"]
+    want = per_tok * steps if DEVICE == "cuda" else 0
+    store = paged.pop("executor").state_store
+    lens = [len(t) for t in paged["tokens"]]
+    if lens != [LLM_NEW] * LLM_REQUESTS:
+        raise RuntimeError(f"ssm: token counts {lens}, want {LLM_NEW} each")
+    if not st["prefix_hit_rate"] > 0:
+        raise RuntimeError(f"ssm: prefix_hit_rate {st['prefix_hit_rate']}")
+    if launches["ternary_matmul"] != want or \
+            launches["ternary_matmul_dense"] or any(TC.LAUNCHES.values()):
+        raise RuntimeError(f"ssm: launches {launches} {TC.LAUNCHES}, want "
+                           f"ternary_matmul = {per_tok} x {steps} token "
+                           f"steps = {want}")
+    log(f"phase 4: ssm {cfg.name} ternary_packed (d_model {cfg.d_model}, "
+        f"{cfg.n_layers} layers, {cfg.ssm_heads} heads x {cfg.ssm_headdim}, "
+        f"state {cfg.d_state}, vocab {cfg.vocab}): parameters "
+        f"{_param_bytes(params) / 1e9!r} GB; {LLM_REQUESTS} requests x "
+        f"{LLM_PROMPT} tokens -> {LLM_NEW} each; prefix_hit_rate "
+        f"{st['prefix_hit_rate']!r} ({st['prefix_entries']} snapshots "
+        f"cached), prefill tokens computed {st['prefill_tokens_computed']} "
+        f"of {st['prefill_tokens']}; {st['decode_steps']} decode steps; "
+        f"ternary_matmul launched {launches['ternary_matmul']} times "
+        f"(3 x {cfg.n_layers} x {steps} token steps); state snapshot "
+        f"{store.bytes_per_block() / 1e6!r} MB per block, pool of "
+        f"{store.num_blocks} blocks "
+        f"{store.bytes_per_block() * store.num_blocks / 1e9!r} GB")
+    del store
+    contiguous = serve(torch, S, params, cfg, prompts, paged=False)
+    contiguous.pop("executor")
+    if contiguous["tokens"] != paged["tokens"]:
+        diff = _first_diffs(contiguous["tokens"], paged["tokens"])
+        raise RuntimeError(f"ssm: paged and contiguous tokens differ {diff}")
+    log("phase 4: ssm paged and contiguous serving: tokens identical "
+        f"(first request {paged['tokens'][0]})")
+    ssm_plain_check(torch, MM, DEC, C, params, cfg, prompts, card)
+    ssm_chunked_check(torch, TF, DEC, params, cfg, prompts[0])
+    log("phase 4: ssm " + ssm_restore(torch, S, params, cfg, prompts))
+    log("phase 4: ssm " + ssm_spec(torch, MM, TC, S, params, cfg, prompts,
+                                   paged) + f"; {card}")
+    codec_launches = ssm_trit_store(torch, TC, codec, cfg)
+    _serving_line(f"ssm {cfg.name} ternary_packed paged (first run)", paged,
+                  card)
+    _serving_line(f"ssm {cfg.name} ternary_packed contiguous", contiguous,
+                  card)
+    serving_profile(torch, S, params, cfg, prompts, card,
+                    label=f"ssm {cfg.name} ternary_packed paged")
+    return {"launches": launches["ternary_matmul"], "codec": codec_launches}
 
 
 # -- phase 4: the CNN train -> compile -> serve path --------------------------
@@ -3182,17 +3802,18 @@ def _serving_line(label: str, run: dict, card: str) -> None:
         f"{lat['p50']!r} s p99 {lat['p99']!r} s (host clock, {card})")
 
 
-def serving_profile(torch, S, params, cfg, prompts, card: str) -> None:
-    """One more ternary_packed run under torch.profiler (CUDA activity):
-    the device's busy share of the run's host-clock time, and the kernels
-    that take the device time."""
+def serving_profile(torch, S, params, cfg, prompts, card: str,
+                    label: str = "ternary_packed paged") -> None:
+    """One more run under torch.profiler (CUDA activity): the device's
+    busy share of the run's host-clock time, and the kernels that take
+    the device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run = serve(torch, S, params, cfg, prompts)
     ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in ev) / 1e6
-    log(f"phase 5: serving ternary_packed paged under torch.profiler: "
+    log(f"phase 5: serving {label} under torch.profiler: "
         f"{run['seconds']!r} s host clock, device busy {busy!r} s "
         f"({busy / run['seconds']!r} of it; idle share "
         f"{1 - busy / run['seconds']!r}); {card}")
@@ -3421,6 +4042,7 @@ def main() -> int:
     from repro_torch.models import common as C
     from repro_torch.models import cutie_cnn as CNN
     from repro_torch.models import decoding as DEC
+    from repro_torch.models import moe
     from repro_torch.models import transformer as TF
     from repro_torch.optim import adam
     from repro_torch.train import cutie_qat as Q
@@ -3458,6 +4080,14 @@ def main() -> int:
     restart_path(torch, TC, S, llm)
     spec_path(torch, MM, TC, S, TF, DEC, codec, llm, card)
     llm_train_path(torch, TF, inq, loop, card)
+    moe_run = moe_path(torch, MM, TC, S, TF, DEC, C, codec, moe, configs,
+                       card)
+    torch.cuda.empty_cache()
+    ssm_run = ssm_path(torch, MM, TC, S, TF, DEC, C, codec, configs, card)
+    torch.cuda.empty_cache()
+    llm["launches"] += moe_run["launches"] + ssm_run["launches"]
+    _add_counts(mp["launches"], moe_run["codec"])
+    _add_counts(mp["launches"], ssm_run["codec"])
     cnn = cnn_main_path(torch, K, FT, TC, P, S, Q, CNN, inq, adam, cifar,
                         configs_cnn, engine, compiler, ops)
     program_latency(torch, P, mp, card)

@@ -9,8 +9,9 @@ from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["internlm2_1_8b", "llama3_2_1b", "codeqwen1_5_7b",
-            "qwen2_5_32b"]
+ARCH_IDS = ["mamba2_780m", "internlm2_1_8b", "llama3_2_1b",
+            "codeqwen1_5_7b", "qwen2_5_32b", "deepseek_moe_16b",
+            "qwen3_moe_30b_a3b"]
 
 # every architecture of the reference; those not in ARCH_IDS wait for
 # their family (ROADMAP.md §1 item 10)

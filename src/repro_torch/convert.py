@@ -78,19 +78,34 @@ def llm_params_from_numpy(tree, cfg, device=None) -> dict:
     """The reference's LLM ``init_params`` tree, as numpy arrays, -> the
     port's parameters (`repro_torch.models.transformer`).
 
-    The reference stacks each layer leaf on a leading ``n_layers`` axis;
-    the port keeps a list of per-layer dicts.  Tensors go to
-    ``resolve_device(device)``; dtypes and bytes are kept.
+    The reference stacks each layer leaf on a leading layer axis (the
+    moe family's leading dense layers under ``dense_layers``, its MoE
+    layers' expert weights as (E, D, F) stacks, the ssm family's mixers
+    under ``mixer``); the port keeps a list of per-layer dicts per stack.
+    The stacks must hold ``first_dense`` and ``n_layers - first_dense``
+    layers.  Tensors go to ``resolve_device(device)``; dtypes and bytes
+    are kept.
     """
     from repro_torch.models import transformer as TF
 
     TF.require_ported(cfg)
     dev = resolve_device(device)
     out = {k: _tree(v, dev) for k, v in tree.items()}
-    n = {t.shape[0] for t in _leaves(out["layers"])}
-    if n != {cfg.n_layers}:
-        raise ValueError(f"the layer leaves stack {sorted(n)} layers, the "
-                         f"config has {cfg.n_layers}")
+    counts = {}
+    for name in TF.LAYER_LISTS:
+        if name in out:
+            n = {t.shape[0] for t in _leaves(out[name])}
+            if len(n) != 1:
+                raise ValueError(f"the {name} leaves stack {sorted(n)} "
+                                 "layers")
+            counts[name] = n.pop()
+    want = {"layers": cfg.n_layers - cfg.first_dense}
+    if cfg.first_dense:
+        want["dense_layers"] = cfg.first_dense
+    if counts != want:
+        raise ValueError(f"the layer stacks hold {counts} layers, the "
+                         f"config {want} (first_dense + len(layers) == "
+                         f"n_layers = {cfg.n_layers})")
     return TF.unstack_layers(out)
 
 

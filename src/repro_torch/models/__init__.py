@@ -1,3 +1,4 @@
 """Models: the QAT CNN of the paper (`cutie_cnn`) and the LLM stack,
-dense family: shared layers, attention, MLP, the model assembly and the
-serving-time prefill and decode paths."""
+dense, moe and ssm families: shared layers, attention, MLP, the MoE
+layer, the mamba2 mixer, the model assembly and the serving-time
+prefill and decode paths."""

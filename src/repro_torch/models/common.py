@@ -28,9 +28,10 @@ def _normal(gen: torch.Generator, shape) -> torch.Tensor:
                        dtype=torch.float32)
 
 
-def dense_init(gen, shape, dtype=torch.bfloat16):
+def dense_init(gen, shape, dtype=torch.bfloat16, scale=None):
     fan_in = shape[0] if len(shape) >= 2 else 1
-    return (_normal(gen, shape) * fan_in ** -0.5).to(dtype)
+    std = scale if scale is not None else fan_in ** -0.5
+    return (_normal(gen, shape) * std).to(dtype)
 
 
 def embed_init(gen, shape, dtype=torch.bfloat16):

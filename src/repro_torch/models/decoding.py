@@ -1,9 +1,14 @@
-"""Serving paths, dense family: prefill-with-cache and single-token
-decode steps.
+"""Serving paths: prefill-with-cache and single-token decode steps, for
+the dense, moe and ssm families.
 
 Cache layout: stacked over layers, ``{"kv": {"k"/"v": (L, B, T, Hk,
-Dh)}}``, as in the reference.  A decode step writes its new rows into
-the caches it is given, in place, and returns them.
+Dh)}}``, as in the reference (deepseek-moe's leading dense layers use
+the first cache slots).  A decode step writes its new rows into the KV
+caches it is given, in place, and returns them.  The ssm family carries
+``{"ssm": {"conv_x", "conv_b", "conv_c": (L, B, W-1, Ch) bf16, "ssm":
+(L, B, H, P, N) f32}}`` instead, constant in sequence length; its decode
+step returns new state tensors and leaves the given ones as they were
+(speculative verification keeps every step's state).
 """
 
 from __future__ import annotations
@@ -12,9 +17,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import attention as attn
-from repro_torch.models import mlp
+from repro_torch.models import mamba2, mlp, moe
 from repro_torch.models import transformer as TF
 from repro_torch.models.config import ArchConfig
+
+_SSM_KEYS = ("conv_x", "conv_b", "conv_c", "ssm")
 
 # ---------------------------------------------------------------------------
 # Cache construction
@@ -23,11 +30,32 @@ from repro_torch.models.config import ArchConfig
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, device=None):
     TF.require_ported(cfg)
+    if cfg.family == "ssm":
+        one = mamba2.init_state(cfg, batch, device=device)
+        return {"ssm": {k: torch.zeros((cfg.n_layers, *v.shape),
+                                       dtype=v.dtype, device=device)
+                        for k, v in one.items()}}
     hk, dh = cfg.n_kv, cfg.d_head
     kdt = attn.KV_DTYPES[cfg.kv_dtype]
     shape = (cfg.n_layers, batch, max_len, hk, dh)
     return {"kv": {"k": torch.zeros(shape, dtype=kdt, device=device),
                    "v": torch.zeros(shape, dtype=kdt, device=device)}}
+
+
+def _attn_layers(p, cfg):
+    """(layer params, layer config, FFN) of an attention stack in cache
+    order: deepseek-moe's leading dense layers first."""
+    out = [(lp, TF.dense_cfg(cfg), _mlp) for lp in p.get("dense_layers", ())]
+    ffn = _moe if cfg.family == "moe" else _mlp
+    return out + [(lp, cfg, ffn) for lp in p["layers"]]
+
+
+def _mlp(lp, x, cfg):
+    return mlp.apply(lp["mlp"], x, cfg)
+
+
+def _moe(lp, x, cfg):
+    return moe.apply(lp["moe"], x, cfg)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -36,28 +64,45 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, device=None):
 
 
 def decode_step(p, token, caches, pos, cfg: ArchConfig):
-    """token (B, 1) int; pos (B,) int.  Returns (logits, caches)."""
+    """token (B, 1) int; pos (B,) int (unused by the ssm family).
+    Returns (logits, caches)."""
     TF.require_ported(cfg)
     x = TF._embed(p, token, cfg)
-    x, kv = _decode_attn_stack(p, x, caches["kv"], pos, cfg)
+    if cfg.family == "ssm":
+        x, st = _decode_ssm_stack(p, x, caches["ssm"], cfg)
+        new = {"ssm": st}
+    else:
+        x, kv = _decode_attn_stack(p, x, caches["kv"], pos, cfg)
+        new = {"kv": kv}
     x = TF._norm(cfg, p["ln_f"], x)
-    return x @ TF.head_weight(p, cfg), {"kv": kv}
+    return x @ TF.head_weight(p, cfg), new
 
 
 def _decode_attn_stack(p, x, kv, pos, cfg):
-    for i, lp in enumerate(p["layers"]):
-        x = _dense_decode_body(x, lp, kv["k"][i], kv["v"][i], cfg=cfg,
-                               pos=pos)
+    for i, (lp, lcfg, ffn) in enumerate(_attn_layers(p, cfg)):
+        x = _decode_body(x, lp, kv["k"][i], kv["v"][i], cfg=lcfg, pos=pos,
+                         ffn=ffn)
     return x, kv
 
 
-def _dense_decode_body(h, lp, ck, cv, *, cfg, pos):
+def _decode_body(h, lp, ck, cv, *, cfg, pos, ffn=_mlp):
     """One layer of a decode step; writes its k/v rows into ck/cv."""
     a, _ = attn.decode_attention(
         lp["attn"], TF._norm(cfg, lp["ln1"], h), cfg, {"k": ck, "v": cv},
         pos)
     h = h + a
-    return h + mlp.apply(lp["mlp"], TF._norm(cfg, lp["ln2"], h), cfg)
+    return h + ffn(lp, TF._norm(cfg, lp["ln2"], h), cfg)
+
+
+def _decode_ssm_stack(p, x, st, cfg):
+    new = {k: [] for k in _SSM_KEYS}
+    for i, lp in enumerate(p["layers"]):
+        y, ns = mamba2.decode_step(lp["mixer"], TF._norm(cfg, lp["ln"], x),
+                                   cfg, {k: st[k][i] for k in _SSM_KEYS})
+        x = x + y
+        for k in _SSM_KEYS:
+            new[k].append(ns[k])
+    return x, {k: torch.stack(v) for k, v in new.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -66,16 +111,24 @@ def _dense_decode_body(h, lp, ck, cv, *, cfg, pos):
 
 
 def prefill_with_cache(p, batch, cfg: ArchConfig, max_len: int):
-    """Run the full prompt, return (last logits, populated caches)."""
+    """Run the full prompt, return (last logits, populated caches).
+
+    The attention families' prefill; the ssm family prefills through
+    :func:`ssm_prefill`, as in the reference.
+    """
     TF.require_ported(cfg)
+    if cfg.family == "ssm":
+        raise NotImplementedError(
+            "SSM prefill runs the decode step over the prompt: "
+            "ssm_prefill (the serving runtime's path)")
     tokens = batch["tokens"]
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)[None]
     x = TF._embed(p, tokens, cfg)
     ks, vs = [], []
-    for lp in p["layers"]:
-        x, (k, v) = _prefill_dense_body(x, lp, cfg=cfg, positions=positions,
-                                        max_len=max_len)
+    for lp, lcfg, ffn in _attn_layers(p, cfg):
+        x, (k, v) = _prefill_body(x, lp, cfg=lcfg, positions=positions,
+                                  max_len=max_len, ffn=ffn)
         ks.append(k)
         vs.append(v)
     caches = {"kv": {"k": torch.stack(ks), "v": torch.stack(vs)}}
@@ -83,12 +136,12 @@ def prefill_with_cache(p, batch, cfg: ArchConfig, max_len: int):
     return x @ TF.head_weight(p, cfg), caches
 
 
-def _prefill_dense_body(h, lp, *, cfg, positions, max_len):
+def _prefill_body(h, lp, *, cfg, positions, max_len, ffn=_mlp):
     s = h.shape[1]
     a, (k, v) = attn.attention(lp["attn"], TF._norm(cfg, lp["ln1"], h), cfg,
                                positions=positions)
     h = h + a
-    y = mlp.apply(lp["mlp"], TF._norm(cfg, lp["ln2"], h), cfg)
+    y = ffn(lp, TF._norm(cfg, lp["ln2"], h), cfg)
     pad = (0, 0, 0, 0, 0, max_len - s)
     return h + y, (F.pad(k, pad).to(torch.bfloat16),
                    F.pad(v, pad).to(torch.bfloat16))
@@ -99,7 +152,8 @@ def _prefill_dense_body(h, lp, *, cfg, positions, max_len):
 # ---------------------------------------------------------------------------
 
 
-def _suffix_attn_block(lp, h, prefix_k, prefix_v, positions, cfg):
+def _suffix_attn_block(lp, h, prefix_k, prefix_v, positions, cfg,
+                       ffn=_mlp):
     """One transformer block over *suffix* positions against cached
     prefix KV.
 
@@ -111,7 +165,7 @@ def _suffix_attn_block(lp, h, prefix_k, prefix_v, positions, cfg):
     a, (k, v) = attn.attend(lp["attn"], TF._norm(cfg, lp["ln1"], h), cfg,
                             positions, (prefix_k, prefix_v))
     h = h + a
-    y = mlp.apply(lp["mlp"], TF._norm(cfg, lp["ln2"], h), cfg)
+    y = ffn(lp, TF._norm(cfg, lp["ln2"], h), cfg)
     return h + y, (k.to(torch.bfloat16), v.to(torch.bfloat16))
 
 
@@ -125,16 +179,61 @@ def prefill_with_prefix(p, tokens, prefix_kv, cfg: ArchConfig):
     ``(logits (B, S, V), suffix kv (L, B, S, Hk, Dh))``.
     """
     TF.require_ported(cfg)
+    if cfg.family == "ssm":
+        raise NotImplementedError(
+            f"prefix prefill is attention-family only, got {cfg.family}")
     s = tokens.shape[1]
     n_cached = prefix_kv["k"].shape[2]
     positions = n_cached + torch.arange(s, device=tokens.device)[None]
     x = TF._embed(p, tokens, cfg)
     ks, vs = [], []
-    for i, lp in enumerate(p["layers"]):
+    for i, (lp, lcfg, ffn) in enumerate(_attn_layers(p, cfg)):
         x, (k, v) = _suffix_attn_block(lp, x, prefix_kv["k"][i],
-                                       prefix_kv["v"][i], positions, cfg)
+                                       prefix_kv["v"][i], positions, lcfg,
+                                       ffn)
         ks.append(k)
         vs.append(v)
     x = TF._norm(cfg, p["ln_f"], x)
     logits = x @ TF.head_weight(p, cfg)
     return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+# ---------------------------------------------------------------------------
+# SSM prefill: the decode step over the prompt
+# ---------------------------------------------------------------------------
+
+
+def ssm_prefill(p, tokens, caches, cfg: ArchConfig, start_pos=0):
+    """Prefill an SSM model by running the decode step token by token.
+
+    tokens (B, S); ``caches`` is a decode cache (possibly restored from a
+    prefix snapshot covering positions ``< start_pos``).  Returns
+    ``(logits (B, S, V), final caches)``.
+    """
+    logits, caches, _ = _ssm_steps(p, tokens, caches, cfg, start_pos, False)
+    return logits, caches
+
+
+def ssm_prefill_states(p, tokens, caches, cfg: ArchConfig, start_pos=0):
+    """:func:`ssm_prefill` that also returns every intermediate state.
+
+    Returns ``(logits (B, S, V), states)`` where every leaf of
+    ``states["ssm"]`` has a leading step axis of length S:
+    ``states["ssm"][key][i]`` is the cache after consuming
+    ``tokens[:, i]``.  Bit-identical to sequential ``decode_step`` by
+    construction.
+    """
+    logits, _, states = _ssm_steps(p, tokens, caches, cfg, start_pos, True)
+    return logits, {"ssm": {k: torch.stack([st["ssm"][k] for st in states])
+                            for k in _SSM_KEYS}}
+
+
+def _ssm_steps(p, tokens, caches, cfg, start_pos, keep):
+    rows, states = [], []
+    for i in range(tokens.shape[1]):
+        logits, caches = decode_step(p, tokens[:, i:i + 1], caches,
+                                     start_pos + i, cfg)
+        rows.append(logits[:, 0])
+        if keep:
+            states.append(caches)
+    return torch.stack(rows, dim=1), caches, states

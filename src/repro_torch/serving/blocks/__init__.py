@@ -10,7 +10,8 @@ The subsystem splits into four pieces:
   accounting.
 * :mod:`~repro_torch.serving.blocks.store` — the physical pages:
   `KVPagedStore` (attention KV rows, optionally ternarized + packed
-  5 trits/byte).
+  5 trits/byte) and `StatePagedStore` (SSM state snapshots, optionally
+  packed 5 trits/byte).
 * :mod:`~repro_torch.serving.blocks.manager` — `PagedSequenceManager`,
   the per-sequence block tables tying the three together.
 
@@ -22,8 +23,8 @@ from repro_torch.serving.blocks.manager import PagedSequenceManager, SeqBlocks
 from repro_torch.serving.blocks.pool import NULL_BLOCK, BlockPool, OutOfBlocks
 from repro_torch.serving.blocks.prefix import (PrefixCache, chain_hash,
                                                chain_hashes)
-from repro_torch.serving.blocks.store import (KVPagedStore, pack_last_axis,
-                                              ternarize_rows,
+from repro_torch.serving.blocks.store import (KVPagedStore, StatePagedStore,
+                                              pack_last_axis, ternarize_rows,
                                               unpack_last_axis)
 
 __all__ = [
@@ -34,6 +35,7 @@ __all__ = [
     "chain_hash",
     "chain_hashes",
     "KVPagedStore",
+    "StatePagedStore",
     "pack_last_axis",
     "unpack_last_axis",
     "ternarize_rows",

@@ -1,4 +1,4 @@
-"""Physical paged state: block-granular KV pages.
+"""Physical paged state: block-granular KV pages and state snapshots.
 
 :class:`KVPagedStore` holds the attention families' KV rows in
 ``(L, num_blocks, block_size, Hk, Dh)`` pages; a per-sequence block
@@ -10,12 +10,16 @@ trits/byte (`repro_torch.core.codec` layout) plus one scale per
 
 The reference's methods are pure ``(pages, ...) -> pages`` functions for
 jit; here they take the same arguments, write into ``pages`` in place and
-return it, and the store keeps the live ``self.pages``.  The reference's
-``StatePagedStore`` (SSM state snapshots) comes with the mamba2 family
-(ROADMAP.md §1 item 10).
+return it, and the store keeps the live ``self.pages``.
+
+:class:`StatePagedStore` holds the ssm family's recurrent state: one
+block is one sequence's state snapshot (all layers), packed 5 trits per
+byte under ``codec="trit"`` for ternary state.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -170,3 +174,99 @@ class KVPagedStore:
         src = torch.as_tensor([p[0] for p in pairs], device=dev)
         dst = torch.as_tensor([p[1] for p in pairs], device=dev)
         self.pages = self.copy_blocks(self.pages, src, dst)
+
+
+class StatePagedStore:
+    """State-slot pages: one block = one recurrent-state snapshot.
+
+    ``template`` is a dict of tensors describing one sequence's state
+    (the ssm family's ``conv_x``, ``conv_b``, ``conv_c``, ``ssm``
+    leaves, each with its layer axis); only shapes, dtypes and the
+    device are read.  ``pages`` is a list with one tensor per leaf in
+    sorted key order, the reference's leaf order (JAX flattens a dict by
+    sorted keys), so a snapshot's pages cross between the packages.
+    With ``codec="trit"`` every leaf must hold trits in {-1, 0, +1}; a
+    leaf is flattened and packed 5/byte (`pack_last_axis`, the pack
+    kernel for a card tensor) — an exact round trip.
+    """
+
+    def __init__(self, num_blocks: int, template: dict,
+                 codec_name: str = "raw", device=None):
+        if codec_name not in ("raw", "trit"):
+            raise ValueError(f"codec must be 'raw' or 'trit', "
+                             f"got {codec_name!r}")
+        self.num_blocks = num_blocks
+        self.codec = codec_name
+        self.keys = tuple(sorted(template))
+        self.shapes = [tuple(template[k].shape) for k in self.keys]
+        self.dtypes = [template[k].dtype for k in self.keys]
+        dev = device if device is not None else \
+            next(iter(template.values())).device
+        if codec_name == "raw":
+            self.pages = [torch.zeros((num_blocks,) + s, dtype=d, device=dev)
+                          for s, d in zip(self.shapes, self.dtypes)]
+        else:
+            self.pages = [torch.zeros(
+                (num_blocks, codec.packed_size(math.prod(s) or 1)),
+                dtype=torch.uint8, device=dev) for s in self.shapes]
+
+    def bytes_per_block(self) -> int:
+        return sum(pg[0].numel() * pg.element_size() for pg in self.pages)
+
+    # -- ops on ``pages`` ----------------------------------------------------
+
+    def read(self, pages: list, bids) -> dict:
+        """``bids (B,)`` -> state dict with a leading batch axis."""
+        out = {}
+        for k, pg, shape, dt in zip(self.keys, pages, self.shapes,
+                                    self.dtypes):
+            a = pg[bids]
+            if self.codec == "trit":
+                n = math.prod(shape) or 1
+                a = unpack_last_axis(a, n).reshape(
+                    (a.shape[0],) + shape).to(dt)
+            out[k] = a
+        return out
+
+    def write(self, pages: list, bid, state: dict) -> list:
+        """Store one sequence's state dict into block ``bid``."""
+        for k, pg in zip(self.keys, pages):
+            leaf = state[k]
+            if self.codec == "trit":
+                leaf = pack_last_axis(leaf.reshape(-1))
+            pg[bid] = leaf.to(pg.dtype)
+        return pages
+
+    def write_batch(self, pages: list, bids, states: dict) -> list:
+        """Scatter a batch of states (leaves with a leading batch axis
+        matching ``bids (B,)``) into their blocks."""
+        for k, pg in zip(self.keys, pages):
+            leaf = states[k]
+            if self.codec == "trit":
+                leaf = pack_last_axis(leaf.reshape(leaf.shape[0], -1))
+            pg[bids] = leaf.to(pg.dtype)
+        return pages
+
+    def copy_blocks(self, pages: list, src, dst) -> list:
+        for pg in pages:
+            pg[dst] = pg[src]
+        return pages
+
+    # -- eager wrappers ------------------------------------------------------
+
+    def _ids(self, bids) -> torch.Tensor:
+        return torch.as_tensor(bids, dtype=torch.int64,
+                               device=self.pages[0].device)
+
+    def write_(self, bid: int, state: dict) -> None:
+        self.pages = self.write(self.pages, int(bid), state)
+
+    def read_(self, bids) -> dict:
+        return self.read(self.pages, self._ids(bids))
+
+    def apply_copies(self, pairs: list[tuple[int, int]]) -> None:
+        if not pairs:
+            return
+        self.pages = self.copy_blocks(self.pages,
+                                      self._ids([p[0] for p in pairs]),
+                                      self._ids([p[1] for p in pairs]))

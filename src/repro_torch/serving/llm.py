@@ -1,8 +1,9 @@
 """Autoregressive LLM serving: paged-state slot-resident executor.
 
-The port of the reference's `LLMExecutor` for the dense family: a
-serving loop whose inner decode is one step for the whole slot batch,
-rebuilt on the paged-state subsystem (:mod:`repro_torch.serving.blocks`):
+The port of the reference's `LLMExecutor` for the dense, moe and ssm
+families: a serving loop whose inner decode is one step for the whole
+slot batch, rebuilt on the paged-state subsystem
+(:mod:`repro_torch.serving.blocks`):
 
 * decode memory is a fixed pool of physical blocks, not a per-slot
   contiguous cache — sequences *share* identical prompt-prefix blocks
@@ -12,7 +13,11 @@ rebuilt on the paged-state subsystem (:mod:`repro_torch.serving.blocks`):
   :meth:`LLMExecutor.prefill` matches the prefix cache, gathers the
   cached prefix KV, and runs the model only over the *suffix* from the
   first novel block; :meth:`LLMExecutor.decode` advances every live
-  slot one token, gathering per-slot blocks through the block table.
+  slot one token, gathering per-slot blocks through the block table;
+* SSM (mamba2) state slots draw from the same pool: a block holds one
+  recurrent-state snapshot at a token-block boundary (the SSM analogue
+  of a KV prefix), optionally packed 5 trits/byte for ternary state,
+  and each slot holds one working block for its live state.
 
 Every projection of the model runs the packed-trit matmul kernel when
 ``cfg.quant == "ternary_packed"`` and the tensors are on the card
@@ -26,11 +31,9 @@ identical for full-prompt and suffix prefill.
 
 `LLMExecutor.snapshot` / `restore` give the serving state to
 :mod:`repro_torch.serving.snapshot` in the reference's layout.  The
-reference's SSM branches (state slots in the same pool) wait for the
-mamba2 family (ROADMAP.md §1 item 10).  The reference's jit variant
-cache becomes the same bookkeeping of prefill bucket shapes, so
-``n_jit_variants`` keeps its meaning: the shapes seen plus the decode
-step.
+reference's jit variant cache becomes the same bookkeeping of prefill
+bucket shapes, so ``n_jit_variants`` keeps its meaning: the shapes seen
+plus the decode step.
 """
 
 from __future__ import annotations
@@ -43,11 +46,12 @@ import torch
 
 from repro_torch.models import decoding as DEC
 from repro_torch.models.config import ArchConfig
-from repro_torch.serving.blocks import (BlockPool, KVPagedStore,
-                                        PagedSequenceManager, PrefixCache)
+from repro_torch.serving.blocks import (BlockPool, KVPagedStore, OutOfBlocks,
+                                        PagedSequenceManager, PrefixCache,
+                                        StatePagedStore, chain_hashes)
 from repro_torch.serving.executors import ExecutionReport, Executor
 
-_ATTN_FAMILIES = ("dense",)
+_ATTN_FAMILIES = ("dense", "moe")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +68,7 @@ class ServerConfig:
     num_blocks: Optional[int] = None   # physical blocks incl. null; default
     #                                    (n_slots + 2) tables' worth + null
     kv_codec: str = "raw"              # "raw" | "trit" (lossy, opt-in)
+    state_codec: str = "raw"           # "raw" | "trit" (exact for trits)
     prefix_caching: bool = True
 
 
@@ -110,16 +115,17 @@ class LLMExecutor(Executor):
     """
 
     def __init__(self, params, cfg: ArchConfig, scfg: ServerConfig):
-        if cfg.family not in _ATTN_FAMILIES:
+        if cfg.family not in _ATTN_FAMILIES + ("ssm",):
             raise NotImplementedError(
-                f"LLMExecutor serves {_ATTN_FAMILIES} in the port, got "
-                f"family={cfg.family!r}: the others wait for ROADMAP.md §1 "
-                "item 10")
+                f"LLMExecutor serves {_ATTN_FAMILIES + ('ssm',)} in the "
+                f"port, got family={cfg.family!r}: the others wait for "
+                "ROADMAP.md §1 item 10")
         if scfg.max_len % scfg.block_size:
             raise ValueError(
                 f"max_len={scfg.max_len} must be a multiple of "
                 f"block_size={scfg.block_size}")
         self.params, self.cfg, self.scfg = params, cfg, scfg
+        self.is_ssm = cfg.family == "ssm"
         self.device = params["embed"].device
         self.slots: list = [None] * scfg.n_slots       # resident Requests
         self.pos = np.zeros((scfg.n_slots,), np.int64)  # host bookkeeping
@@ -142,14 +148,33 @@ class LLMExecutor(Executor):
         self.pool = BlockPool(nb, on_evict=self._on_evict)
 
         if scfg.paged:
-            self.manager = PagedSequenceManager(self.pool, self.cache, bs)
-            self.kv_store = KVPagedStore(
-                cfg.n_layers, nb, bs, cfg.n_kv, cfg.d_head,
-                dtype=cfg.kv_dtype, codec_name=scfg.kv_codec,
-                device=self.device)
+            self._init_paged(nb)
         else:
             self.caches = DEC.init_caches(cfg, scfg.n_slots, scfg.max_len,
                                           device=self.device)
+
+    def _init_paged(self, num_blocks: int) -> None:
+        cfg, scfg = self.cfg, self.scfg
+        if self.is_ssm:
+            self.state_store = StatePagedStore(
+                num_blocks, self._empty_state(),
+                codec_name=scfg.state_codec)
+            # one permanently-held working block per slot
+            self._slot_bids = [self.pool.allocate()
+                               for _ in range(scfg.n_slots)]
+            return
+        self.manager = PagedSequenceManager(self.pool, self.cache,
+                                            scfg.block_size)
+        self.kv_store = KVPagedStore(
+            cfg.n_layers, num_blocks, scfg.block_size, cfg.n_kv, cfg.d_head,
+            dtype=cfg.kv_dtype, codec_name=scfg.kv_codec, device=self.device)
+
+    def _empty_state(self) -> dict:
+        """One sequence's zero SSM state: leaves (L, ...) without the
+        batch axis."""
+        one = DEC.init_caches(self.cfg, 1, self.scfg.max_len,
+                              device=self.device)
+        return {k: v[:, 0] for k, v in one["ssm"].items()}
 
     def _on_evict(self, bid: int, h: str) -> None:
         """LRU eviction callback: drop the cache mapping, leave a trace
@@ -178,7 +203,7 @@ class LLMExecutor(Executor):
 
     def free_capacity(self) -> int:
         free_slots = sum(r is None for r in self.slots)
-        if not self.scfg.paged:
+        if not self.scfg.paged or self.is_ssm:
             return free_slots
         avail = self.pool.n_free + self.pool.n_cached
         return min(free_slots, avail // self.blocks_per_seq)
@@ -266,7 +291,9 @@ class LLMExecutor(Executor):
         self.prefill_tokens += plen
         self.obs.trace.begin("prefill", tid=uid, cat="request",
                              prompt_len=plen)
-        if self.scfg.paged:
+        if self.is_ssm:
+            res = self._prefill_ssm(uid, slot, tokens)
+        elif self.scfg.paged:
             res = self._prefill_paged(uid, slot, tokens)
         else:
             res = self._prefill_contiguous(uid, slot, tokens)
@@ -353,6 +380,70 @@ class LLMExecutor(Executor):
         self.slots[slot] = _Resident(uid)
         return PrefillResult(first, ExistingPrefix(0, ()), plen, n_real)
 
+    def _prefill_ssm(self, uid, slot, tokens) -> PrefillResult:
+        """SSM prefill in block_size segments so recurrent state exists
+        at every block boundary — those snapshots are what the prefix
+        cache stores (the SSM analogue of cached KV rows)."""
+        cfg, scfg = self.cfg, self.scfg
+        bs = scfg.block_size
+        toks = np.asarray(tokens, np.int64)
+        plen = len(toks)
+        k_max = (plen - 1) // bs
+        c, state, hit_blocks = 0, None, ()
+        hashes = chain_hashes(toks, bs)[:k_max]
+        if scfg.paged and scfg.prefix_caching:
+            _, matched = self.cache.match(toks, bs, max_blocks=k_max)
+            if matched:
+                bid = matched[-1]
+                self.pool.retain(bid)
+                state = {k: v[0] for k, v in
+                         self.state_store.read_([bid]).items()}
+                self.pool.release(bid)
+                c, hit_blocks = len(matched) * bs, tuple(matched)
+        if state is None:
+            state = self._empty_state()
+
+        def run(seg, state, pos):
+            logits, caches = DEC.ssm_prefill(
+                self.params, torch.as_tensor(seg[None], device=self.device),
+                {"ssm": {k: v[:, None] for k, v in state.items()}}, cfg, pos)
+            return logits, {k: v[:, 0] for k, v in caches["ssm"].items()}
+
+        logits = None
+        pos = c
+        for i in range(c // bs, k_max):
+            logits, state = run(toks[i * bs:(i + 1) * bs], state, pos)
+            pos += bs
+            if scfg.paged and scfg.prefix_caching and \
+                    self.cache.get(hashes[i]) is None:
+                self._commit_snapshot(hashes[i], state)
+        if pos < plen:
+            logits, state = run(toks[pos:plen], state, pos)
+        n_real = plen - c
+        self.n_prefills += 1
+        if scfg.paged:
+            self.state_store.write_(self._slot_bids[slot], state)
+        else:
+            for k, v in state.items():
+                self.caches["ssm"][k][:, slot] = v
+        first = int(self._sample(logits[0, -1][None])[0])
+        self._tokens[uid] = [first]
+        self.slots[slot] = _Resident(uid)
+        return PrefillResult(first, ExistingPrefix(c, hit_blocks), plen,
+                             n_real)
+
+    def _commit_snapshot(self, h: str, state: dict) -> None:
+        """Park one boundary snapshot in the cache; skip when the pool
+        is under active pressure rather than failing the prefill."""
+        try:
+            bid = self.pool.allocate()
+        except OutOfBlocks:
+            return
+        self.state_store.write_(bid, state)
+        self.pool.set_hash(bid, h)
+        self.cache.insert(h, bid)
+        self.pool.release(bid)      # refcount 0 + hash -> parked (LRU)
+
     # -- decode path ---------------------------------------------------------
 
     def decode(self) -> torch.Tensor:
@@ -362,6 +453,9 @@ class LLMExecutor(Executor):
         if not self.scfg.paged:
             logits, self.caches = DEC.decode_step(
                 self.params, self.cur_tok, self.caches, pos, self.cfg)
+        elif self.is_ssm:
+            logits, self.state_store.pages = self._decode_ssm(
+                self._slot_bids, pos)
         else:
             self._cow_for_decode()
             tables = torch.as_tensor(np.stack([
@@ -375,6 +469,18 @@ class LLMExecutor(Executor):
         self.pos = self.pos + 1
         self.cur_tok = nxt[:, None]
         return nxt
+
+    def _decode_ssm(self, bids, pos):
+        """One decode step over the slots' working blocks ``bids``; the
+        new states go back into the same blocks."""
+        store = self.state_store
+        bids = torch.as_tensor(bids, dtype=torch.int64, device=self.device)
+        st = store.read(store.pages, bids)            # leaves (B, L, ...)
+        caches = {"ssm": {k: v.transpose(0, 1) for k, v in st.items()}}
+        logits, new = DEC.decode_step(self.params, self.cur_tok, caches, pos,
+                                      self.cfg)
+        per_seq = {k: v.transpose(0, 1) for k, v in new["ssm"].items()}
+        return logits, store.write_batch(store.pages, bids, per_seq)
 
     def _decode_paged(self, tables, pos):
         store = self.kv_store
@@ -412,7 +518,7 @@ class LLMExecutor(Executor):
                 break
         self._tokens.pop(uid, None)
         self._prompts.pop(uid, None)
-        if self.scfg.paged and self.manager.has(uid):
+        if self.scfg.paged and not self.is_ssm and self.manager.has(uid):
             self.manager.free(uid)
         return found
 
@@ -422,7 +528,9 @@ class LLMExecutor(Executor):
         """All mutable serving state as ``(arrays, meta)``, in the
         reference's layout.
 
-        ``arrays`` holds the paged KV pages (or the contiguous caches),
+        ``arrays`` holds the paged KV pages (the SSM state pages and the
+        slots' working blocks under ``slot_bids``; or the contiguous
+        caches),
         the slot positions and pending tokens (int32, as the reference
         keeps them) and, under ``rng_key``, the sampling generator's
         state as uint32 words; the trit codec's pages are packed bytes and
@@ -436,7 +544,10 @@ class LLMExecutor(Executor):
         tree: dict = {"pos": self.pos.astype(np.int32),
                       "cur_tok": self.cur_tok.to(torch.int32),
                       "rng_key": gen.view(np.uint32).copy()}
-        if self.scfg.paged:
+        if self.scfg.paged and self.is_ssm:
+            tree["pages"] = self.state_store.pages
+            tree["slot_bids"] = np.asarray(self._slot_bids, np.int32)
+        elif self.scfg.paged:
             tree["pages"] = self.kv_store.pages
         else:
             tree["caches"] = self.caches
@@ -454,7 +565,7 @@ class LLMExecutor(Executor):
             "prefills": int(self.n_prefills),
             "decode_steps": int(self.n_decode_steps),
         }
-        if self.scfg.paged:
+        if self.scfg.paged and not self.is_ssm:
             meta["manager"] = self.manager.state_dict()
         return tree, meta
 
@@ -476,7 +587,11 @@ class LLMExecutor(Executor):
             self._gen.set_state(torch.from_numpy(key.view(np.uint8).copy()))
         else:
             self._gen.manual_seed(int(key[0]) << 32 | int(key[-1]))
-        if self.scfg.paged:
+        if self.scfg.paged and self.is_ssm:
+            self.state_store.pages = [torch.as_tensor(p).to(dev)
+                                      for p in tree["pages"]]
+            self._slot_bids = [int(b) for b in np.asarray(tree["slot_bids"])]
+        elif self.scfg.paged:
             self.kv_store.pages = _on_device(tree["pages"], dev)
         else:
             self.caches = _on_device(tree["caches"], dev)
@@ -492,7 +607,7 @@ class LLMExecutor(Executor):
         self.n_decode_steps = int(meta.get("decode_steps", 0))
         self.pool.load_state(meta["pool"])
         self.cache.load_state(meta["cache"])
-        if self.scfg.paged:
+        if self.scfg.paged and not self.is_ssm:
             self.manager.load_state(meta["manager"])
 
     # -- fork ----------------------------------------------------------------
@@ -503,7 +618,7 @@ class LLMExecutor(Executor):
         The child shares every block with the parent until either
         writes; divergence costs one block copy at the write point.
         """
-        if not self.scfg.paged:
+        if self.is_ssm or not self.scfg.paged:
             raise NotImplementedError("fork requires paged KV mode")
         src = next(i for i, r in enumerate(self.slots)
                    if r is not None and r.uid == uid)
@@ -527,7 +642,8 @@ class LLMExecutor(Executor):
         self.pos[slot] = 0                       # empty slots write to NULL
         self.cur_tok[slot, 0] = 0
         self._prompts.pop(req.uid, None)
-        if self.scfg.paged and self.manager.has(req.uid):
+        if self.scfg.paged and not self.is_ssm and \
+                self.manager.has(req.uid):
             self.manager.free(req.uid)
 
     def _sample(self, lg: torch.Tensor) -> torch.Tensor:

@@ -129,7 +129,11 @@ class SpecExecutor(LLMExecutor):
     def free_capacity(self) -> int:
         free_slots = sum(r is None for r in self.slots)
         # the draft's table, the target's, and the shadow fork's COW slack
-        per_seq = self.draft.blocks_per_admit() + self.blocks_per_seq + 2
+        per_seq = self.draft.blocks_per_admit()
+        if not self.is_ssm:
+            per_seq += self.blocks_per_seq + 2
+        if per_seq == 0:
+            return free_slots
         avail = self.pool.n_free + self.pool.n_cached
         return min(free_slots, avail // per_seq)
 
@@ -177,10 +181,16 @@ class SpecExecutor(LLMExecutor):
         with self.obs.trace.span("spec_propose", tid=uid, cat="spec", k=k):
             proposals, draft_lgs = self.draft.propose(slot, uid, full, k)
         with self.obs.trace.span("spec_verify", tid=uid, cat="spec", k=k):
-            target_rows = self.verifier.verify_kv(
-                slot, uid, committed, cur, proposals, pos)
+            if self.is_ssm:
+                target_rows, states = self.verifier.verify_ssm(
+                    slot, uid, cur, proposals, pos)
+            else:
+                target_rows = self.verifier.verify_kv(
+                    slot, uid, committed, cur, proposals, pos)
         emitted, j = accept(proposals, draft_lgs, target_rows,
                             self.scfg.temperature, self._spec_rng)
+        if self.is_ssm:
+            self.verifier.commit_ssm(slot, states, j)
         # the draft consumed `full` plus its first k-1 proposals; the
         # prefix of that run still valid against the new true sequence
         # is everything through proposal j-1 (capped at k-1 when all
@@ -217,19 +227,24 @@ class SpecExecutor(LLMExecutor):
         """
         mask = np.zeros((self.scfg.n_slots,), bool)
         mask[subset] = True
-        pairs = []
-        for i in subset:
-            pair = self.manager.ensure_writable(self.slots[i].uid,
-                                                int(self.pos[i]))
-            if pair is not None:
-                pairs.append(pair)
-        self.kv_store.apply_copies(pairs)
-        tables = torch.as_tensor(np.stack([
-            self.manager.table_array(self.slots[i].uid, self.blocks_per_seq)
-            if mask[i] else np.zeros((self.blocks_per_seq,), np.int32)
-            for i in range(self.scfg.n_slots)]), device=self.device)
         pos = torch.as_tensor(self.pos, device=self.device)
-        logits, self.kv_store.pages = self._decode_paged(tables, pos)
+        if self.is_ssm:
+            bids = np.where(mask, self._slot_bids, 0)
+            logits, self.state_store.pages = self._decode_ssm(bids, pos)
+        else:
+            pairs = []
+            for i in subset:
+                pair = self.manager.ensure_writable(self.slots[i].uid,
+                                                    int(self.pos[i]))
+                if pair is not None:
+                    pairs.append(pair)
+            self.kv_store.apply_copies(pairs)
+            tables = torch.as_tensor(np.stack([
+                self.manager.table_array(self.slots[i].uid,
+                                         self.blocks_per_seq)
+                if mask[i] else np.zeros((self.blocks_per_seq,), np.int32)
+                for i in range(self.scfg.n_slots)]), device=self.device)
+            logits, self.kv_store.pages = self._decode_paged(tables, pos)
         self.n_decode_steps += 1
         nxt = self._sample(logits[:, -1])
         self.pos = np.where(mask, self.pos + 1, self.pos)

@@ -19,8 +19,10 @@ only on success frees the original and adopts the shadow under the
 live id.  Rollback on any exception is `free(shadow)`: a refcount
 release, never a payload restore.
 
-The reference's SSM targets (per-step states kept by a scan) wait for
-the ssm family (ROADMAP.md §1 item 10).
+SSM targets have no positional rows to page; instead the suffix runs
+through :func:`~repro_torch.models.decoding.ssm_prefill_states`, which
+keeps the state after *every* step, and commit picks the state matching
+the accepted run.
 """
 
 from __future__ import annotations
@@ -28,12 +30,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models import decoding as DEC
+from repro_torch.serving.llm import _bucket
+
+_VERIFY_FLOOR = 8      # pow2 bucket floor of the SSM verify length
+
 
 class VerifyWorker:
     """Batched proposal scoring against a `LLMExecutor`'s paged state."""
 
     def __init__(self, executor):
         self.ex = executor
+        self._buckets: set = set()      # SSM verify lengths seen
 
     # -- attention targets ---------------------------------------------------
 
@@ -88,18 +96,38 @@ class VerifyWorker:
     # -- SSM targets ---------------------------------------------------------
 
     def verify_ssm(self, slot: int, uid: int, cur: int,
-                   proposals: np.ndarray, pos: int):
-        raise NotImplementedError(
-            "speculative verification of an SSM target is not ported yet: "
-            "ROADMAP.md §1 item 10 (family ssm)")
+                   proposals: np.ndarray, pos: int) -> tuple:
+        """Run ``[pending] + proposals`` keeping every per-step state.
+
+        Returns ``((k+1, V) float32 target rows, states)``; pass
+        ``states`` and the accept count to :meth:`commit_ssm` — the slot
+        state is not touched until then, so rejection needs no rollback.
+        The reference pads the scan to a power-of-two bucket; here only
+        the ``k + 1`` real steps run (a padding step would cost a whole
+        forward), and the bucket is counted.
+        """
+        ex = self.ex
+        if not ex.is_ssm or not ex.scfg.paged:
+            raise ValueError("verify_ssm needs a paged SSM target")
+        toks = np.concatenate([[cur], np.asarray(proposals, np.int64)])
+        self._buckets.add(("ssm", _bucket(len(toks), _VERIFY_FLOOR)))
+        st = ex.state_store.read_([ex._slot_bids[slot]])
+        caches = {"ssm": {k: v[0][:, None] for k, v in st.items()}}
+        logits, states = DEC.ssm_prefill_states(
+            ex.params, torch.as_tensor(toks[None], device=ex.device), caches,
+            ex.cfg, pos)
+        return logits[0, :, :ex.cfg.vocab].float().cpu().numpy(), states
 
     def commit_ssm(self, slot: int, states, j: int) -> None:
-        raise NotImplementedError(
-            "speculative verification of an SSM target is not ported yet: "
-            "ROADMAP.md §1 item 10 (family ssm)")
+        """Adopt the state after the pending token + ``j`` accepted
+        proposals (step index ``j``)."""
+        ex = self.ex
+        ex.state_store.write_(ex._slot_bids[slot],
+                              {k: v[j][:, 0]
+                               for k, v in states["ssm"].items()})
 
     @property
     def n_jit_variants(self) -> int:
-        """The reference's SSM verify-scan variants: none here (attention
-        targets share the prefill's bucket shapes)."""
-        return 0
+        """The SSM verify lengths' buckets (attention targets share the
+        prefill's bucket shapes)."""
+        return len(self._buckets)

@@ -1135,3 +1135,183 @@ def test_bf16_flags_on_card_match_cpu(cuda):
         a = C.rmsnorm(s, x, bf16_mul=flag).float()
         b = C.rmsnorm(_to(s, cuda), x.to(cuda), bf16_mul=flag).float().cpu()
         assert (a - b).abs().max() <= 2.0 ** -7 * a.abs().max()
+
+
+# -- the moe and ssm families -------------------------------------------------
+
+#: one MoE layer on the card against the CPU: the expert matmuls (cuBLAS
+#: against the CPU's) round their bf16 outputs at the same places and sum
+#: in f32 in other orders, so an output may land this many bf16 ulps of
+#: the output's largest |value| apart
+MOE_CARD_ULPS = 4
+_MOE_PROMPTS = [np.array(list(np.arange(20) % 50) + [100 + i, i])
+                for i in range(4)]
+
+
+def _reduced(arch, **kw):
+    """A reduced config of ``arch`` (ternary_packed), its parameters drawn
+    on the CPU so the card and the CPU hold the same bits."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.config import reduce_for_smoke
+
+    cfg = reduce_for_smoke(configs.get(arch)).replace(
+        quant="ternary_packed", attn_kv_chunk=8, **kw)
+    return cfg, TF.init_params(cfg, torch.Generator().manual_seed(0))
+
+
+def _serve_tokens(ex, prompts=_MOE_PROMPTS):
+    from repro_torch.serving import CutieEngine
+
+    eng = CutieEngine("fcfs")
+    eng.register("llm", ex)
+    hs = [eng.submit(pr, model="llm") for pr in prompts]
+    out = eng.run()
+    return [out[h.uid] for h in hs], [h.uid for h in hs]
+
+
+def _margins(ex) -> dict:
+    """Keep, per uid, the top-2 logit margin of each row ``ex`` samples."""
+    rows: dict = {}
+    admitting, prefill, sample = [], ex.prefill, ex._sample
+
+    def prefill_(uid, tokens):
+        admitting.append(uid)
+        return prefill(uid, tokens)
+
+    def sample_(lg):
+        top = lg[:, :ex.cfg.vocab].float().topk(2, dim=-1).values
+        gap = (top[:, 0] - top[:, 1]).tolist()
+        if admitting:
+            rows.setdefault(admitting.pop(), []).append(gap[0])
+        else:
+            for i, r in enumerate(ex.slots):
+                if r is not None:
+                    rows[r.uid].append(gap[i])
+        return sample(lg)
+
+    ex.prefill, ex._sample = prefill_, sample_
+    return rows
+
+
+def _under_margin(got, want, margins):
+    for g, w, m in zip(got, want, margins):
+        assert len(g) == len(w)
+        j = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        assert j is None or m[j] <= 2 * SPEC_TOL, (j, m[j])
+
+
+def test_moe_apply_on_card_matches_cpu_and_repeats(cuda):
+    """One deepseek-moe layer (reduced, shared expert) on the card against
+    the CPU within ``MOE_CARD_ULPS``; the same call twice on the card
+    gives the same bits (the combine adds in a fixed order, no atomics)."""
+    from repro_torch.models import moe
+
+    cfg, params = _reduced("deepseek-moe-16b")
+    lp = params["layers"][0]["moe"]
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (2, 40, cfg.d_model)), dtype=torch.float32).to(torch.bfloat16)
+    want, waux = moe.apply(lp, x, cfg)
+    on = _to(lp, cuda)
+    y1, a1 = moe.apply(on, x.to(cuda), cfg)
+    y2, a2 = moe.apply(on, x.to(cuda), cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and all(torch.equal(a1[k], a2[k])
+                                       for k in a1)
+    top = float(want.float().abs().max())
+    tol = MOE_CARD_ULPS * 2.0 ** (np.floor(np.log2(top)) - 7)
+    assert float((y1.cpu().float() - want.float()).abs().max()) <= tol
+    for k in ("lb_loss", "z_loss"):
+        assert float(a1[k]) == pytest.approx(float(waux[k]), rel=1e-5)
+
+
+def test_reduced_moe_serve_on_card(cuda):
+    """deepseek-moe (reduced: one dense layer, one MoE layer with a shared
+    expert) served on the card: the packed kernel launches 4 per layer
+    (attention) + 3 (the dense FFN) + 3 per MoE layer (the shared expert)
+    per forward, paged and contiguous give the same tokens, two serves the
+    same tokens, and the tokens follow the CPU serve's under the margin
+    rule."""
+    from repro_torch.kernels import ternary_matmul as MM
+    from repro_torch.serving import LLMExecutor, ServerConfig
+
+    cfg, cpu_params = _reduced("deepseek-moe-16b")
+    scfg = dict(n_slots=2, max_new_tokens=5, max_len=64, block_size=8)
+    plain = LLMExecutor(cpu_params, cfg, ServerConfig(**scfg))
+    rows = _margins(plain)
+    want, uids = _serve_tokens(plain)
+    params = _to(cpu_params, cuda)
+    per_forward = (4 * cfg.n_layers + 3 * cfg.first_dense
+                   + 3 * (cfg.n_layers - cfg.first_dense))
+    outs = []
+    for paged in (True, True, False):
+        ex = LLMExecutor(params, cfg, ServerConfig(paged=paged, **scfg))
+        MM.reset_launches()
+        got, _ = _serve_tokens(ex)
+        st = ex.extra_stats()
+        assert MM.LAUNCHES["ternary_matmul"] == per_forward * (
+            st["prefills"] + st["decode_steps"])
+        outs.append(got)
+    assert outs[0] == outs[1] == outs[2]
+    _under_margin(outs[0], want, [rows[u] for u in uids])
+
+
+def test_reduced_ssm_serve_on_card(cuda):
+    """mamba2 (reduced) served on the card: the packed kernel launches 3
+    per layer per token through the model (prompt tokens one by one, then
+    one batched decode step per token), paged with prefix snapshots and
+    contiguous give the same tokens, and they follow the CPU serve's under
+    the margin rule."""
+    from repro_torch.kernels import ternary_matmul as MM
+    from repro_torch.serving import LLMExecutor, ServerConfig
+
+    cfg, cpu_params = _reduced("mamba2-780m")
+    scfg = dict(n_slots=2, max_new_tokens=5, max_len=64, block_size=8)
+    plain = LLMExecutor(cpu_params, cfg, ServerConfig(**scfg))
+    rows = _margins(plain)
+    want, uids = _serve_tokens(plain)
+    params = _to(cpu_params, cuda)
+    outs = []
+    for paged in (True, False):
+        ex = LLMExecutor(params, cfg, ServerConfig(paged=paged, **scfg))
+        MM.reset_launches()
+        got, _ = _serve_tokens(ex)
+        st = ex.extra_stats()
+        assert MM.LAUNCHES["ternary_matmul"] == 3 * cfg.n_layers * (
+            st["prefill_tokens_computed"] + st["decode_steps"])
+        outs.append(got)
+        if paged:
+            assert st["prefix_hit_rate"] > 0.5
+    assert outs[0] == outs[1]
+    _under_margin(outs[0], want, [rows[u] for u in uids])
+
+
+def test_state_store_trit_on_card(cuda):
+    """`StatePagedStore(codec_name="trit")` on the card: a trit-valued
+    snapshot of the SSM state's shapes round-trips exactly through the
+    codec kernels (one pack per leaf written, one unpack per leaf read),
+    and its pages hold the CPU store's bytes."""
+    from repro_torch.models import decoding as DEC
+    from repro_torch.serving.blocks import StatePagedStore
+
+    cfg, _ = _reduced("mamba2-780m")
+    one = DEC.init_caches(cfg, 1, 16)["ssm"]
+    rng = np.random.default_rng(4)
+    state = {k: torch.as_tensor(rng.integers(-1, 2, v[:, 0].shape)).to(
+        v.dtype) for k, v in one.items()}
+    stores = {}
+    for dev in ("cpu", cuda):
+        st = StatePagedStore(3, {k: v.to(dev) for k, v in state.items()},
+                             codec_name="trit")
+        TC.reset_launches()
+        st.write_(2, {k: v.to(dev) for k, v in state.items()})
+        back = st.read_([2])
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert TC.LAUNCHES["pack_trits"] == len(state)
+            assert TC.LAUNCHES["unpack_trits"] == len(state)
+        for k, v in state.items():
+            assert torch.equal(back[k][0].cpu(), v)
+        stores[str(dev)] = st
+    for a, b in zip(stores["cpu"].pages, stores["cuda"].pages):
+        assert torch.equal(a, b.cpu())

@@ -290,20 +290,24 @@ def test_validation_errors(model):
 def test_unported_surfaces_name_their_roadmap_item(model):
     _, _, p, cfg = model
     with pytest.raises(NotImplementedError, match="item 10") as e:
-        configs.get("mamba2-780m")
+        configs.get("zamba2-2.7b")
     assert "its family waits" in str(e.value)
-    for arch in ("deepseek-moe-16b", "zamba2-2.7b", "whisper-medium",
-                 "llava-next-mistral-7b"):
+    for arch in ("whisper-medium", "llava-next-mistral-7b"):
         with pytest.raises(NotImplementedError, match="item 10"):
             configs.get(arch)
     # the dense config files and the serving snapshot are ported
-    # (tests/test_torch_snapshot.py)
+    # (tests/test_torch_snapshot.py), and the moe and ssm families
+    # (tests/test_torch_moe.py, tests/test_torch_ssm.py)
     for arch in ("internlm2-1.8b", "codeqwen1.5-7b", "qwen2.5-32b"):
         assert configs.get(arch).family == "dense"
+    for arch, fam in (("deepseek-moe-16b", "moe"), ("qwen3-moe-30b-a3b",
+                                                    "moe"),
+                      ("mamba2-780m", "ssm")):
+        assert configs.get(arch).family == fam
     with pytest.raises(NotImplementedError, match="item 10"):
-        TF.init_params(cfg.replace(family="moe"), torch.Generator())
+        TF.init_params(cfg.replace(family="hybrid"), torch.Generator())
     with pytest.raises(NotImplementedError, match="item 10"):
-        LLMExecutor(p, cfg.replace(family="ssm"), ServerConfig())
+        LLMExecutor(p, cfg.replace(family="hybrid"), ServerConfig())
     ex = LLMExecutor(p, cfg, ServerConfig())
     tree, meta = ex.snapshot()
     assert set(tree) == {"pos", "cur_tok", "rng_key", "pages"}

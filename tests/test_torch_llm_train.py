@@ -210,7 +210,7 @@ def test_forward_loss_unported_families_name_item_10():
     _, _, cfg = _model("none")
     p = TF.unstack_layers(_port_params(_model("none")[0], cfg))
     _, bt = _batch(cfg.vocab)
-    for fam in ("encdec", "vlm", "moe"):
+    for fam in ("encdec", "vlm", "hybrid"):
         with pytest.raises(NotImplementedError, match="item 10"):
             TF.forward_loss(p, bt, cfg.replace(family=fam))
 

@@ -554,11 +554,13 @@ def test_spec_requires_paged_and_matching_vocab():
                      cfg.replace(vocab=cfg.vocab + 1))
     with pytest.raises(NotImplementedError, match="item 10"):
         SpecExecutor(p, cfg, ServerConfig(paged=True, **_KW), p,
-                     cfg.replace(family="ssm"))
+                     cfg.replace(family="hybrid"))
     ex = SpecExecutor(p, cfg, ServerConfig(paged=True, **_KW), p, cfg)
     with pytest.raises(NotImplementedError, match="snapshot"):
         ex.snapshot()
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # an attention target has no SSM state to verify over
+    # (tests/test_torch_ssm.py serves SSM targets)
+    with pytest.raises(ValueError, match="paged SSM target"):
         ex.verifier.verify_ssm(0, 1, 0, np.array([1]), 0)
     # the pool is widened for the draft's tables and the shadow forks
     assert ex.pool.num_blocks == 1 + 4 * 8 * 2 + 4

@@ -22,7 +22,12 @@ Tolerances, stated once:
   (+-0.5);
   such trits are counted, and each layer of the port is then fed the
   reference's trits, so one flip does not carry into the next layer;
-* after a training step, an updated weight may differ by more than
+* a training step: a discrete decision (a trit, hardtanh's gradient at
+  +-1, the element a max pool's gradient goes to) may differ only where
+  the reference's values lie within ``TRIT_MARGIN`` of its edge (+-0.5,
+  +-1, the window's runner-up); such decisions are counted (at most
+  ``MAX_TIE_FLIPS``) and the reference's step is taken with the port's
+  side of them; then an updated weight may differ by more than
   ``F32_ATOL`` only where its gradient's sign flipped (a gradient within
   float noise of 0): at most ``STEP_FLIP_SHARE`` of the weights, each by
   at most the step's bound ``2 * lr`` plus ``F32_ATOL``;
@@ -68,6 +73,7 @@ from repro_torch.train import cutie_qat
 CPU = "cpu"
 F32_RTOL, F32_ATOL = 1e-5, 1e-6
 PRE_ATOL = TRIT_MARGIN = 2e-5
+MAX_TIE_FLIPS = 2
 STEP_FLIP_SHARE = 1e-3
 RUN_LOSS_ATOL, RUN_SPARSITY_ATOL = 2e-3, 5e-3
 SMALL = dict(width=8, thermometer_m=4)
@@ -437,9 +443,13 @@ def test_forward_logits_and_trits_match_reference(train):
                                atol=F32_ATOL)
 
 
-def _ref_step(jp, jstate, batch, jcfg, acfg):
+def _ref_step(jp, jstate, batch, jcfg, acfg, align=None):
+    """The reference's INQ step; with ``align``, its forward takes the
+    port's quantizer decisions where they differ (see `_tie_align`)."""
     def loss(p):
-        return jcnn.loss_fn(p, batch, jcfg, train=True, inq_state=jstate)
+        if align is None:
+            return jcnn.loss_fn(p, batch, jcfg, train=True, inq_state=jstate)
+        return _ref_loss_aligned(p, jstate, batch, jcfg, align)
 
     (l, aux), g = jax.value_and_grad(loss, has_aux=True)(jp)
     g = dict(g, layers=jinq.mask_grads(jstate["layers"], g["layers"]))
@@ -448,9 +458,127 @@ def _ref_step(jp, jstate, batch, jcfg, acfg):
     return jcnn.apply_bn_updates(jp2, aux["bn"]), float(l), om
 
 
+def _ref_pre_act(lp, x, pool, route=None):
+    """One layer of the reference's training forward (INQ weights), up to
+    the quantizer's input: ``(y, BN stats, pre-pool y)``.  With ``route =
+    (use, w)`` a max pool sends the gradient of each window marked in
+    ``use`` to its elements by the weights ``w`` (the value is the
+    window's max either way)."""
+    z = jax.lax.conv_general_dilated(
+        x, lp["w"], (1, 1), ((1, 1), (1, 1)),
+        dimension_numbers=("NHWC", "HWIO", "NHWC"))
+    y, stats = jcnn._batchnorm(lp, z, True)
+    pre = y
+    if pool is not None:
+        kind, win = pool
+        n, h, wd, c = y.shape
+        yr = y.reshape(n, h // win, win, wd // win, win, c)
+        y = (jnp.max(yr, axis=(2, 4)) if kind == "max"
+             else jnp.mean(yr, axis=(2, 4)))
+        if route is not None:
+            use, w = route
+            forced = jax.lax.stop_gradient(y) + jnp.sum(
+                (yr - jax.lax.stop_gradient(yr)) * w, axis=(2, 4))
+            y = jnp.where(use, forced, y)
+    return y, stats, pre
+
+
+def _ref_loss_aligned(p, jstate, batch, jcfg, align):
+    """`repro.models.cutie_cnn.loss_fn` (INQ, training mode) unrolled,
+    each layer taking ``align[i] = (use, trit, grad, route)``: where
+    ``use``, the quantizer's value ``trit`` and hardtanh's gradient
+    ``grad``, elsewhere the reference's own `_quant_act`; ``route`` as
+    `_ref_pre_act` takes it."""
+    params = dict(p, layers=jinq.apply(jstate["layers"], p["layers"]))
+    x, bn = batch["x"], []
+    for (_op, _mult, pool), lp, (use, trit, grad, route) in zip(
+            jcfg.layout, params["layers"], align):
+        y, stats, _ = _ref_pre_act(lp, x, pool, route)
+        bn.append(stats)
+        forced = trit + (y - jax.lax.stop_gradient(y)) * grad
+        x = jnp.where(use, forced, jcnn._quant_act(y, jcfg.act_mode))
+    logits = x.reshape(x.shape[0], -1) @ params["fc"]
+    logp = jax.nn.log_softmax(logits)
+    loss = -jnp.mean(jnp.take_along_axis(logp, batch["y"][:, None], axis=1))
+    return loss, {"bn": bn}
+
+
+def _decisions(y):
+    """The quantizer's two discrete decisions on f32 pre-activations:
+    the trit (threshold +-0.5 after hardtanh) and hardtanh's gradient
+    (1 inside [-1, 1], 0.5 at exactly +-1, 0 outside)."""
+    a = np.abs(y)
+    trit = np.where(a > 0.5, np.sign(y), 0.0).astype(np.float32)
+    grad = np.where(a < 1, 1.0, np.where(a == 1, 0.5, 0.0)).astype(
+        np.float32)
+    return trit, grad
+
+
+def _windows(y, win):
+    n, h, wd, c = y.shape
+    return y.reshape(n, h // win, win, wd // win, win, c)
+
+
+def _routing(yr):
+    """A max pool's gradient weights per window element: split evenly
+    among the elements equal to the window's max (``jnp.max`` and
+    ``amax`` both)."""
+    top = yr.max(axis=(2, 4), keepdims=True)
+    hit = (yr == top).astype(np.float32)
+    return hit / hit.sum(axis=(2, 4), keepdims=True)
+
+
+def _tie_align(jp, jstate, x, jcfg, port_acts, port_pre):
+    """Where the port decided otherwise than the reference, layer by
+    layer: ``(align, n_flips)``.
+
+    The port's forward is float64 rounded once to float32; the
+    reference's is float32 in XLA's summation order.  So three discrete
+    decisions may differ where the reference's values lie within
+    ``TRIT_MARGIN`` of an edge: the trit (|value| at 0.5), hardtanh's
+    gradient (|value| at 1), and the element a max pool's gradient goes
+    to (the window's top two within ``TRIT_MARGIN``; the port takes the
+    max of its float64 values).  Each such decision is counted and given
+    to the reference's step as the port took it, so the step compares
+    everything else at the float tolerances; a decision that differs
+    farther from its edge fails here.  With every earlier decision
+    aligned, both layers see the same input trits."""
+    params = dict(jp, layers=jinq.apply(jstate["layers"], jp["layers"]))
+    align, flips = [], 0
+    for (_op, _mult, pool), lp, mine, mine_pre in zip(
+            jcfg.layout, params["layers"], port_acts, port_pre):
+        y, _, pre = _ref_pre_act(lp, x, pool)
+        y, pre = np.asarray(y), np.asarray(pre)
+        route = None
+        if pool is not None and pool[0] == "max":
+            yr = _windows(pre, pool[1])
+            w_ref = _routing(yr)
+            w_port = _routing(_windows(mine_pre.detach().numpy(), pool[1]))
+            use = (w_ref != w_port).any(axis=(2, 4))
+            top2 = np.sort(yr.transpose(0, 1, 3, 5, 2, 4).reshape(
+                *use.shape, -1), axis=-1)[..., -2:]
+            assert not (use & (top2[..., 1] - top2[..., 0]
+                               > TRIT_MARGIN)).any(), len(align)
+            flips += int(use.sum())
+            route = (use, w_port)
+        (rt, rg), (pt, pg) = _decisions(y), _decisions(_np(mine))
+        a = np.abs(y)
+        use = (rt != pt) | (rg != pg)
+        near = ((np.abs(a - 0.5) <= TRIT_MARGIN)
+                | (np.abs(a - 1.0) <= TRIT_MARGIN))
+        assert not (use & ~near).any(), len(align)
+        flips += int(use.sum())
+        align.append((use, pt, pg, route))
+        x = jnp.asarray(np.where(use, pt, rt))
+    return align, flips
+
+
 def test_training_step_from_reference_init():
     """One INQ step (20% frozen, Magnitude-Inverse): loss, gradient norm
-    and every updated tensor against the reference's step."""
+    and every updated tensor against the reference's step, the
+    reference's step taking the port's side of any decision within
+    float32 noise of its edge (`_tie_align`; at most
+    ``MAX_TIE_FLIPS``)."""
     jcfg, jp, npp = _ref_init(SMALL)
     rc = jqat.QATRunConfig(width=8, steps=10)
     icfg = jinq.INQConfig(strategy=rc.strategy, with_scale=False)
@@ -464,19 +592,84 @@ def test_training_step_from_reference_init():
     b = cifar.encoded_batch(cifar.SynthCifarConfig(), "train", 0, 16, m=4,
                             device=CPU)
     jb = jcifar.encoded_batch(jcifar.SynthCifarConfig(), "train", 0, 16, m=4)
+    jbatch = {"x": jnp.asarray(jb["x"]), "y": jnp.asarray(jb["y"])}
     acfg = cutie_qat.adam_config(cutie_qat.QATRunConfig(width=8, steps=10))
     jacfg = jadam.AdamConfig(**dataclasses.asdict(acfg))
-    jp2, jloss, om = _ref_step(jp, jstate, {"x": jnp.asarray(jb["x"]),
-                                            "y": jnp.asarray(jb["y"])},
-                               jcfg, jacfg)
-    opt, m = cutie_qat.train_step(model, adam.init_state(model.trainable()),
-                                  b, acfg)
+    acts, pre, quant_act, bnorm = [], [], cutie_cnn._quant_act, \
+        cutie_cnn._batchnorm
+
+    def record(x, mode):
+        acts.append(x.detach().clone())
+        return quant_act(x, mode)
+
+    def record_pre(blk, z, train):
+        y, stats = bnorm(blk, z, train)
+        pre.append(y.detach().clone())
+        return y, stats
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(cutie_cnn, "_quant_act", record)
+    mp.setattr(cutie_cnn, "_batchnorm", record_pre)
+    try:
+        opt, m = cutie_qat.train_step(
+            model, adam.init_state(model.trainable()), b, acfg)
+    finally:
+        mp.undo()
+    align, flips = _tie_align(jp, jstate, jbatch["x"], jcfg, acts, pre)
+    assert flips <= MAX_TIE_FLIPS, flips
+    jp2, jloss, om = _ref_step(jp, jstate, jbatch, jcfg, jacfg,
+                               align if flips else None)
     assert float(m["loss"]) == pytest.approx(jloss, rel=F32_RTOL)
     assert float(m["grad_norm"]) == pytest.approx(float(om["grad_norm"]),
                                                   rel=1e-4)
     assert opt["step"] == 1
     got, _ = convert.cnn_params_to_numpy(model)
     _assert_step_close(got, jax.tree.map(np.asarray, jp2), acfg.lr)
+
+
+def test_aligned_reference_step_is_the_reference_step():
+    """`_ref_loss_aligned` with no decision taken over (and every max
+    pool routed as the reference routes it) is the reference's
+    `loss_fn`: loss, gradients and BN updates bit for bit."""
+    jcfg, jp, _ = _ref_init(SMALL)
+    icfg = jinq.INQConfig(strategy="magnitude-inverse", with_scale=False)
+    jstate = {"layers": jinq.freeze(jinq.init_state(jp["layers"]),
+                                    jp["layers"], 0.2, icfg), "fc": None}
+    rng = np.random.default_rng(5)
+    batch = {"x": jnp.asarray(_input(5, n=4)),
+             "y": jnp.asarray(rng.integers(0, 10, size=4), jnp.int32)}
+    params = dict(jp, layers=jinq.apply(jstate["layers"], jp["layers"]))
+    x, align = batch["x"], []
+    for (_op, _mult, pool), lp in zip(jcfg.layout, params["layers"]):
+        y, _, pre = _ref_pre_act(lp, x, pool)
+        y, pre = np.asarray(y), np.asarray(pre)
+        trit, grad = _decisions(y)
+        route = None
+        if pool is not None and pool[0] == "max":
+            w = _routing(_windows(pre, pool[1]))
+            route = (np.zeros(y.shape, bool), w)
+        align.append((np.zeros(y.shape, bool), trit, grad, route))
+        x = jnp.asarray(trit)
+    want = jax.value_and_grad(lambda p: jcnn.loss_fn(
+        p, batch, jcfg, train=True, inq_state=jstate), has_aux=True)(jp)
+    got = jax.value_and_grad(lambda p: _ref_loss_aligned(
+        p, jstate, batch, jcfg, align), has_aux=True)(jp)
+    (gl, gaux), gg = got
+    (wl, waux), wg = want
+    for a, b in zip(jax.tree.leaves((gl, gaux["bn"], gg)),
+                    jax.tree.leaves((wl, waux["bn"], wg)), strict=True):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    # a route that is taken over sends the window's gradient as told
+    for (_op, _mult, pool), (use, trit, grad, route) in zip(jcfg.layout,
+                                                             align):
+        if route is not None:
+            route[0][...] = True
+    forced = jax.value_and_grad(lambda p: _ref_loss_aligned(
+        p, jstate, batch, jcfg, align), has_aux=True)(jp)
+    assert float(forced[0][0]) == float(wl)
+    for a, b in zip(jax.tree.leaves(forced[1]), jax.tree.leaves(wg)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-5,
+                                   atol=F32_ATOL)
 
 
 def _assert_step_close(got, want, lr):
