@@ -115,6 +115,27 @@ Phases, each of which fails the script (no result line) when it fails:
    a 2-layer truncated draft under the margin rule and the trit
    `StatePagedStore` on the card; each
    with its serving times and device busy share.
+   Then the hybrid, encdec and vlm families, full width and depth,
+   ``ternary_packed``, seeded weights (`hybrid_path`, `encdec_path`,
+   `vlm_path`): zamba2-2.7b runs 4 of the requests' prompts through
+   `ssm_prefill` and 16 greedy decode steps (kernel 7 3 x 54 + 7 x 9 =
+   225 per token step; the 9 applications of the shared block read one
+   weight set and write 9 distinct KV caches; every kernel-7 call of a
+   decode step and every mixer call of a prefill against the plain
+   matmul on the same input; the chunked forward against the recurrence
+   layer by layer, the shared block included); whisper-medium encodes 2 x
+   1500 seeded frames (144 launches at M = 3000), fills the cross cache
+   from `_xattn_kv` (48), runs an 8-token prompt teacher-forced through
+   `decode_step` (192 per step; its last logits against `forward_logits`)
+   and 16 greedy steps, each encoder and decoder layer and each of their
+   projections against the plain matmul on the kernel run's input;
+   llava-next-mistral-7b serves the 8 requests through `LLMExecutor`
+   (224 per forward, paged == contiguous, `plain_prefill_check`) and runs
+   `forward_loss` over 576 seeded patches and 64 tokens against the plain
+   matmul; kernel 7 at M = 3000 and 640 is timed against the library call
+   with its split-K workspace per call; each path with its parameter
+   bytes, host medians, the device's busy share of a profiled run and its
+   peak memory.
    Then the third main path, train -> compile -> serve (`cnn_main_path`):
    `train.cutie_qat.run` trains the full-width CIFAR-10 QAT network
    (width 128, thermometer m 42, batch 64) for ``QAT_STEPS`` steps of INQ
@@ -175,6 +196,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import hashlib
 import json
 import os
@@ -323,6 +345,34 @@ MOE_ARCH, SSM_ARCH = "deepseek-moe-16b", "mamba2-780m"
 MOE_LAYER_ULPS, MOE_LOGIT_TOL = 4, 1.0
 SSM_MIXER_ULPS, SSM_CHECK_STEPS, SSM_CHECK_CHUNK = 4, 8, 8
 SSM_LAYER_RTOL, SSM_CORR, SSM_DRAFT_LAYERS = 2.0 ** -4, 0.9, 2
+# the hybrid, encdec and vlm paths, each at full width and depth,
+# ternary_packed, seeded weights.  zamba2-2.7b: the first HYBRID_BATCH
+# prompts through ssm_prefill and LLM_NEW greedy decode steps, KV caches of
+# HYBRID_MAX_LEN rows; every kernel-7 call of a decode step at M =
+# HYBRID_BATCH and every mixer call (as ssm_plain_check) within
+# SSM_MIXER_ULPS of its plain version; the chunked forward against the
+# recurrence per layer within SSM_LAYER_RTOL.  whisper-medium: ENCDEC_BATCH
+# seeded utterances of enc_seq frames through `encode`, an ENCDEC_PROMPT-
+# token decoder prompt teacher-forced through `decode_step` (its last
+# logits within LOGIT_TOL of `forward_logits`), then LLM_NEW greedy steps;
+# each encoder layer (M = ENCDEC_BATCH x enc_seq) and decoder layer (M =
+# ENCDEC_BATCH) with the plain matmul on the kernel run's input, its
+# increment within ENCDEC_LAYER_ULPS bf16 ulps of the position's largest
+# |increment|: a layer rounds its output to bf16 at two residual adds, and
+# the encoder's input (seeded frames plus positions) is up to 4x its
+# increments, so one output rounding is up to 4 ulps of the increment (on
+# an H100 80GB HBM3 at 700 W the encoder's layers measured 2-4, the
+# decoder's 0); each projection of those runs is held on its own within
+# SSM_MIXER_ULPS (`kernel_vs_plain`).  llava-next-mistral-7b: the LLM path's requests through
+# LLMExecutor (text only, as the reference serves vlm), then
+# `forward_loss` at batch 1 over img_tokens seeded patches and VLM_TEXT
+# text tokens, its loss within VLM_LOSS_TOL of the plain matmul's (the
+# mean cross-entropy of 64 positions whose logits agree within LOGIT_TOL)
+HYBRID_ARCH, ENCDEC_ARCH, VLM_ARCH = (
+    "zamba2-2.7b", "whisper-medium", "llava-next-mistral-7b")
+HYBRID_BATCH, HYBRID_MAX_LEN = 4, 256
+ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_MAX_LEN, ENCDEC_LAYER_ULPS = 2, 8, 64, 8
+VLM_TEXT, VLM_LOSS_TOL = 64, 2.0 ** -5
 SERVE_BUCKETS, SERVE_REQUESTS, SERVE_POOL = (1, 2, 4, 8), 256, 256
 INTERACTIVE_FRAC, OVERLOAD, TARGET_MULT, BATCH_DEADLINE_MULT = (
     0.25, 3.0, 5.0, 60.0)
@@ -2147,6 +2197,8 @@ def _route_counts(idx, cfg, cap: int) -> tuple:
 
 
 def _param_bytes(tree) -> int:
+    if tree is None:                       # whisper's dec_pos
+        return 0
     if isinstance(tree, dict):
         return sum(_param_bytes(v) for v in tree.values())
     if isinstance(tree, list):
@@ -2257,7 +2309,8 @@ def _ulps(torch, got, want):
     """The largest |got - want| per position (last axis) in bf16 ulps of
     that position's largest |want| (rows (..., D)); a 0-d tensor."""
     w, g = want.float(), got.float()
-    ulp = torch.exp2(torch.floor(torch.log2(w.abs().amax(-1))) - 7)
+    ulp = torch.exp2(torch.floor(torch.log2(
+        w.abs().amax(-1).clamp_min(2.0 ** -126))) - 7)
     return ((w - g).abs().amax(-1) / ulp).max()
 
 
@@ -2479,14 +2532,16 @@ def ssm_trit_store(torch, TC, codec, cfg) -> dict:
 
 
 def ssm_plain_check(torch, MM, DEC, C, params, cfg, prompts,
-                    card: str) -> None:
+                    card: str, label: str = "ssm", max_len: int = 16
+                    ) -> None:
     """Kernel 7 against its plain version inside mamba2's mixers, at the
     full-width shapes the serve gives it: `DEC.ssm_prefill` over the
     first prompt (M = 1, as the serve's prefill steps) and over the first
     SSM_CHECK_STEPS tokens of n_slots prompts at once (M = n_slots, a
     decode step's batch); every mixer call runs again with the plain
     matmul on the kernel run's input and state, and its output must lie
-    within SSM_MIXER_ULPS bf16 ulps of the position's largest |output|."""
+    within SSM_MIXER_ULPS bf16 ulps of the position's largest |output|.
+    A hybrid model's KV caches hold ``max_len`` rows."""
     from repro_torch.models import mamba2
 
     slots = DECODE_M
@@ -2506,11 +2561,11 @@ def ssm_plain_check(torch, MM, DEC, C, params, cfg, prompts,
         for toks in batches:
             t = torch.as_tensor(toks, device=DEVICE)
             DEC.ssm_prefill(params, t, DEC.init_caches(
-                cfg, t.shape[0], 16, device=DEVICE), cfg)
+                cfg, t.shape[0], max_len, device=DEVICE), cfg)
     finally:
         mamba2.decode_step = step
     per = torch.stack(errs).reshape(-1, cfg.n_layers).amax(0).tolist()
-    log(f"phase 4: ssm kernel 7 against its plain version in every mixer "
+    log(f"phase 4: {label} kernel 7 against its plain version in every mixer "
         f"call of a token-by-token prefill (M = 1, {len(prompts[0])} steps) "
         f"and of {SSM_CHECK_STEPS} steps at M = {slots}: wz, wx "
         f"({cfg.d_model} -> {cfg.d_inner}) and out_proj ({cfg.d_inner} -> "
@@ -2519,63 +2574,88 @@ def ssm_plain_check(torch, MM, DEC, C, params, cfg, prompts,
         f"largest |output| {[round(e, 3) for e in per]} (tolerance "
         f"{SSM_MIXER_ULPS}); {card}")
     if not max(per) <= SSM_MIXER_ULPS:
-        raise RuntimeError(f"ssm: kernel 7 and its plain version differ by "
+        raise RuntimeError(f"{label}: kernel 7 and its plain version differ by "
                            f"{max(per)} ulps in a mixer (tolerance "
                            f"{SSM_MIXER_ULPS})")
 
 
-def ssm_chunked_check(torch, TF, DEC, params, cfg, prompt) -> None:
+def ssm_chunked_check(torch, TF, DEC, params, cfg, prompt,
+                      label: str = "ssm") -> None:
     """The chunked SSD forward, at chunk SSM_CHECK_CHUNK so that the
     prompt spans several chunks, against the token-by-token recurrence.
     Layer by layer, on the same input (the chunked forward's hidden
-    state): each mixer's `apply` against its `decode_step` loop, within
-    SSM_LAYER_RTOL of the layer's largest |output| (the two round their
-    convolutions and sums differently in bf16).  End to end (a prompt's
-    last-position logits from `forward_logits` against `ssm_prefill`'s):
-    48 layers of seeded weights compound those differences, so the
-    reference's reduced-size rule (test_decode_matches_prefill:
-    correlation above 0.99, |err| within 0.3 + 0.3 |logit|) is reported,
-    and held are a correlation above SSM_CORR and the step's argmax among
-    the forward's top 5."""
+    state): each mixer's `apply` against its `decode_step` loop, and for
+    the hybrid family each application of the shared block (flash
+    attention over the prompt) against its decode steps over a KV cache,
+    each within SSM_LAYER_RTOL of the layer's largest |increment| (the two
+    round their convolutions, sums and attention differently in bf16).
+    End to end (a prompt's last-position logits from `forward_logits`
+    against `ssm_prefill`'s): 48 layers of seeded weights compound those
+    differences, so the reference's reduced-size rule
+    (test_decode_matches_prefill: correlation above 0.99, |err| within 0.3
+    + 0.3 |logit|) is reported; held for the ssm family are a correlation
+    above SSM_CORR and the step's argmax among the forward's top 5, and
+    reported only for the hybrid family, whose check is the per-layer
+    one."""
+    from repro_torch.models import attention as ATT
     from repro_torch.models import mamba2
 
     ccfg = cfg.replace(chunk=SSM_CHECK_CHUNK)
+    n = len(prompt)
     toks = torch.as_tensor(prompt[None], device=DEVICE)
+    positions = torch.arange(n, device=DEVICE)[None]
     x = TF._embed(params, toks, cfg)
-    layers = []
-    for lp in params["layers"]:
+    layers, shared = [], []
+    for i, lp in enumerate(params["layers"]):
         xn = TF._norm(cfg, lp["ln"], x)
         full = mamba2.apply(lp["mixer"], xn, ccfg)
         st, steps = mamba2.init_state(cfg, 1, device=DEVICE), []
-        for t in range(xn.shape[1]):
+        for t in range(n):
             y, st = mamba2.decode_step(lp["mixer"], xn[:, t:t + 1], cfg, st)
             steps.append(y)
         d = (torch.cat(steps, 1).float() - full.float()).abs().max()
         layers.append(float(d / full.float().abs().max()))
         x = x + full
+        if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
+            sp = params["shared_attn"]
+            out = TF.dense_block(sp, x, cfg, positions)
+            kv = ATT.init_cache(cfg, 1, n, device=DEVICE)
+            steps = [DEC._decode_body(x[:, t:t + 1], sp, kv["k"], kv["v"],
+                                      cfg=cfg, pos=t) for t in range(n)]
+            inc = out.float() - x.float()
+            d = (torch.cat(steps, 1).float() - x.float() - inc).abs().max()
+            shared.append(float(d / inc.abs().max()))
+            x = out
     full = TF.forward_logits(params, {"tokens": toks}, ccfg)[0, -1,
                                                              :cfg.vocab]
     step, _ = DEC.ssm_prefill(params, toks,
-                              DEC.init_caches(cfg, 1, 16, device=DEVICE), cfg)
+                              DEC.init_caches(cfg, 1, n, device=DEVICE), cfg)
     a, f = step[0, -1, :cfg.vocab].double(), full.double()
     corr = float(torch.corrcoef(torch.stack([a, f]))[0, 1])
     err = float((a - f).abs().max())
     ref_rule = corr > 0.99 and bool(((a - f).abs()
                                      <= 0.3 + 0.3 * f.abs()).all())
     top5 = int(a.argmax()) in f.topk(5).indices.tolist()
-    log(f"phase 4: ssm chunked forward (SSD, chunk {SSM_CHECK_CHUNK}: "
-        f"{len(prompt) // SSM_CHECK_CHUNK} chunks, the inter-chunk "
-        f"recurrence included) against the token-by-token "
-        f"recurrence: layer by layer on the same input, max |err| / max "
-        f"|output| per layer {[round(e, 4) for e in layers]} (tolerance "
-        f"{SSM_LAYER_RTOL}); end to end, last of {len(prompt)} positions: "
-        f"correlation {corr!r} (held above {SSM_CORR}), max |err| {err!r} "
-        f"(max |logit| {float(f.abs().max())!r}), argmax {int(a.argmax())} "
-        f"vs {int(f.argmax())} (held among the forward's top 5: {top5}); "
-        f"the reference's reduced-size rule holds: {ref_rule}")
-    if max(layers) > SSM_LAYER_RTOL or not (corr > SSM_CORR and top5):
-        raise RuntimeError("ssm: the chunked forward and the token-by-token "
-                           "prefill disagree")
+    worst = max(layers + shared)
+    log(f"phase 4: {label} chunked forward (SSD, chunk {SSM_CHECK_CHUNK}: "
+        f"{n // SSM_CHECK_CHUNK} chunks, the inter-chunk recurrence "
+        f"included) against the token-by-token recurrence: layer by layer "
+        f"on the same input, max |err| / max |increment| per mixer "
+        f"{[round(e, 4) for e in layers]}"
+        + (f", per application of the shared block (flash attention "
+           f"against decode steps) {[round(e, 4) for e in shared]}"
+           if shared else "")
+        + f" (tolerance {SSM_LAYER_RTOL}); end to end, last of {n} "
+        f"positions: correlation {corr!r}, max |err| {err!r} (max |logit| "
+        f"{float(f.abs().max())!r}), argmax {int(a.argmax())} vs "
+        f"{int(f.argmax())} (among the forward's top 5: {top5}; held for "
+        f"the ssm family with correlation above {SSM_CORR}: "
+        f"{cfg.family == 'ssm'}); the reference's reduced-size rule holds: "
+        f"{ref_rule}")
+    if worst > SSM_LAYER_RTOL or (cfg.family == "ssm"
+                                  and not (corr > SSM_CORR and top5)):
+        raise RuntimeError(f"{label}: the chunked forward and the "
+                           "token-by-token prefill disagree")
 
 
 def ssm_path(torch, MM, TC, S, TF, DEC, C, codec, configs, card: str,
@@ -2649,6 +2729,593 @@ def ssm_path(torch, MM, TC, S, TF, DEC, C, codec, configs, card: str,
     serving_profile(torch, S, params, cfg, prompts, card,
                     label=f"ssm {cfg.name} ternary_packed paged")
     return {"launches": launches["ternary_matmul"], "codec": codec_launches}
+
+
+# -- phase 4: the hybrid, encdec and vlm families ------------------------------
+
+
+def hybrid_launches_per_step(cfg) -> int:
+    """Kernel 7's launches in one token step of a hybrid config: 3 per
+    mamba2 mixer (wz, wx, out_proj) and 7 per application of the shared
+    block (wq, wk, wv, wo, gate, up, down)."""
+    return 3 * cfg.n_layers + 7 * (cfg.n_layers // cfg.attn_every)
+
+
+def projection_shapes(cfg) -> set:
+    """The (K, N) of a hybrid or vlm config's packed projections: the
+    attention's and the SwiGLU MLP's, and a hybrid's mixer wz, wx (d_model
+    -> d_inner) and out_proj."""
+    d, q, kv, f = (cfg.d_model, cfg.n_heads * cfg.d_head,
+                   cfg.n_kv * cfg.d_head, cfg.d_ff)
+    out = {(d, q), (d, kv), (q, d), (d, f), (f, d)}
+    if cfg.family == "hybrid":
+        out |= {(d, cfg.d_inner), (cfg.d_inner, d)}
+    return out
+
+
+@contextlib.contextmanager
+def kernel_vs_plain(torch, MM, C):
+    """Inside the block every packed projection launches kernel 7 and then
+    runs its plain version on the same input; yields a dict (M, K, N) ->
+    the largest |err| seen, in bf16 ulps of the row's largest |plain
+    output| (`_ulps`)."""
+    seen: dict = {}
+
+    def mm(x, w, **kw):
+        y = MM.ternary_matmul(x, w, **kw)
+        err = float(_ulps(torch, y, MM.ternary_matmul_plain(x, w, **kw)))
+        key = (x.shape[0], x.shape[1], w.shape[1])
+        seen[key] = max(seen.get(key, 0.0), err)
+        return y
+
+    saved = C._mm
+    C._mm = types.SimpleNamespace(ternary_matmul=mm)
+    try:
+        yield seen
+    finally:
+        C._mm = saved
+
+
+def _fresh_peak(torch) -> None:
+    """Free what earlier paths left in reference cycles (executors whose
+    methods are wrapped by closures), then restart the peak-memory count,
+    so a path's peak is its own."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _busy_share(torch, fn) -> tuple:
+    """(host-clock s, device busy s) of one ``fn()`` under torch.profiler
+    (CUDA activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sync(torch)
+        t0 = time.perf_counter()
+        fn()
+        sync(torch)
+        secs = time.perf_counter() - t0
+    return secs, sum(e.self_device_time_total
+                     for e in prof.key_averages()) / 1e6
+
+
+def _greedy(torch, DEC, params, cfg, caches, logits, start, steps) -> tuple:
+    """``steps`` greedy decode steps from ``logits`` (B, 1, V) at
+    position ``start``: (tokens (B, steps + 1), caches, host ms per
+    step)."""
+    tok = logits[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
+    out, ms = [tok], []
+    b = tok.shape[0]
+    for i in range(steps):
+        sync(torch)
+        t0 = time.perf_counter()
+        logits, caches = DEC.decode_step(
+            params, tok, caches,
+            torch.full((b,), start + i, dtype=torch.int64, device=DEVICE),
+            cfg)
+        tok = logits[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
+        sync(torch)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(tok)
+    if not bool(torch.isfinite(logits).all()):
+        raise RuntimeError(f"{cfg.name}: non-finite decode logits")
+    return torch.cat(out, 1).tolist(), caches, ms
+
+
+def hybrid_decode(torch, MM, DEC, params, cfg, prompts) -> dict:
+    """The prompts through `DEC.ssm_prefill` (token by token) into fresh
+    caches of HYBRID_MAX_LEN rows, then LLM_NEW greedy decode steps;
+    kernel 7's launches of each part."""
+    toks = torch.as_tensor(prompts, device=DEVICE)
+    b, s = toks.shape
+    caches = DEC.init_caches(cfg, b, HYBRID_MAX_LEN, device=DEVICE)
+    sync(torch)
+    reset_launches(MM)
+    t0 = time.perf_counter()
+    logits, caches = DEC.ssm_prefill(params, toks, caches, cfg)
+    sync(torch)
+    prefill_s = time.perf_counter() - t0
+    n_prefill = MM.LAUNCHES["ternary_matmul"]
+    reset_launches(MM)
+    tokens, caches, ms = _greedy(torch, DEC, params, cfg, caches,
+                                 logits[:, -1:], s, LLM_NEW)
+    return {"tokens": tokens, "caches": caches, "prefill_s": prefill_s,
+            "step_ms": ms, "n_prefill": n_prefill,
+            "n_decode": MM.LAUNCHES["ternary_matmul"]}
+
+
+def hybrid_path(torch, MM, TF, DEC, C, configs, card: str) -> dict:
+    """zamba2-2.7b, ternary_packed, at full width and depth with seeded
+    weights on the card: the first HYBRID_BATCH prompts of the LLM path
+    through `ssm_prefill` and LLM_NEW greedy decode steps (the
+    reference's serving functions for the family; it has no hybrid
+    executor): kernel 7 launches `hybrid_launches_per_step` (225) per
+    token step; in one decode step each of the 9 applications of the
+    shared block runs the one ``shared_attn`` dict on its own KV cache,
+    and every kernel-7 call (M = HYBRID_BATCH) agrees with its plain
+    version within SSM_MIXER_ULPS; every mixer call of a prefill
+    (`ssm_plain_check`); the chunked forward against the recurrence layer
+    by layer (`ssm_chunked_check`); then the parameter bytes, the host
+    medians, the device's busy share of a profiled run and the peak
+    memory."""
+    cfg = configs.get(HYBRID_ARCH).replace(quant="ternary_packed")
+    _fresh_peak(torch)
+    t0 = time.perf_counter()
+    params = llm_params(torch, TF, cfg)
+    sync(torch)
+    init_s = time.perf_counter() - t0
+    per_step = hybrid_launches_per_step(cfg)
+    n_apps = cfg.n_layers // cfg.attn_every
+    all_prompts = llm_prompts(cfg)
+    prompts = np.stack(all_prompts[:HYBRID_BATCH])
+    log(f"phase 4: hybrid {cfg.name} ternary_packed (d_model {cfg.d_model}, "
+        f"{cfg.n_layers} mamba2 layers, {cfg.ssm_heads} heads x "
+        f"{cfg.ssm_headdim}, state {cfg.d_state}; one shared block of "
+        f"{cfg.n_heads} heads x {cfg.d_head} and MLP {cfg.d_ff} after every "
+        f"{cfg.attn_every} layers, {n_apps} applications): parameters "
+        f"{_param_bytes(params) / 1e9!r} GB on the card, drawn in "
+        f"{init_s!r} s; kernel 7 per token step 3 x {cfg.n_layers} + 7 x "
+        f"{n_apps} = {per_step}; {card}")
+    run = hybrid_decode(torch, MM, DEC, params, cfg, prompts)
+    b, s = prompts.shape
+    want = (per_step * s, per_step * LLM_NEW) if DEVICE == "cuda" else (0, 0)
+    if (run["n_prefill"], run["n_decode"]) != want:
+        raise RuntimeError(f"hybrid: kernel 7 launched {run['n_prefill']} + "
+                           f"{run['n_decode']}, want {per_step} x {s} + "
+                           f"{per_step} x {LLM_NEW} = {want}")
+    caches, end = run["caches"], s + LLM_NEW
+    rows = caches["kv"]["k"][:, :, :end].float()
+    if not (bool(rows.abs().amax((1, 3, 4)).gt(0).all())
+            and bool(caches["kv"]["k"][:, :, end:].eq(0).all())
+            and all(not torch.equal(rows[i], rows[j])
+                    for i in range(n_apps) for j in range(i))):
+        raise RuntimeError("hybrid: the shared block's KV caches are not 9 "
+                           "distinct caches written up to the position")
+    log(f"phase 4: hybrid {b} prompts x {s} tokens through ssm_prefill "
+        f"({run['prefill_s']!r} s, {run['prefill_s'] / s * 1e3!r} ms per "
+        f"token step) + {LLM_NEW} greedy decode steps (ms median "
+        f"{float(np.median(run['step_ms']))!r}, min "
+        f"{min(run['step_ms'])!r}); ternary_matmul launched "
+        f"{run['n_prefill']} + {run['n_decode']} = {per_step} x "
+        f"({s} + {LLM_NEW}) token steps; the {n_apps} KV caches written at "
+        f"positions 0..{end - 1}, pairwise distinct; first request "
+        f"{run['tokens'][0]}; {card}")
+    # one more decode step: which weights and which cache each application
+    # of the shared block reads, and every kernel-7 call against its plain
+    # version on the same input
+    apps, body = [], DEC._decode_body
+
+    def body_(h, lp, ck, cv, **kw):
+        apps.append((lp is params["shared_attn"], ck.data_ptr(),
+                     cv.data_ptr()))
+        return body(h, lp, ck, cv, **kw)
+
+    tok = torch.as_tensor([t[-1:] for t in run["tokens"]], device=DEVICE)
+    DEC._decode_body = body_
+    try:
+        with kernel_vs_plain(torch, MM, C) as errs:
+            DEC.decode_step(params, tok, caches,
+                            torch.full((b,), end, device=DEVICE), cfg)
+    finally:
+        DEC._decode_body = body
+    ptrs = [(caches["kv"]["k"][j].data_ptr(), caches["kv"]["v"][j].data_ptr())
+            for j in range(n_apps)]
+    if [a[0] for a in apps] != [True] * n_apps or \
+            [a[1:] for a in apps] != ptrs:
+        raise RuntimeError(f"hybrid: shared block applications {apps}, want "
+                           f"{n_apps} on shared_attn over caches {ptrs}")
+    log(f"phase 4: hybrid decode step: the {n_apps} applications of the "
+        f"shared block all read the one shared_attn dict and write KV caches "
+        f"0..{n_apps - 1} in order; kernel 7 against its plain version on "
+        f"the same input, max |err| in bf16 ulps of the row's largest "
+        f"|output| per (M, K, N): "
+        f"{ {k: round(v, 3) for k, v in sorted(errs.items())} } (tolerance "
+        f"{SSM_MIXER_ULPS})")
+    if max(errs.values()) > SSM_MIXER_ULPS or \
+            set(errs) != {(b, k, n) for k, n in projection_shapes(cfg)}:
+        raise RuntimeError(f"hybrid: kernel 7 and its plain version differ "
+                           f"{errs}")
+    del caches, run
+    # the decode step above held every projection at M = HYBRID_BATCH;
+    # the mixers again over SSM_CHECK_STEPS tokens at M = 1 and 4
+    ssm_plain_check(torch, MM, DEC, C, params, cfg,
+                    [p[:SSM_CHECK_STEPS] for p in all_prompts], card,
+                    label="hybrid", max_len=HYBRID_MAX_LEN)
+    ssm_chunked_check(torch, TF, DEC, params, cfg, all_prompts[0],
+                      label="hybrid")
+    secs, busy = _busy_share(torch, lambda: hybrid_decode(
+        torch, MM, DEC, params, cfg, prompts))
+    log(f"phase 5: hybrid {cfg.name} prefill + decode under torch.profiler: "
+        f"{secs!r} s host clock, device busy {busy!r} s (idle share "
+        f"{1 - busy / secs!r}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9!r} GB; {card}")
+    return {"launches": per_step * (s + LLM_NEW)}
+
+
+def encdec_decode(torch, MM, TF, DEC, params, cfg, frames, prompt) -> dict:
+    """`TF.encode` of the frames, the cross cache from `TF._xattn_kv` per
+    decoder layer, the prompt teacher-forced through `decode_step`, then
+    LLM_NEW greedy steps; kernel 7's launches and the host time of each
+    part."""
+    out: dict = {}
+    sync(torch)
+    reset_launches(MM)
+    t0 = time.perf_counter()
+    enc = TF.encode(params, frames, cfg)
+    sync(torch)
+    out["encode_s"] = time.perf_counter() - t0
+    out["n_encode"] = MM.LAUNCHES["ternary_matmul"]
+    b = frames.shape[0]
+    caches = DEC.init_caches(cfg, b, ENCDEC_MAX_LEN, device=DEVICE)
+    reset_launches(MM)
+    t0 = time.perf_counter()
+    for i, lp in enumerate(params["layers"]):
+        k, v = TF._xattn_kv(lp["xattn"], enc, cfg)
+        caches["cross"]["k"][i] = k
+        caches["cross"]["v"][i] = v
+    sync(torch)
+    out["cross_s"] = time.perf_counter() - t0
+    out["n_cross"] = MM.LAUNCHES["ternary_matmul"]
+    reset_launches(MM)
+    prompt_ms = []
+    for t in range(prompt.shape[1]):
+        t0 = time.perf_counter()
+        logits, caches = DEC.decode_step(
+            params, prompt[:, t:t + 1], caches,
+            torch.full((b,), t, dtype=torch.int64, device=DEVICE), cfg)
+        sync(torch)
+        prompt_ms.append((time.perf_counter() - t0) * 1e3)
+    out["n_prompt"] = MM.LAUNCHES["ternary_matmul"]
+    out["prompt_logits"] = logits[:, -1, :cfg.vocab].double()
+    reset_launches(MM)
+    out["tokens"], out["caches"], ms = _greedy(
+        torch, DEC, params, cfg, caches, logits, prompt.shape[1], LLM_NEW)
+    out["n_decode"] = MM.LAUNCHES["ternary_matmul"]
+    out["step_ms"] = prompt_ms + ms
+    out["enc"] = enc
+    return out
+
+
+def _layer_increments(torch, MM, C, fn, plain_args, x_at: int):
+    """Wrap a layer function whose argument ``x_at`` is its input: each
+    call also runs with the plain matmul on the same input
+    (``plain_args(args)`` gives the arguments for that run: fresh copies
+    of what the layer writes); the returned list gets, per call, the
+    largest |err| of the plain run's increment (output minus input) in
+    bf16 ulps of the position's largest |increment|."""
+    errs = []
+
+    def fn_(*args, **kw):
+        again = plain_args(args)
+        y = fn(*args, **kw)
+        with plain_matmul(MM, C):
+            want = fn(*again, **kw)
+        h = args[x_at].float()
+        errs.append(float(_ulps(torch, y.float() - h, want.float() - h)))
+        return y
+
+    return fn_, errs
+
+
+def k7_times(torch, MM, projs, m, n_layers, card: str, label: str) -> dict:
+    """Kernel 7 at M = ``m`` for each (name, packed linear) of one layer:
+    ms (CUDA events), device-only ms (torch.profiler), the split-K
+    workspace a call allocates, and the library call, bf16
+    `torch.matmul` on pre-decoded trits * alpha; the sums over
+    ``n_layers`` layers.  The bound: the bytes each call must move (x,
+    the packed weights, the scale, the output) or its bf16 operations."""
+    from repro_torch.kernels import ref as R
+
+    rng = np.random.default_rng(SEED + 13)
+    keys = ("ms", "device_ms", "plain_ms", "library_ms",
+            "library_device_ms", "bytes_ms", "ops_ms")
+    tot = dict.fromkeys(keys, 0.0)
+    for name, p in projs:
+        wp, scale = p["w_packed"], p["scale"]
+        n = wp.shape[1]
+        k = p["k"]
+        w_dec = (R.unpack_trits(wp.T).T[:k].to(torch.bfloat16)
+                 * scale.to(torch.bfloat16))
+        x = torch.as_tensor(rng.standard_normal((m, k)), dtype=torch.float32,
+                            device=DEVICE).to(torch.bfloat16)
+
+        def kern():
+            return MM.ternary_matmul(x, wp, scale=scale, round_scale=True)
+
+        def lib():
+            return torch.matmul(x, w_dec)
+
+        got = {"ms": timed(torch, kern),
+               "device_ms": device_ms(torch, kern, "ternary_mm"),
+               "plain_ms": timed(torch, lambda: MM.ternary_matmul_plain(
+                   x, wp, scale=scale, round_scale=True)),
+               "library_ms": timed(torch, lib),
+               "library_device_ms": device_ms(torch, lib, ""),
+               "bytes_ms": (wp.numel() + 2 * m * k + 2 * m * n + 4 * n)
+               / HBM_BYTES_PER_S * 1e3,
+               "ops_ms": 2 * m * k * n / BF16_OPS_PER_S * 1e3}
+        ws = MM.workspace_bytes(m, k, n, torch.bfloat16)
+        for key in keys:
+            tot[key] = None if got[key] is None or tot[key] is None else \
+                tot[key] + n_layers * got[key]
+        log(f"  {label} ternary_matmul {name} ({m}, {k}) x ({k}, {n}): ms "
+            f"{got['ms']!r} (device only {got['device_ms']!r}; plain_ms "
+            f"{got['plain_ms']!r}), split-K "
+            f"workspace {ws} B per call ({MM._plan(k, n, torch.bfloat16)}; "
+            f"kept between calls up to {MM.KEEP_WORKSPACE_BYTES} B); "
+            f"library torch.matmul bf16 on pre-decoded trits*alpha ms "
+            f"{got['library_ms']!r} (device only "
+            f"{got['library_device_ms']!r}); bound_ms "
+            f"{max(got['bytes_ms'], got['ops_ms'])!r}")
+    log(f"phase 5: {label} ternary_matmul at M = {m} summed over {n_layers} "
+        f"layers x {len(projs)} projections: ms {tot['ms']!r} (device only "
+        f"{tot['device_ms']!r}) plain_ms {tot['plain_ms']!r} library_ms "
+        f"{tot['library_ms']!r} (device "
+        f"only {tot['library_device_ms']!r}) bound_ms "
+        f"{max(tot['bytes_ms'], tot['ops_ms'])!r} (CUDA events, mean of 20 "
+        f"after 3 warm-up calls; {card})")
+    return tot
+
+
+def _projs(*named) -> list:
+    """(name, packed linear with its logical K) pairs."""
+    return [(name, {**p, "k": k}) for name, p, k in named]
+
+
+def encdec_path(torch, MM, TF, DEC, C, configs, card: str) -> dict:
+    """whisper-medium, ternary_packed, at full width and depth with seeded
+    weights on the card, through the reference's functions for the family
+    (it has no encdec executor): ENCDEC_BATCH seeded utterances of enc_seq
+    frames through `encode`, the cross cache from `_xattn_kv` per layer,
+    an ENCDEC_PROMPT-token decoder prompt teacher-forced through
+    `decode_step`, whose last logits must match `forward_logits` within
+    LOGIT_TOL, then LLM_NEW greedy steps: kernel 7 launches 6 x enc_layers
+    per encode, 2 x n_layers for the cross cache and 8 x n_layers per
+    decode step; each encoder and decoder layer with the plain matmul on
+    the kernel run's input within ENCDEC_LAYER_ULPS; kernel 7 at the
+    encoder's M against the library call, with its split-K workspace;
+    then the host medians, the device's busy share of a profiled run and
+    the peak memory."""
+    cfg = configs.get(ENCDEC_ARCH).replace(quant="ternary_packed")
+    _fresh_peak(torch)
+    t0 = time.perf_counter()
+    params = llm_params(torch, TF, cfg)
+    sync(torch)
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 11)
+    frames = torch.randn((ENCDEC_BATCH, cfg.enc_seq, cfg.d_model),
+                         generator=gen, device=DEVICE)
+    prompt = torch.as_tensor(np.random.default_rng(SEED + 12).integers(
+        0, cfg.vocab, (ENCDEC_BATCH, ENCDEC_PROMPT)), device=DEVICE)
+    per = {"encode": 6 * cfg.enc_layers, "cross": 2 * cfg.n_layers,
+           "step": 8 * cfg.n_layers}
+    log(f"phase 4: encdec {cfg.name} ternary_packed ({cfg.enc_layers} "
+        f"encoder + {cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, MLP {cfg.d_ff} {cfg.act}, vocab {cfg.vocab}): "
+        f"parameters {_param_bytes(params) / 1e9!r} GB, drawn in {init_s!r} "
+        f"s; kernel 7 per encode 6 x {cfg.enc_layers} = {per['encode']} at "
+        f"M = {ENCDEC_BATCH * cfg.enc_seq}, cross cache 2 x {cfg.n_layers} "
+        f"= {per['cross']}, per decode step (4 + 2 + 2) x {cfg.n_layers} = "
+        f"{per['step']} at M = {ENCDEC_BATCH}; {card}")
+    run = encdec_decode(torch, MM, TF, DEC, params, cfg, frames, prompt)
+    got = {k: run[f"n_{k}"] for k in ("encode", "cross", "prompt", "decode")}
+    want = {"encode": per["encode"], "cross": per["cross"],
+            "prompt": per["step"] * ENCDEC_PROMPT,
+            "decode": per["step"] * LLM_NEW}
+    if DEVICE != "cuda":
+        want = dict.fromkeys(want, 0)
+    if got != want:
+        raise RuntimeError(f"encdec: kernel 7 launched {got}, want {want}")
+    full = TF.forward_logits(params, {"tokens": prompt, "frames": frames},
+                             cfg)[:, -1, :cfg.vocab].double()
+    a = run["prompt_logits"]
+    err = float((a - full).abs().max())
+    if not (bool(torch.isfinite(a).all()) and err <= LOGIT_TOL):
+        raise RuntimeError(f"encdec: the teacher-forced decode's last logits "
+                           f"differ from forward_logits by {err} "
+                           f"(tolerance {LOGIT_TOL})")
+    enc = run.pop("enc")
+    if not bool(torch.isfinite(enc).all()) or tuple(enc.shape) != (
+            ENCDEC_BATCH, cfg.enc_seq, cfg.d_model):
+        raise RuntimeError(f"encdec: encoder output {tuple(enc.shape)}")
+    log(f"phase 4: encdec encode of {ENCDEC_BATCH} x {cfg.enc_seq} frames "
+        f"{run['encode_s'] * 1e3!r} ms, cross cache {run['cross_s'] * 1e3!r} "
+        f"ms, {ENCDEC_PROMPT} teacher-forced + {LLM_NEW} greedy decode steps "
+        f"(ms median {float(np.median(run['step_ms']))!r}, min "
+        f"{min(run['step_ms'])!r}); ternary_matmul launched {got} = {want}; "
+        f"teacher-forced last logits against forward_logits max |err| "
+        f"{err!r} (tolerance {LOGIT_TOL}, max |logit| "
+        f"{float(full.abs().max())!r}, argmax equal "
+        f"{bool((a.argmax(-1) == full.argmax(-1)).all())}); first request "
+        f"{run['tokens'][0]}; host clock, {card}")
+    # kernel 7 against its plain version, layer by layer on the kernel
+    # run's inputs: the encoder at M = batch x enc_seq, then one decode step
+    # at M = batch (its KV writes go to copies in the plain run)
+    block = TF.dense_block
+    TF.dense_block, enc_errs = _layer_increments(torch, MM, C, block,
+                                                 lambda a: a, x_at=1)
+    try:
+        with kernel_vs_plain(torch, MM, C) as enc_calls:
+            TF.encode(params, frames, cfg)
+    finally:
+        TF.dense_block = block
+    body = DEC._decode_encdec_body
+    DEC._decode_encdec_body, dec_errs = _layer_increments(
+        torch, MM, C, body,
+        lambda a: (a[0], a[1], a[2].clone(), a[3].clone(), a[4], a[5]),
+        x_at=0)
+    caches = run["caches"]
+    end = ENCDEC_PROMPT + LLM_NEW
+    try:
+        with kernel_vs_plain(torch, MM, C) as dec_calls:
+            DEC.decode_step(params, torch.as_tensor(
+                [t[-1:] for t in run["tokens"]], device=DEVICE), caches,
+                torch.full((ENCDEC_BATCH,), end, device=DEVICE), cfg)
+    finally:
+        DEC._decode_encdec_body = body
+    calls = {**enc_calls, **dec_calls}
+    d, f = cfg.d_model, cfg.d_ff
+    shapes = {(m, k, n) for m in (ENCDEC_BATCH * cfg.enc_seq, ENCDEC_BATCH)
+              for k, n in ((d, d), (d, f), (f, d))}
+    log(f"phase 4: encdec kernel 7 against its plain version, each layer on "
+        f"the kernel run's input, max |err| of the layer's increment in "
+        f"bf16 ulps of the position's largest |increment|: encoder (M = "
+        f"{ENCDEC_BATCH * cfg.enc_seq}) {[round(e, 3) for e in enc_errs]}, "
+        f"decoder step (M = {ENCDEC_BATCH}) "
+        f"{[round(e, 3) for e in dec_errs]} (tolerance {ENCDEC_LAYER_ULPS}); "
+        f"each projection of those runs, max |err| in bf16 ulps of the row's "
+        f"largest |output| per (M, K, N): "
+        f"{ {k: round(v, 3) for k, v in sorted(calls.items())} } (tolerance "
+        f"{SSM_MIXER_ULPS})")
+    if len(enc_errs) != cfg.enc_layers or len(dec_errs) != cfg.n_layers \
+            or max(enc_errs + dec_errs) > ENCDEC_LAYER_ULPS \
+            or set(calls) != shapes or max(calls.values()) > SSM_MIXER_ULPS:
+        raise RuntimeError("encdec: kernel 7 and its plain version differ "
+                           "in a layer")
+    del caches, run
+    lp = params["enc_layers"][0]
+    m = ENCDEC_BATCH * cfg.enc_seq
+    times = k7_times(torch, MM, _projs(
+        ("q", lp["attn"]["wq"], d), ("k", lp["attn"]["wk"], d),
+        ("v", lp["attn"]["wv"], d), ("o", lp["attn"]["wo"], d),
+        ("up", lp["mlp"]["up"], d), ("down", lp["mlp"]["down"], f)),
+        m, cfg.enc_layers, card, "encdec encoder")
+    secs, busy = _busy_share(torch, lambda: encdec_decode(
+        torch, MM, TF, DEC, params, cfg, frames, prompt))
+    log(f"phase 5: encdec {cfg.name} encode + decode under torch.profiler: "
+        f"{secs!r} s host clock, device busy {busy!r} s (idle share "
+        f"{1 - busy / secs!r}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9!r} GB; {card}")
+    return {"launches": sum(want.values()), "m": m, "times": times}
+
+
+def vlm_path(torch, MM, TC, S, TF, DEC, C, configs, card: str) -> dict:
+    """llava-next-mistral-7b, ternary_packed, at full width and depth with
+    seeded weights on the card: the LLM path's 8 requests through
+    CutieEngine + LLMExecutor (text only, as the reference serves vlm):
+    kernel 7 launches 7 x n_layers per forward, paged and contiguous give
+    the same tokens, one prefill with the plain matmul agrees within
+    LOGIT_TOL (`plain_prefill_check`); `forward_loss` under no_grad at
+    batch 1 over img_tokens seeded patches and VLM_TEXT text tokens: a
+    finite loss within VLM_LOSS_TOL of the plain matmul's, every kernel-7
+    call at M = img_tokens + VLM_TEXT within SSM_MIXER_ULPS of its plain
+    version; kernel 7 at that M against the library call; then the
+    serving times, the device's busy share and the peak memory."""
+    cfg = configs.get(VLM_ARCH).replace(quant="ternary_packed",
+                                        attn_kv_chunk=16)
+    _fresh_peak(torch)
+    t0 = time.perf_counter()
+    params = llm_params(torch, TF, cfg)
+    sync(torch)
+    init_s = time.perf_counter() - t0
+    per_fwd = 7 * cfg.n_layers
+    prompts = llm_prompts(cfg)
+    log(f"phase 4: vlm {cfg.name} ternary_packed (d_model {cfg.d_model}, "
+        f"{cfg.n_layers} layers, {cfg.n_heads} heads / {cfg.n_kv} kv, MLP "
+        f"{cfg.d_ff}, projector {cfg.d_vision} -> {cfg.d_model} bf16): "
+        f"parameters {_param_bytes(params) / 1e9!r} GB, drawn in {init_s!r} "
+        f"s; kernel 7 per forward 7 x {cfg.n_layers} = {per_fwd}; {card}")
+    reset_launches(MM, TC)
+    paged = serve(torch, S, params, cfg, prompts)
+    sync(torch)
+    launches = dict(MM.LAUNCHES)
+    st = paged["stats"]["paged_state"]["llm"]
+    forwards = st["prefills"] + st["decode_steps"]
+    want = per_fwd * forwards if DEVICE == "cuda" else 0
+    lens = [len(t) for t in paged["tokens"]]
+    if lens != [LLM_NEW] * LLM_REQUESTS:
+        raise RuntimeError(f"vlm: token counts {lens}, want {LLM_NEW} each")
+    if not st["prefix_hit_rate"] > 0:
+        raise RuntimeError(f"vlm: prefix_hit_rate {st['prefix_hit_rate']}")
+    if launches["ternary_matmul"] != want or \
+            launches["ternary_matmul_dense"] or any(TC.LAUNCHES.values()):
+        raise RuntimeError(f"vlm: launches {launches} {TC.LAUNCHES}, want "
+                           f"ternary_matmul = {per_fwd} x {forwards} "
+                           f"forwards = {want}")
+    contiguous = serve(torch, S, params, cfg, prompts, paged=False)
+    if contiguous["tokens"] != paged["tokens"]:
+        diff = _first_diffs(contiguous["tokens"], paged["tokens"])
+        raise RuntimeError(f"vlm: paged and contiguous tokens differ {diff}")
+    log(f"phase 4: vlm {LLM_REQUESTS} requests x {LLM_PROMPT} tokens -> "
+        f"{LLM_NEW} tokens each; prefix_hit_rate {st['prefix_hit_rate']!r}; "
+        f"{st['prefills']} prefills + {st['decode_steps']} decode steps; "
+        f"ternary_matmul launched {launches['ternary_matmul']} times "
+        f"({per_fwd} x {forwards}); paged and contiguous tokens identical "
+        f"(first request {paged['tokens'][0]})")
+    plain_prefill_check(torch, MM, DEC, C, params, cfg, prompts[0], "vlm")
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 14)
+    text = torch.as_tensor(np.random.default_rng(SEED + 15).integers(
+        0, cfg.vocab, (1, VLM_TEXT + 1)), device=DEVICE)
+    batch = {"tokens": text[:, :-1], "labels": text[:, 1:],
+             "patches": torch.randn((1, cfg.img_tokens, cfg.d_vision),
+                                    generator=gen, device=DEVICE)}
+    m = cfg.img_tokens + VLM_TEXT
+    with torch.no_grad():
+        reset_launches(MM)
+        sync(torch)
+        t0 = time.perf_counter()
+        loss, metrics = TF.forward_loss(params, batch, cfg)
+        sync(torch)
+        loss_ms = (time.perf_counter() - t0) * 1e3
+        n_loss = MM.LAUNCHES["ternary_matmul"]
+        with plain_matmul(MM, C):
+            plain_loss, _ = TF.forward_loss(params, batch, cfg)
+        with kernel_vs_plain(torch, MM, C) as errs:
+            TF.forward_loss(params, batch, cfg)
+    err = abs(float(loss) - float(plain_loss))
+    log(f"phase 4: vlm forward_loss (no_grad) at batch 1 over "
+        f"{cfg.img_tokens} patches + {VLM_TEXT} text tokens (M = {m}): loss "
+        f"{float(loss)!r} on {int(metrics['tokens'])} text positions, "
+        f"{loss_ms!r} ms; with the plain matmul {float(plain_loss)!r} (|err| "
+        f"{err!r}, tolerance {VLM_LOSS_TOL}); ternary_matmul launched "
+        f"{n_loss} (7 x {cfg.n_layers}); kernel 7 against its plain version "
+        f"on the same input, max |err| in bf16 ulps of the row's largest "
+        f"|output| per (M, K, N): "
+        f"{ {k: round(v, 3) for k, v in sorted(errs.items())} } (tolerance "
+        f"{SSM_MIXER_ULPS}); {card}")
+    if not (np.isfinite(float(loss)) and err <= VLM_LOSS_TOL
+            and n_loss == (per_fwd if DEVICE == "cuda" else 0)
+            and max(errs.values()) <= SSM_MIXER_ULPS
+            and set(errs) == {(m, k, n) for k, n in projection_shapes(cfg)}):
+        raise RuntimeError("vlm: forward_loss failed its checks")
+    lp = params["layers"][0]
+    d, f = cfg.d_model, cfg.d_ff
+    times = k7_times(torch, MM, _projs(
+        ("q", lp["attn"]["wq"], d), ("k", lp["attn"]["wk"], d),
+        ("v", lp["attn"]["wv"], d), ("o", lp["attn"]["wo"], d),
+        ("gate", lp["mlp"]["gate"], d), ("up", lp["mlp"]["up"], d),
+        ("down", lp["mlp"]["down"], f)), m, cfg.n_layers, card, "vlm")
+    _serving_line(f"vlm {cfg.name} ternary_packed paged", paged, card)
+    _serving_line(f"vlm {cfg.name} ternary_packed contiguous", contiguous,
+                  card)
+    serving_profile(torch, S, params, cfg, prompts, card,
+                    label=f"vlm {cfg.name} ternary_packed paged")
+    log(f"phase 5: vlm peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9!r} GB; {card}")
+    return {"launches": launches["ternary_matmul"], "m": m, "times": times}
 
 
 # -- phase 4: the CNN train -> compile -> serve path --------------------------
@@ -4085,7 +4752,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     ssm_run = ssm_path(torch, MM, TC, S, TF, DEC, C, codec, configs, card)
     torch.cuda.empty_cache()
-    llm["launches"] += moe_run["launches"] + ssm_run["launches"]
+    runs = [moe_run, ssm_run]
+    for path in (hybrid_path, encdec_path):
+        runs.append(path(torch, MM, TF, DEC, C, configs, card))
+        torch.cuda.empty_cache()
+    runs.append(vlm_path(torch, MM, TC, S, TF, DEC, C, configs, card))
+    torch.cuda.empty_cache()
+    llm["launches"] += sum(r["launches"] for r in runs)
     _add_counts(mp["launches"], moe_run["codec"])
     _add_counts(mp["launches"], ssm_run["codec"])
     cnn = cnn_main_path(torch, K, FT, TC, P, S, Q, CNN, inq, adam, cifar,
@@ -4096,6 +4769,16 @@ def main() -> int:
     kernels += time_new_kernels(torch, FT, TC, mp, llm, card, worst,
                                 conv_lib)
     kernels += time_matmul_kernels(torch, MM, llm, card, worst)
+    # kernel 7 at the large M of the encdec and vlm paths, one encode or
+    # one forward's projections (phase 4's k7_times)
+    k7 = next(r for r in kernels if r["name"] == "ternary_matmul")
+    k7["large_m"] = {str(r["m"]): {
+        "ms": r["times"]["ms"], "device_ms": r["times"]["device_ms"],
+        "plain_ms": r["times"]["plain_ms"],
+        "library_ms": r["times"]["library_ms"],
+        "library_device_ms": r["times"]["library_device_ms"],
+        "bound_ms": max(r["times"]["bytes_ms"], r["times"]["ops_ms"])}
+        for r in runs if "times" in r}
     serving_numbers(torch, S, TF, llm, card)
     trit_serving_numbers(torch, S, TC, codec, llm, card)
     cnn_numbers(torch, Q, CNN, S, P, adam, cifar, cnn, card)

@@ -1,21 +1,14 @@
-"""Architecture registry: one module per ported architecture.
+"""Architecture registry: one module per architecture.
 
-``get(name)`` returns the full-size ArchConfig.  The names are the
-reference's; an architecture the port does not run yet raises, naming
-its ROADMAP item: its family waits for ROADMAP.md §1 item 10.
+``get(name)`` returns the full-size ArchConfig; ``registry()`` lists all.
+The names and aliases are the reference's.
 """
 
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["mamba2_780m", "internlm2_1_8b", "llama3_2_1b",
-            "codeqwen1_5_7b", "qwen2_5_32b", "deepseek_moe_16b",
-            "qwen3_moe_30b_a3b"]
-
-# every architecture of the reference; those not in ARCH_IDS wait for
-# their family (ROADMAP.md §1 item 10)
-KNOWN_IDS = [
+ARCH_IDS = [
     "whisper_medium",
     "mamba2_780m",
     "internlm2_1_8b",
@@ -28,7 +21,7 @@ KNOWN_IDS = [
     "llava_next_mistral_7b",
 ]
 
-ALIASES = {a.replace("_", "-"): a for a in KNOWN_IDS}
+ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 ALIASES.update({
     "whisper-medium": "whisper_medium",
     "mamba2-780m": "mamba2_780m",
@@ -46,12 +39,11 @@ ALIASES.update({
 def get(name: str):
     mod_name = ALIASES.get(name, name).replace("-", "_").replace(".", "_")
     if mod_name not in ARCH_IDS:
-        if mod_name in KNOWN_IDS:
-            raise NotImplementedError(
-                f"{name!r} is not ported yet: its family waits for "
-                "ROADMAP.md §1 item 10 (LLM stack)")
         raise ValueError(f"unknown architecture {name!r}; known: "
                          f"{sorted(ALIASES)}")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG
 
+
+def registry() -> dict:
+    return {a: get(a) for a in ARCH_IDS}

@@ -71,7 +71,7 @@ def _tensor(a, dev) -> torch.Tensor:
 def _tree(node, dev):
     if isinstance(node, Mapping):
         return {k: _tree(v, dev) for k, v in node.items()}
-    return _tensor(node, dev)
+    return None if node is None else _tensor(node, dev)
 
 
 def llm_params_from_numpy(tree, cfg, device=None) -> dict:
@@ -80,15 +80,17 @@ def llm_params_from_numpy(tree, cfg, device=None) -> dict:
 
     The reference stacks each layer leaf on a leading layer axis (the
     moe family's leading dense layers under ``dense_layers``, its MoE
-    layers' expert weights as (E, D, F) stacks, the ssm family's mixers
-    under ``mixer``); the port keeps a list of per-layer dicts per stack.
-    The stacks must hold ``first_dense`` and ``n_layers - first_dense``
-    layers.  Tensors go to ``resolve_device(device)``; dtypes and bytes
-    are kept.
+    layers' expert weights as (E, D, F) stacks, the ssm and hybrid
+    families' mixers under ``mixer``, the encdec family's encoder under
+    ``enc_layers``); the port keeps a list of per-layer dicts per stack.
+    The hybrid family's ``shared_attn``, the encdec family's ``enc_pos``,
+    ``ln_enc`` and ``dec_pos`` (None) and the vlm family's ``mm_proj``
+    cross as they are.  The stacks must hold ``first_dense``, ``n_layers
+    - first_dense`` and ``enc_layers`` layers.  Tensors go to
+    ``resolve_device(device)``; dtypes and bytes are kept.
     """
     from repro_torch.models import transformer as TF
 
-    TF.require_ported(cfg)
     dev = resolve_device(device)
     out = {k: _tree(v, dev) for k, v in tree.items()}
     counts = {}
@@ -102,10 +104,13 @@ def llm_params_from_numpy(tree, cfg, device=None) -> dict:
     want = {"layers": cfg.n_layers - cfg.first_dense}
     if cfg.first_dense:
         want["dense_layers"] = cfg.first_dense
+    if cfg.enc_layers:
+        want["enc_layers"] = cfg.enc_layers
     if counts != want:
         raise ValueError(f"the layer stacks hold {counts} layers, the "
                          f"config {want} (first_dense + len(layers) == "
-                         f"n_layers = {cfg.n_layers})")
+                         f"n_layers = {cfg.n_layers}, enc_layers = "
+                         f"{cfg.enc_layers})")
     return TF.unstack_layers(out)
 
 

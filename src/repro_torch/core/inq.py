@@ -219,6 +219,8 @@ def _map_state(fn, state, other):
 
 
 def _map_with_path(fn, node, path):
+    if node is None:
+        return None
     if isinstance(node, dict):
         return {k: _map_with_path(fn, v, path + (k,))
                 for k, v in node.items()}

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import argparse
 
+import numpy as np
 import torch
 
 from repro_torch import configs
@@ -72,9 +73,23 @@ def main(argv=None):
     params = TF.stack_layers(TF.init_params(cfg, gen))
 
     def data_fn(step: int):
-        b = src.batch(step)
-        return {k: torch.as_tensor(v, dtype=torch.int64, device=dev)
-                for k, v in b.items()}
+        b = {k: torch.as_tensor(v, dtype=torch.int64, device=dev)
+             for k, v in src.batch(step).items()}
+        # the stub inputs of encdec (frames) and vlm (patches), drawn as
+        # the reference draws them
+        if cfg.family == "encdec":
+            rng = np.random.default_rng(step)
+            b["frames"] = torch.as_tensor(rng.normal(size=(
+                args.batch, cfg.enc_seq, cfg.d_model)).astype(np.float32),
+                device=dev)
+        if cfg.family == "vlm":
+            rng = np.random.default_rng(step)
+            b["patches"] = torch.as_tensor(rng.normal(size=(
+                args.batch, cfg.img_tokens, cfg.d_vision)).astype(
+                    np.float32), device=dev)
+            b["tokens"] = b["tokens"][:, :args.seq - cfg.img_tokens]
+            b["labels"] = b["labels"][:, :args.seq - cfg.img_tokens]
+        return b
 
     def loss_fn(p, batch):
         return TF.forward_loss(TF.unstack_layers(p), batch, cfg)

@@ -1,11 +1,13 @@
 """GQA attention: flash-style chunked prefill path + cached decode.
 
 The reference computes the prefill path as an online softmax over
-q-chunks and kv-chunks in plain jnp (a scan), so the (S, S) score matrix
+q-chunks and kv-chunks in plain jnp (a scan), so the (S, T) score matrix
 is never materialized; this is the same loop in plain PyTorch, chunk for
 chunk and in the same order, masking fully-masked causal chunks as the
 reference's scanned mode does (the reference's unrolled cost-analysis
-mode skips them instead).  Keeping the kv-chunk grid is what makes a
+mode skips them instead).  The non-causal form (whisper's encoder and
+cross-attention, T != S allowed) masks only the padded kv tail of a
+ragged length.  Keeping the kv-chunk grid is what makes a
 suffix prefill over cached prefix rows give the same numbers as a
 full-prompt prefill (see `repro_torch.serving.llm`).
 
@@ -44,24 +46,37 @@ def init(gen, cfg, d_model=None, prefix_dtype=torch.bfloat16):
     return p
 
 
-def _project_qkv(p, x, cfg, positions):
+def _project_q(p, x, cfg, positions, rope: bool):
     b, s, _ = x.shape
-    h, hk, dh = cfg.n_heads, cfg.n_kv, cfg.d_head
-    q = C.linear(p["wq"], x, quant=cfg.quant).reshape(b, s, h, dh)
+    q = C.linear(p["wq"], x, quant=cfg.quant).reshape(
+        b, s, cfg.n_heads, cfg.d_head)
+    if cfg.qk_norm:
+        q = C.rmsnorm(p["q_norm"], q)
+    return C.apply_rope(q, positions, cfg.rope_theta) if rope else q
+
+
+def _project_kv(p, x, cfg, positions, rope: bool):
+    b, s, _ = x.shape
+    hk, dh = cfg.n_kv, cfg.d_head
     k = C.linear(p["wk"], x, quant=cfg.quant).reshape(b, s, hk, dh)
     v = C.linear(p["wv"], x, quant=cfg.quant).reshape(b, s, hk, dh)
     if cfg.qk_norm:
-        q = C.rmsnorm(p["q_norm"], q)
         k = C.rmsnorm(p["k_norm"], k)
-    q = C.apply_rope(q, positions, cfg.rope_theta)
-    k = C.apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    if rope:
+        k = C.apply_rope(k, positions, cfg.rope_theta)
+    return k, v
+
+
+def _project_qkv(p, x, cfg, positions, rope: bool = True):
+    return (_project_q(p, x, cfg, positions, rope),
+            *_project_kv(p, x, cfg, positions, rope))
 
 
 def flash_attention(q, k, v, *, q_chunk: int, kv_chunk: int,
-                    q_offset: int = 0, bf16_scores: bool = False):
-    """Causal online-softmax attention, MHA layout: q,k,v (B,S|T,H,D);
-    query row i sits at absolute position ``q_offset + i``.
+                    causal: bool = True, q_offset: int = 0,
+                    bf16_scores: bool = False):
+    """Online-softmax attention, MHA layout: q,k,v (B,S|T,H,D); with
+    ``causal`` query row i sits at absolute position ``q_offset + i``.
 
     GQA callers repeat kv to the full head count first, as the reference
     does.  ``bf16_scores``: the score tile and its exponentials in bf16
@@ -104,10 +119,14 @@ def flash_attention(q, k, v, *, q_chunk: int, kv_chunk: int,
             kpos = ki * ck + torch.arange(ck, device=dev)
             sc = torch.einsum("bqhd,bkhd->bhqk", qblk, kblk).to(sc_dtype) \
                 * scale
-            mask = qpos[:, None] >= kpos[None, :]
-            if mask_tail:
-                mask = mask & (kpos < t_valid)[None, :]
-            sc = torch.where(mask[None, None], sc, neg_inf)
+            if causal:
+                mask = qpos[:, None] >= kpos[None, :]
+                if mask_tail:
+                    mask = mask & (kpos < t_valid)[None, :]
+                sc = torch.where(mask[None, None], sc, neg_inf)
+            elif mask_tail:
+                sc = torch.where((kpos < t_valid)[None, None, None, :], sc,
+                                 neg_inf)
             m_new = torch.maximum(m, sc.amax(dim=-1).to(torch.float32))
             alpha = torch.exp(m - m_new)
             pexp = torch.exp(sc - m_new[..., None].to(sc_dtype))
@@ -123,13 +142,21 @@ def flash_attention(q, k, v, *, q_chunk: int, kv_chunk: int,
     return out[:, :s_orig]
 
 
-def attention(p, x, cfg, *, positions):
-    """Full-sequence causal self-attention (prefill).  Returns (y, (k, v)).
+def attention(p, x, cfg, *, positions, causal=True, rope=True,
+              kv_override=None):
+    """Full-sequence attention (train / prefill).  Returns (y, (k, v)).
 
     The returned (k, v) keep the compact n_kv head count (cache layout);
-    the flash path repeats them to n_heads.
+    the flash path repeats them to n_heads.  ``kv_override`` (k, v) (B, T,
+    Hk, Dh) replaces x's own keys and values (cross-attention: the
+    encoder's projection).
     """
-    return attend(p, x, cfg, positions, None)
+    if kv_override is None:
+        q, k, v = _project_qkv(p, x, cfg, positions, rope)
+    else:
+        q = _project_q(p, x, cfg, positions, rope)
+        k, v = kv_override
+    return _attend_rows(p, q, k, v, cfg, causal=causal), (k, v)
 
 
 def attend(p, x, cfg, positions, prefix_kv):
@@ -143,15 +170,21 @@ def attend(p, x, cfg, positions, prefix_kv):
         kf = torch.cat([pk.to(q.dtype), k], dim=1)
         vf = torch.cat([pv.to(q.dtype), v], dim=1)
         n_cached = pk.shape[1]
+    return _attend_rows(p, q, kf, vf, cfg, q_offset=n_cached), (k, v)
+
+
+def _attend_rows(p, q, k, v, cfg, *, causal=True, q_offset=0):
+    """The output projection of q's attention over (k, v) (B, T, Hk, Dh),
+    repeated to the full head count."""
     g = cfg.n_heads // cfg.n_kv
-    kr = torch.repeat_interleave(kf, g, dim=2) if g > 1 else kf
-    vr = torch.repeat_interleave(vf, g, dim=2) if g > 1 else vf
+    kr = torch.repeat_interleave(k, g, dim=2) if g > 1 else k
+    vr = torch.repeat_interleave(v, g, dim=2) if g > 1 else v
     out = flash_attention(q, kr, vr, q_chunk=cfg.attn_q_chunk,
-                          kv_chunk=cfg.attn_kv_chunk, q_offset=n_cached,
+                          kv_chunk=cfg.attn_kv_chunk, causal=causal,
+                          q_offset=q_offset,
                           bf16_scores=cfg.attn_bf16_scores)
     b, s, _, _ = out.shape
-    y = C.linear(p["wo"], out.reshape(b, s, -1), quant=cfg.quant)
-    return y, (k, v)
+    return C.linear(p["wo"], out.reshape(b, s, -1), quant=cfg.quant)
 
 
 # ---------------------------------------------------------------------------
@@ -173,32 +206,28 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
     }
 
 
-def decode_attention(p, x, cfg, cache, pos):
+def decode_attention(p, x, cfg, cache, pos, *, rope=True, cross=False):
     """x (B, 1, D); pos (B,) int per-row write/read positions.
 
-    Returns (y, cache).  The new k/v rows are written into ``cache`` in
-    place (the reference returns an updated copy; the caller's tensors
-    here are its own, so the port saves the copy).
+    Returns (y, cache).  The self-attention form writes the new k/v rows
+    into ``cache`` in place (the reference returns an updated copy; the
+    caller's tensors here are its own, so the port saves the copy).  The
+    cross-attention form (whisper's decoder) reads the static encoder
+    projection in ``cache``, writes nothing and masks nothing.
     """
     b = x.shape[0]
     h, hk, dh = cfg.n_heads, cfg.n_kv, cfg.d_head
     pos = torch.as_tensor(pos, device=x.device).to(torch.int64)
     pos = pos.expand(b) if pos.dim() == 0 else pos
     positions = pos[:, None]
-    q = C.linear(p["wq"], x, quant=cfg.quant).reshape(b, 1, h, dh)
-    if cfg.qk_norm:
-        q = C.rmsnorm(p["q_norm"], q)
-    q = C.apply_rope(q, positions, cfg.rope_theta)
+    q = _project_q(p, x, cfg, positions, rope)
 
     k, v = cache["k"], cache["v"]
-    knew = C.linear(p["wk"], x, quant=cfg.quant).reshape(b, 1, hk, dh)
-    vnew = C.linear(p["wv"], x, quant=cfg.quant).reshape(b, 1, hk, dh)
-    if cfg.qk_norm:
-        knew = C.rmsnorm(p["k_norm"], knew)
-    knew = C.apply_rope(knew, positions, cfg.rope_theta)
-    rows = torch.arange(b, device=x.device)
-    k[rows, pos] = knew[:, 0].to(k.dtype)
-    v[rows, pos] = vnew[:, 0].to(v.dtype)
+    if not cross:
+        knew, vnew = _project_kv(p, x, cfg, positions, rope)
+        rows = torch.arange(b, device=x.device)
+        k[rows, pos] = knew[:, 0].to(k.dtype)
+        v[rows, pos] = vnew[:, 0].to(v.dtype)
 
     t = k.shape[1]
     g = h // hk
@@ -206,9 +235,11 @@ def decode_attention(p, x, cfg, cache, pos):
     # low-precision cache storage casts next to the dot
     ke = k.to(q.dtype).to(torch.float32)
     sc = torch.einsum("bqhgd,bkhd->bhgqk", qg, ke) * dh ** -0.5
-    live = torch.arange(t, device=x.device)[None] <= pos[:, None]
-    sc = torch.where(live[:, None, None, None], sc,
-                     torch.full((), NEG_INF, dtype=sc.dtype, device=x.device))
+    if not cross:
+        live = torch.arange(t, device=x.device)[None] <= pos[:, None]
+        sc = torch.where(live[:, None, None, None], sc,
+                         torch.full((), NEG_INF, dtype=sc.dtype,
+                                    device=x.device))
     w = torch.softmax(sc, dim=-1)
     ve = v.to(x.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", w.to(ve.dtype).to(torch.float32),

@@ -1,5 +1,4 @@
-"""Serving paths: prefill-with-cache and single-token decode steps, for
-the dense, moe and ssm families.
+"""Serving paths: prefill-with-cache and single-token decode steps.
 
 Cache layout: stacked over layers, ``{"kv": {"k"/"v": (L, B, T, Hk,
 Dh)}}``, as in the reference (deepseek-moe's leading dense layers use
@@ -8,7 +7,12 @@ caches it is given, in place, and returns them.  The ssm family carries
 ``{"ssm": {"conv_x", "conv_b", "conv_c": (L, B, W-1, Ch) bf16, "ssm":
 (L, B, H, P, N) f32}}`` instead, constant in sequence length; its decode
 step returns new state tensors and leaves the given ones as they were
-(speculative verification keeps every step's state).
+(speculative verification keeps every step's state).  The hybrid family
+(zamba2) carries both: the SSM state of every mamba2 layer and one KV
+cache per application of its shared block (``n_layers // attn_every``).
+The encdec family (whisper) carries its decoder's KV caches and a
+``cross`` cache of ``enc_seq`` rows per layer, the encoder output's
+projection, which a decode step reads and never writes.
 """
 
 from __future__ import annotations
@@ -29,17 +33,28 @@ _SSM_KEYS = ("conv_x", "conv_b", "conv_c", "ssm")
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, device=None):
-    TF.require_ported(cfg)
-    if cfg.family == "ssm":
-        one = mamba2.init_state(cfg, batch, device=device)
-        return {"ssm": {k: torch.zeros((cfg.n_layers, *v.shape),
-                                       dtype=v.dtype, device=device)
-                        for k, v in one.items()}}
     hk, dh = cfg.n_kv, cfg.d_head
     kdt = attn.KV_DTYPES[cfg.kv_dtype]
-    shape = (cfg.n_layers, batch, max_len, hk, dh)
-    return {"kv": {"k": torch.zeros(shape, dtype=kdt, device=device),
-                   "v": torch.zeros(shape, dtype=kdt, device=device)}}
+
+    def kv(n, t):
+        shape = (n, batch, t, hk, dh)
+        return {"k": torch.zeros(shape, dtype=kdt, device=device),
+                "v": torch.zeros(shape, dtype=kdt, device=device)}
+
+    if cfg.family in ("dense", "vlm", "moe"):
+        return {"kv": kv(cfg.n_layers, max_len)}
+    if cfg.family in ("ssm", "hybrid"):
+        one = mamba2.init_state(cfg, batch, device=device)
+        out = {"ssm": {k: torch.zeros((cfg.n_layers, *v.shape),
+                                      dtype=v.dtype, device=device)
+                       for k, v in one.items()}}
+        if cfg.family == "hybrid":
+            out["kv"] = kv(cfg.n_layers // cfg.attn_every, max_len)
+        return out
+    if cfg.family == "encdec":
+        return {"kv": kv(cfg.n_layers, max_len),
+                "cross": kv(cfg.n_layers, cfg.enc_seq)}
+    raise ValueError(cfg.family)
 
 
 def _attn_layers(p, cfg):
@@ -66,14 +81,23 @@ def _moe(lp, x, cfg):
 def decode_step(p, token, caches, pos, cfg: ArchConfig):
     """token (B, 1) int; pos (B,) int (unused by the ssm family).
     Returns (logits, caches)."""
-    TF.require_ported(cfg)
     x = TF._embed(p, token, cfg)
-    if cfg.family == "ssm":
-        x, st = _decode_ssm_stack(p, x, caches["ssm"], cfg)
-        new = {"ssm": st}
-    else:
+    if cfg.family in ("dense", "vlm", "moe"):
         x, kv = _decode_attn_stack(p, x, caches["kv"], pos, cfg)
         new = {"kv": kv}
+    elif cfg.family == "ssm":
+        x, st = _decode_ssm_stack(p, x, caches["ssm"], cfg)
+        new = {"ssm": st}
+    elif cfg.family == "hybrid":
+        x, st = _decode_hybrid_stack(p, x, caches["ssm"], caches["kv"], pos,
+                                     cfg)
+        new = {"ssm": st, "kv": caches["kv"]}
+    elif cfg.family == "encdec":
+        x = _decode_encdec_stack(p, x, caches["kv"], caches["cross"], pos,
+                                 cfg)
+        new = {"kv": caches["kv"], "cross": caches["cross"]}
+    else:
+        raise ValueError(cfg.family)
     x = TF._norm(cfg, p["ln_f"], x)
     return x @ TF.head_weight(p, cfg), new
 
@@ -95,6 +119,13 @@ def _decode_body(h, lp, ck, cv, *, cfg, pos, ffn=_mlp):
 
 
 def _decode_ssm_stack(p, x, st, cfg):
+    return _decode_hybrid_stack(p, x, st, None, None, cfg)
+
+
+def _decode_hybrid_stack(p, x, st, kv, pos, cfg):
+    """The mamba2 layers' decode steps; for the hybrid family the shared
+    block after every ``attn_every``-th layer, its j-th application on KV
+    cache j (written in place).  Returns (x, new SSM state)."""
     new = {k: [] for k in _SSM_KEYS}
     for i, lp in enumerate(p["layers"]):
         y, ns = mamba2.decode_step(lp["mixer"], TF._norm(cfg, lp["ln"], x),
@@ -102,7 +133,36 @@ def _decode_ssm_stack(p, x, st, cfg):
         x = x + y
         for k in _SSM_KEYS:
             new[k].append(ns[k])
+        if kv is not None and (i + 1) % cfg.attn_every == 0:
+            j = (i + 1) // cfg.attn_every - 1
+            x = _decode_body(x, p["shared_attn"], kv["k"][j], kv["v"][j],
+                             cfg=cfg, pos=pos)
     return x, {k: torch.stack(v) for k, v in new.items()}
+
+
+def _decode_encdec_stack(p, x, kv, cross, pos, cfg):
+    """Whisper's decoder layers: causal self-attention over the KV cache
+    (rows written in place), cross-attention over the static encoder
+    projection, MLP."""
+    for i, lp in enumerate(p["layers"]):
+        x = _decode_encdec_body(x, lp, kv["k"][i], kv["v"][i],
+                                cross["k"][i], cross["v"][i], cfg=cfg,
+                                pos=pos)
+    return x
+
+
+def _decode_encdec_body(h, lp, ck, cv, xk, xv, *, cfg, pos):
+    """One decoder layer of a decode step; writes its k/v rows into
+    ck/cv and reads the cross cache xk/xv."""
+    a, _ = attn.decode_attention(
+        lp["attn"], TF._norm(cfg, lp["ln1"], h), cfg, {"k": ck, "v": cv},
+        pos)
+    h = h + a
+    a, _ = attn.decode_attention(
+        lp["xattn"], TF._norm(cfg, lp["lnx"], h), cfg, {"k": xk, "v": xv},
+        pos, rope=False, cross=True)
+    h = h + a
+    return h + mlp.apply(lp["mlp"], TF._norm(cfg, lp["ln2"], h), cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -116,11 +176,12 @@ def prefill_with_cache(p, batch, cfg: ArchConfig, max_len: int):
     The attention families' prefill; the ssm family prefills through
     :func:`ssm_prefill`, as in the reference.
     """
-    TF.require_ported(cfg)
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
-            "SSM prefill runs the decode step over the prompt: "
-            "ssm_prefill (the serving runtime's path)")
+            "SSM prefill uses transformer.forward_logits + state return; "
+            "see serving runtime")
+    if cfg.family not in ("dense", "vlm", "moe"):
+        raise ValueError(cfg.family)
     tokens = batch["tokens"]
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)[None]
@@ -178,8 +239,7 @@ def prefill_with_prefix(p, tokens, prefix_kv, cfg: ArchConfig):
     gathered cached prefix (C may be 0).  Returns
     ``(logits (B, S, V), suffix kv (L, B, S, Hk, Dh))``.
     """
-    TF.require_ported(cfg)
-    if cfg.family == "ssm":
+    if cfg.family not in ("dense", "vlm", "moe"):
         raise NotImplementedError(
             f"prefix prefill is attention-family only, got {cfg.family}")
     s = tokens.shape[1]
@@ -204,11 +264,13 @@ def prefill_with_prefix(p, tokens, prefix_kv, cfg: ArchConfig):
 
 
 def ssm_prefill(p, tokens, caches, cfg: ArchConfig, start_pos=0):
-    """Prefill an SSM model by running the decode step token by token.
+    """Prefill an SSM or hybrid model by running the decode step token by
+    token.
 
     tokens (B, S); ``caches`` is a decode cache (possibly restored from a
     prefix snapshot covering positions ``< start_pos``).  Returns
-    ``(logits (B, S, V), final caches)``.
+    ``(logits (B, S, V), final caches)``; a hybrid model's KV caches are
+    written in place.
     """
     logits, caches, _ = _ssm_steps(p, tokens, caches, cfg, start_pos, False)
     return logits, caches
@@ -217,15 +279,16 @@ def ssm_prefill(p, tokens, caches, cfg: ArchConfig, start_pos=0):
 def ssm_prefill_states(p, tokens, caches, cfg: ArchConfig, start_pos=0):
     """:func:`ssm_prefill` that also returns every intermediate state.
 
-    Returns ``(logits (B, S, V), states)`` where every leaf of
-    ``states["ssm"]`` has a leading step axis of length S:
-    ``states["ssm"][key][i]`` is the cache after consuming
-    ``tokens[:, i]``.  Bit-identical to sequential ``decode_step`` by
-    construction.
+    Returns ``(logits (B, S, V), states)`` where every leaf of ``states``
+    has a leading step axis of length S: ``states[...][i]`` is the cache
+    after consuming ``tokens[:, i]`` (for the hybrid family its KV caches
+    too, copied after each step, as the reference's scan stacks them).
+    Bit-identical to sequential ``decode_step`` by construction.
     """
     logits, _, states = _ssm_steps(p, tokens, caches, cfg, start_pos, True)
-    return logits, {"ssm": {k: torch.stack([st["ssm"][k] for st in states])
-                            for k in _SSM_KEYS}}
+    return logits, {part: {k: torch.stack([st[part][k] for st in states])
+                           for k in states[0][part]}
+                    for part in states[0]}
 
 
 def _ssm_steps(p, tokens, caches, cfg, start_pos, keep):
@@ -235,5 +298,8 @@ def _ssm_steps(p, tokens, caches, cfg, start_pos, keep):
                                      start_pos + i, cfg)
         rows.append(logits[:, 0])
         if keep:
-            states.append(caches)
+            # the KV caches are written in place: keep a copy of each step's
+            states.append({part: {k: v.clone() if part == "kv" else v
+                                  for k, v in caches[part].items()}
+                           for part in caches})
     return torch.stack(rows, dim=1), caches, states

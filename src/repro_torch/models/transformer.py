@@ -1,21 +1,30 @@
-"""Model assembly for the dense, moe and ssm families.
+"""Model assembly for every architecture family.
 
 Families:
-  dense — decoder-only GQA transformer (llama3.2 / internlm2 / codeqwen /
-          qwen2.5),
-  moe   — dense attention + MoE FFN (deepseek-moe with leading dense
-          layers and shared experts; qwen3-moe with qk-norm),
-  ssm   — mamba2 SSD stack.
+  dense  — decoder-only GQA transformer (llama3.2 / internlm2 / codeqwen /
+           qwen2.5; also the llava backbone),
+  moe    — dense attention + MoE FFN (deepseek-moe with leading dense
+           layers and shared experts; qwen3-moe with qk-norm),
+  ssm    — mamba2 SSD stack,
+  hybrid — zamba2: mamba2 backbone + ONE shared attention+MLP block
+           applied after every `attn_every`-th layer, with the same
+           weights each time,
+  encdec — whisper: audio encoder (frontend stub: precomputed frames) +
+           causal text decoder with cross-attention,
+  vlm    — llava: vision stub (precomputed patch embeddings) + a 2-layer
+           bf16 projector + a mistral-style dense backbone.
 
 Parameters are a plain dict: ``embed`` (V_padded, D), ``ln_f``, an
 untied ``head`` where the config asks for one, ``layers``, a list of
 per-layer dicts, and for deepseek-moe ``dense_layers``, its leading
-dense-FFN layers (the reference stacks each on a leading axis and scans;
-here the stack is a Python loop).  The hybrid, encdec and vlm families
-raise, naming their ROADMAP item.  ``cfg.remat`` ``"full"`` or
-``"block"`` checkpoints each block (`torch.utils.checkpoint`) when the
-forward records a gradient; the reference's ``"block"`` policy (keep the
-matmul outputs) has no counterpart, so both recompute the whole block.
+dense-FFN layers, for whisper ``enc_layers`` (the reference stacks each
+on a leading axis and scans; here the stack is a Python loop); zamba2's
+``shared_attn`` and llava's ``mm_proj`` are single blocks.  An unknown
+family raises ``ValueError``, as in the reference.  ``cfg.remat``
+``"full"`` or ``"block"`` checkpoints each block
+(`torch.utils.checkpoint`) when the forward records a gradient; the
+reference's ``"block"`` policy (keep the matmul outputs) has no
+counterpart, so both recompute the whole block.
 """
 
 from __future__ import annotations
@@ -27,17 +36,6 @@ from repro_torch.models import attention as attn
 from repro_torch.models import common as C
 from repro_torch.models import losses, mamba2, mlp, moe
 from repro_torch.models.config import ArchConfig
-
-PORTED_FAMILIES = ("dense", "moe", "ssm")
-
-
-def require_ported(cfg: ArchConfig) -> None:
-    """Raise for a family the port does not run yet."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
-            "ROADMAP.md §1 item 10 (LLM stack)")
-
 
 def vocab_padded(cfg: ArchConfig) -> int:
     return -(-cfg.vocab // 256) * 256
@@ -65,9 +63,9 @@ def dense_block_init(gen, cfg):
             "ln2": _norm_init(cfg, gen.device), "mlp": mlp.init(gen, cfg)}
 
 
-def dense_block(p, x, cfg, positions):
+def dense_block(p, x, cfg, positions, *, causal=True, rope=True):
     h, _ = attn.attention(p["attn"], _norm(cfg, p["ln1"], x), cfg,
-                          positions=positions)
+                          positions=positions, causal=causal, rope=rope)
     x = x + h
     return x + mlp.apply(p["mlp"], _norm(cfg, p["ln2"], x), cfg)
 
@@ -93,6 +91,20 @@ def ssm_block(p, x, cfg):
     return x + mamba2.apply(p["mixer"], _norm(cfg, p["ln"], x), cfg)
 
 
+def shared_attn_block_init(gen, cfg):
+    """Zamba2's single shared transformer block (attn + MLP)."""
+    return dense_block_init(gen, cfg)
+
+
+def encdec_block_init(gen, cfg):
+    """A whisper decoder layer: causal self-attention, cross-attention
+    over the encoder output, MLP."""
+    dev = gen.device
+    return {"ln1": _norm_init(cfg, dev), "attn": attn.init(gen, cfg),
+            "lnx": _norm_init(cfg, dev), "xattn": attn.init(gen, cfg),
+            "ln2": _norm_init(cfg, dev), "mlp": mlp.init(gen, cfg)}
+
+
 def dense_cfg(cfg: ArchConfig) -> ArchConfig:
     """The config of deepseek-moe's leading dense-FFN layers."""
     return cfg.replace(d_ff=cfg.d_ff or 4 * cfg.d_model)
@@ -105,30 +117,49 @@ def dense_cfg(cfg: ArchConfig) -> ArchConfig:
 
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
     """Random parameters drawn from ``gen``, on ``gen.device``."""
-    require_ported(cfg)
     vp = vocab_padded(cfg)
+    dev = gen.device
     p: dict = {"embed": C.embed_init(gen, (vp, cfg.d_model)),
-               "ln_f": _norm_init(cfg, gen.device)}
+               "ln_f": _norm_init(cfg, dev)}
     if not cfg.tie_embeddings:
         p["head"] = C.dense_init(gen, (cfg.d_model, vp))
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         p["layers"] = [dense_block_init(gen, cfg)
                        for _ in range(cfg.n_layers)]
+        if cfg.family == "vlm":
+            # a plain bf16 projector: linear's default quant, as the
+            # reference's
+            p["mm_proj"] = {"fc1": C.linear_init(gen, cfg.d_vision,
+                                                 cfg.d_model),
+                            "fc2": C.linear_init(gen, cfg.d_model,
+                                                 cfg.d_model)}
     elif cfg.family == "moe":
         if cfg.first_dense:
             p["dense_layers"] = [dense_block_init(gen, dense_cfg(cfg))
                                  for _ in range(cfg.first_dense)]
         p["layers"] = [moe_block_init(gen, cfg)
                        for _ in range(cfg.n_layers - cfg.first_dense)]
-    else:
+    elif cfg.family in ("ssm", "hybrid"):
         p["layers"] = [ssm_block_init(gen, cfg)
                        for _ in range(cfg.n_layers)]
+        if cfg.family == "hybrid":
+            p["shared_attn"] = shared_attn_block_init(gen, cfg)
+    elif cfg.family == "encdec":
+        p["enc_pos"] = C.embed_init(gen, (cfg.enc_seq, cfg.d_model))
+        p["dec_pos"] = None   # the decoder uses rope, as the reference's
+        p["enc_layers"] = [dense_block_init(gen, cfg)
+                           for _ in range(cfg.enc_layers)]
+        p["ln_enc"] = _norm_init(cfg, dev)
+        p["layers"] = [encdec_block_init(gen, cfg)
+                       for _ in range(cfg.n_layers)]
+    else:
+        raise ValueError(cfg.family)
     return p
 
 
 #: the layer lists of a parameter dict (deepseek-moe's leading dense
-#: layers come first in the stack)
-LAYER_LISTS = ("dense_layers", "layers")
+#: layers come first in the stack; whisper's encoder layers)
+LAYER_LISTS = ("dense_layers", "enc_layers", "layers")
 
 
 def stack_layers(p) -> dict:
@@ -170,21 +201,27 @@ def _embed(p, tokens, cfg):
     return p["embed"][tokens].to(torch.bfloat16)
 
 
+def _runner(cfg):
+    """Call a block, under a checkpoint where ``cfg.remat`` asks for one
+    and the forward records a gradient."""
+    remat = cfg.remat != "none" and torch.is_grad_enabled()
+
+    def run(fn, lp, x, *args, **kw):
+        if remat:
+            return checkpoint(fn, lp, x, *args, use_reentrant=False, **kw)
+        return fn(lp, x, *args, **kw)
+
+    return run
+
+
 def backbone(p, x, cfg, positions):
     """Run the layer stack.  Returns (hidden, aux losses): the MoE
     layers' ``lb_loss`` and ``z_loss`` summed over layers, zero for the
     other families."""
-    require_ported(cfg)
-    remat = cfg.remat != "none" and torch.is_grad_enabled()
-
-    def run(fn, lp, x, *args):
-        if remat:
-            return checkpoint(fn, lp, x, *args, use_reentrant=False)
-        return fn(lp, x, *args)
-
+    run = _runner(cfg)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = {"lb_loss": zero, "z_loss": zero}
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         for lp in p["layers"]:
             x = run(dense_block, lp, x, cfg, positions)
     elif cfg.family == "moe":
@@ -193,22 +230,86 @@ def backbone(p, x, cfg, positions):
         for lp in p["layers"]:
             x, a = run(moe_block, lp, x, cfg, positions)
             aux = {k: aux[k] + a[k] for k in aux}
-    else:
-        for lp in p["layers"]:
+    elif cfg.family in ("ssm", "hybrid"):
+        for i, lp in enumerate(p["layers"]):
             x = run(ssm_block, lp, x, cfg)
+            if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
+                x = run(dense_block, p["shared_attn"], x, cfg, positions)
+    else:
+        raise ValueError(cfg.family)
     return x, aux
+
+
+def encode(p, frames, cfg):
+    """Whisper encoder over precomputed conv-frontend frames (stub input):
+    learned positions, non-causal blocks without rope, then ``ln_enc``."""
+    s = frames.shape[1]
+    x = frames.to(torch.bfloat16) + p["enc_pos"][None, :s]
+    positions = torch.arange(s, device=x.device)[None]
+    run = _runner(cfg)
+    for lp in p["enc_layers"]:
+        x = run(dense_block, lp, x, cfg, positions, causal=False,
+                rope=False)
+    return _norm(cfg, p["ln_enc"], x)
+
+
+def _encdec_block(lp, h, enc_out, cfg, positions):
+    a, _ = attn.attention(lp["attn"], _norm(cfg, lp["ln1"], h), cfg,
+                          positions=positions)
+    h = h + a
+    # cross-attention: kv from the encoder output
+    a, _ = attn.attention(lp["xattn"], _norm(cfg, lp["lnx"], h), cfg,
+                          positions=positions, causal=False, rope=False,
+                          kv_override=_xattn_kv(lp["xattn"], enc_out, cfg))
+    h = h + a
+    return h + mlp.apply(lp["mlp"], _norm(cfg, lp["ln2"], h), cfg)
+
+
+def decode_stack_encdec(p, x, enc_out, cfg, positions):
+    run = _runner(cfg)
+    for lp in p["layers"]:
+        x = run(_encdec_block, lp, x, enc_out, cfg, positions)
+    return x
+
+
+def _xattn_kv(pattn, enc_out, cfg):
+    """A decoder layer's cross-attention keys and values (B, T, Hk, Dh)
+    of the encoder output (no rope)."""
+    b, t, _ = enc_out.shape
+    hk, dh = cfg.n_kv, cfg.d_head
+    k = C.linear(pattn["wk"], enc_out, quant=cfg.quant).reshape(b, t, hk, dh)
+    v = C.linear(pattn["wv"], enc_out, quant=cfg.quant).reshape(b, t, hk, dh)
+    return k, v
+
+
+def project_patches(p, patches):
+    """llava's projector: fc2(gelu(fc1(patches))), bf16, no quantization."""
+    img = C.linear(p["mm_proj"]["fc1"], patches.to(torch.bfloat16))
+    return C.linear(p["mm_proj"]["fc2"],
+                    torch.nn.functional.gelu(img, approximate="tanh"))
 
 
 def forward_loss(p, batch, cfg):
     """Training forward -> (scalar loss, metrics).  ``batch`` holds
-    ``tokens`` and ``labels`` (B, S); the encdec and vlm families (frames,
-    patches) wait for ROADMAP.md §1 item 10."""
-    require_ported(cfg)
+    ``tokens`` and ``labels`` (B, S), and ``frames`` (B, T, D) for encdec
+    or ``patches`` (B, P, d_vision) for vlm."""
     tokens = batch["tokens"]
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)[None]
-    x = _embed(p, tokens, cfg)
-    x, aux = backbone(p, x, cfg, positions)
+    if cfg.family == "encdec":
+        enc_out = encode(p, batch["frames"], cfg)
+        x = decode_stack_encdec(p, _embed(p, tokens, cfg), enc_out, cfg,
+                                positions)
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = {"lb_loss": zero, "z_loss": zero}
+    elif cfg.family == "vlm":
+        img = project_patches(p, batch["patches"])
+        x = torch.cat([img, _embed(p, tokens, cfg)], dim=1)
+        positions = torch.arange(x.shape[1], device=x.device)[None]
+        x, aux = backbone(p, x, cfg, positions)
+        x = x[:, img.shape[1]:]          # the loss on text positions only
+    else:
+        x, aux = backbone(p, _embed(p, tokens, cfg), cfg, positions)
     x = _norm(cfg, p["ln_f"], x)
     loss, cnt = losses.chunked_xent(x, head_weight(p, cfg), batch["labels"],
                                     chunk=cfg.loss_chunk)
@@ -217,11 +318,16 @@ def forward_loss(p, batch, cfg):
 
 
 def forward_logits(p, batch, cfg):
-    """Prefill forward -> last-position logits (serving path)."""
+    """Prefill forward -> last-position logits (serving path).  The vlm
+    branch reads the tokens only, as the reference's does."""
     tokens = batch["tokens"]
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)[None]
     x = _embed(p, tokens, cfg)
-    x, _ = backbone(p, x, cfg, positions)
+    if cfg.family == "encdec":
+        enc_out = encode(p, batch["frames"], cfg)
+        x = decode_stack_encdec(p, x, enc_out, cfg, positions)
+    else:
+        x, _ = backbone(p, x, cfg, positions)
     x = _norm(cfg, p["ln_f"], x[:, -1:])
     return x @ head_weight(p, cfg)

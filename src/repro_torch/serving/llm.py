@@ -1,7 +1,7 @@
 """Autoregressive LLM serving: paged-state slot-resident executor.
 
-The port of the reference's `LLMExecutor` for the dense, moe and ssm
-families: a serving loop whose inner decode is one step for the whole
+The port of the reference's `LLMExecutor` for the dense, vlm (text
+only, as the reference serves it), moe and ssm families: a serving loop whose inner decode is one step for the whole
 slot batch, rebuilt on the paged-state subsystem
 (:mod:`repro_torch.serving.blocks`):
 
@@ -51,7 +51,7 @@ from repro_torch.serving.blocks import (BlockPool, KVPagedStore, OutOfBlocks,
                                         StatePagedStore, chain_hashes)
 from repro_torch.serving.executors import ExecutionReport, Executor
 
-_ATTN_FAMILIES = ("dense", "moe")
+_ATTN_FAMILIES = ("dense", "vlm", "moe")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,6 +90,18 @@ class PrefillResult:
     tokens_computed: int     # suffix tokens actually run (excl. padding)
 
 
+def check_family(cfg: ArchConfig) -> None:
+    """Raise for a family no executor serves: the reference's
+    `LLMExecutor` has no path for hybrid or encdec either (they run
+    through `transformer.forward_logits` and `decoding.decode_step`)."""
+    if cfg.family not in _ATTN_FAMILIES + ("ssm",):
+        raise NotImplementedError(
+            f"LLMExecutor serves {_ATTN_FAMILIES + ('ssm',)}, got "
+            f"family={cfg.family!r}: the reference has no serving executor "
+            "for it; run it through transformer.forward_logits and "
+            "decoding.decode_step")
+
+
 def _on_device(tree, dev):
     """A dict tree of arrays as tensors on ``dev``."""
     if isinstance(tree, dict):
@@ -115,11 +127,7 @@ class LLMExecutor(Executor):
     """
 
     def __init__(self, params, cfg: ArchConfig, scfg: ServerConfig):
-        if cfg.family not in _ATTN_FAMILIES + ("ssm",):
-            raise NotImplementedError(
-                f"LLMExecutor serves {_ATTN_FAMILIES + ('ssm',)} in the "
-                f"port, got family={cfg.family!r}: the others wait for "
-                "ROADMAP.md §1 item 10")
+        check_family(cfg)
         if scfg.max_len % scfg.block_size:
             raise ValueError(
                 f"max_len={scfg.max_len} must be a multiple of "

@@ -31,11 +31,10 @@ import numpy as np
 import torch
 
 from repro_torch.models import decoding as DEC
-from repro_torch.models import transformer as TF
 from repro_torch.models.config import ArchConfig
 from repro_torch.serving.blocks import (KVPagedStore, PagedSequenceManager,
                                         PrefixCache, StatePagedStore)
-from repro_torch.serving.llm import _bucket
+from repro_torch.serving.llm import _bucket, check_family
 
 _PROPOSE_FLOOR = 8     # pow2 bucket floor for the propose-scan length
 
@@ -45,7 +44,7 @@ class DraftWorker:
     draft parameters' device."""
 
     def __init__(self, params, cfg: ArchConfig, scfg, pool):
-        TF.require_ported(cfg)
+        check_family(cfg)
         self.params, self.cfg, self.scfg = params, cfg, scfg
         self.is_ssm = cfg.family == "ssm"
         self.device = params["embed"].device

@@ -60,7 +60,10 @@ class TrainLoopConfig:
 
 
 def _leaves(tree) -> list:
-    """A tree's tensors, dict keys in sorted order."""
+    """A tree's tensors, dict keys in sorted order; a None node holds
+    none (whisper's ``dec_pos``), as in a JAX pytree."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
@@ -71,6 +74,8 @@ def _leaves(tree) -> list:
 def _rebuild(template, it):
     """A tree shaped as ``template`` with its leaves from ``it`` in
     `_leaves`'s order."""
+    if template is None:
+        return None
     if isinstance(template, dict):
         built = {k: _rebuild(template[k], it) for k in sorted(template)}
         return {k: built[k] for k in template}

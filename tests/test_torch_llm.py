@@ -288,26 +288,35 @@ def test_validation_errors(model):
 
 
 def test_unported_surfaces_name_their_roadmap_item(model):
+    """Every reference architecture is ported: all ten configs load with
+    the reference's families; the executors serve vlm (text only, as the
+    reference's) and refuse hybrid and encdec, for which the reference
+    has no serving executor either."""
     _, _, p, cfg = model
-    with pytest.raises(NotImplementedError, match="item 10") as e:
-        configs.get("zamba2-2.7b")
-    assert "its family waits" in str(e.value)
-    for arch in ("whisper-medium", "llava-next-mistral-7b"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            configs.get(arch)
-    # the dense config files and the serving snapshot are ported
-    # (tests/test_torch_snapshot.py), and the moe and ssm families
-    # (tests/test_torch_moe.py, tests/test_torch_ssm.py)
-    for arch in ("internlm2-1.8b", "codeqwen1.5-7b", "qwen2.5-32b"):
-        assert configs.get(arch).family == "dense"
-    for arch, fam in (("deepseek-moe-16b", "moe"), ("qwen3-moe-30b-a3b",
-                                                    "moe"),
-                      ("mamba2-780m", "ssm")):
+    families = {"whisper-medium": "encdec", "mamba2-780m": "ssm",
+                "internlm2-1.8b": "dense", "llama3.2-1b": "dense",
+                "codeqwen1.5-7b": "dense", "qwen2.5-32b": "dense",
+                "deepseek-moe-16b": "moe", "qwen3-moe-30b-a3b": "moe",
+                "zamba2-2.7b": "hybrid", "llava-next-mistral-7b": "vlm"}
+    for arch, fam in families.items():
         assert configs.get(arch).family == fam
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TF.init_params(cfg.replace(family="hybrid"), torch.Generator())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        LLMExecutor(p, cfg.replace(family="hybrid"), ServerConfig())
+    assert len(configs.ARCH_IDS) == len(families)
+    with pytest.raises(ValueError, match="unknown architecture"):
+        configs.get("gpt-2")
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    hybrid = reduce_for_smoke(configs.get("zamba2-2.7b"))
+    assert "shared_attn" in TF.init_params(hybrid, gen)
+    with pytest.raises(ValueError):
+        TF.init_params(cfg.replace(family="rnn"), gen)
+    for fam in ("hybrid", "encdec"):
+        with pytest.raises(NotImplementedError,
+                           match="no serving executor") as e:
+            LLMExecutor(p, cfg.replace(family=fam), ServerConfig())
+        assert "item 10" not in str(e.value)
+    assert LLMExecutor(p, cfg.replace(family="vlm"),
+                       ServerConfig()).free_capacity() == \
+        ServerConfig().n_slots
     ex = LLMExecutor(p, cfg, ServerConfig())
     tree, meta = ex.snapshot()
     assert set(tree) == {"pos", "cur_tok", "rng_key", "pages"}

@@ -207,12 +207,38 @@ def test_remat_keeps_loss_and_gradients():
 
 
 def test_forward_loss_unported_families_name_item_10():
+    """The three families item 10 waited for run `forward_loss` (held
+    against the reference in tests/test_torch_{hybrid,encdec,vlm}.py):
+    each reduced config gives a finite loss on its own inputs; the vlm
+    family's dense backbone on the llama parameters gives the dense loss
+    when its image is empty, and an unknown family is refused."""
     _, _, cfg = _model("none")
     p = TF.unstack_layers(_port_params(_model("none")[0], cfg))
-    _, bt = _batch(cfg.vocab)
-    for fam in ("encdec", "vlm", "hybrid"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            TF.forward_loss(p, bt, cfg.replace(family=fam))
+    b, bt = _batch(cfg.vocab)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    for arch in ("zamba2-2.7b", "whisper-medium", "llava-next-mistral-7b"):
+        rcfg = reduce_for_smoke(configs.get(arch))
+        rng = np.random.default_rng(0)
+        batch = dict(bt)
+        if rcfg.family == "encdec":
+            batch["frames"] = torch.as_tensor(rng.normal(size=(
+                BATCH, rcfg.enc_seq, rcfg.d_model)), dtype=torch.float32)
+        if rcfg.family == "vlm":
+            batch["patches"] = torch.as_tensor(rng.normal(size=(
+                BATCH, rcfg.img_tokens, rcfg.d_vision)), dtype=torch.float32)
+        loss, m = TF.forward_loss(TF.init_params(rcfg, gen), batch, rcfg)
+        assert np.isfinite(float(loss)) and float(m["tokens"]) == SEQ * BATCH
+    vcfg = cfg.replace(family="vlm", d_vision=8)
+    vp = dict(p, mm_proj={"fc1": {"w": torch.zeros(8, cfg.d_model,
+                                                   dtype=torch.bfloat16)},
+                          "fc2": {"w": torch.zeros(cfg.d_model, cfg.d_model,
+                                                   dtype=torch.bfloat16)}})
+    loss, _ = TF.forward_loss(vp, dict(bt, patches=torch.zeros(BATCH, 0, 8)),
+                              vcfg)
+    assert torch.equal(loss, TF.forward_loss(p, bt, cfg)[0])
+    with pytest.raises(ValueError):
+        TF.forward_loss(p, bt, cfg.replace(family="rnn"))
 
 
 def test_synthetic_tokens_bit_identical():
@@ -335,6 +361,9 @@ def test_launch_train_cli(tmp_path, capsys):
     assert all(np.isfinite(r["loss"]) for r in res["history"])
     assert len(hist.read_text().splitlines()) == 3
     assert "final: step=2" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 10"):
-        launch_train.main(["--device", "cpu", "--arch", "whisper-medium",
-                           "--steps", "1"])
+    # the encdec family trains through the CLI (its frames drawn as the
+    # reference's: tests/test_torch_vlm.py)
+    res = launch_train.main(["--device", "cpu", "--arch", "whisper-medium",
+                             "--steps", "1", "--seq", "16", "--batch", "2"])
+    assert [r["step"] for r in res["history"]] == [0]
+    assert np.isfinite(res["history"][0]["loss"])

@@ -552,9 +552,15 @@ def test_spec_requires_paged_and_matching_vocab():
     with pytest.raises(ValueError, match="vocab"):
         SpecExecutor(p, cfg, ServerConfig(paged=True, **_KW), p,
                      cfg.replace(vocab=cfg.vocab + 1))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        SpecExecutor(p, cfg, ServerConfig(paged=True, **_KW), p,
-                     cfg.replace(family="hybrid"))
+    # the reference's spec executor has no hybrid or encdec path: a
+    # target or a draft of either family is refused up front
+    for fam in ("hybrid", "encdec"):
+        with pytest.raises(NotImplementedError, match="no serving executor"):
+            SpecExecutor(p, cfg, ServerConfig(paged=True, **_KW), p,
+                         cfg.replace(family=fam))
+        with pytest.raises(NotImplementedError, match="no serving executor"):
+            SpecExecutor(p, cfg.replace(family=fam),
+                         ServerConfig(paged=True, **_KW), p, cfg)
     ex = SpecExecutor(p, cfg, ServerConfig(paged=True, **_KW), p, cfg)
     with pytest.raises(NotImplementedError, match="snapshot"):
         ex.snapshot()
