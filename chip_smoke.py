@@ -59,6 +59,18 @@ Phases, each of which fails the script (no result line) when it fails:
    The compiled residual and pad_to programs of
    benchmarks/backend_parity.py and tests/test_compiler.py's
    nonconforming graph follow on every backend, held the same way.
+   Then the CNN mesh (`mesh_path`): the same program and input, and a
+   full-width uniform trunk (8 seeded layers 128 -> 128 at 32 x 32, batch
+   64), through `CutiePipeline(mesh=)` in ranks this script starts as
+   processes of its own (``--mesh-rank``): ``data:1`` in a world of 1 on
+   NCCL, then ``data:2,filter:2``, ``filter:4`` and (the trunk)
+   ``layer:4`` with 8 microbatches in a world of 4 on gloo, every rank on
+   the one card and the packed bytes staged through the host; on
+   ``cuda`` and ``packed``, packed and dense wires.  Every rank's output
+   must equal the unmeshed run on its backend bit for bit, and its
+   launches of kernels 1/2, 4 and 5 must follow `mesh_launches`; each
+   case's collective bytes (dense, packed) and run ms (ranks sharing
+   one card: no scaling figure) are printed.
    Then the second main path, LLM serving: llama3.2-1B at full width and
    depth with ``quant="ternary_packed"``, seeded random weights on the
    card, 8 requests of 40 tokens (a shared 32-token prefix + 8 distinct)
@@ -1252,6 +1264,270 @@ def compiled_programs(torch, K, FT, P, compiler) -> None:
             f"{[li.padding for li in pipe.program.layers]}, pools "
             f"{[li.pool for li in pipe.program.layers]}")
         every_backend(torch, K, FT, P, pipe.compile_result, x, None, name)
+
+
+# -- phase 4: the CNN mesh ------------------------------------------------------
+
+# The mesh path (`mesh_path`): the CIFAR-10 program with its head (phase
+# 4's compiled program and its batch-64 input from kernel 6) and a
+# full-width uniform trunk (MESH_TRUNK_LAYERS seeded layers 128 -> 128 at
+# 32 x 32, batch 64) through `CutiePipeline(mesh=)`, in ranks this script
+# starts as processes of its own (``--mesh-rank``), one per mesh position.
+# World 1 runs on NCCL; world 4 on gloo with every rank on the one card
+# (NCCL refuses two ranks on one device), so the exchanged bytes are
+# copied through the host and the compute stays on the card.  Each case:
+# (program, mesh, backend, packed collectives, microbatches).
+MESH_WORLDS = {1: "nccl", 4: "gloo"}
+MESH_CASES = {
+    1: [("cifar", "data:1", "cuda", True, None),
+        ("cifar", "data:1", "packed", True, None)],
+    4: [("cifar", "data:2,filter:2", "cuda", True, None),
+        ("cifar", "data:2,filter:2", "packed", True, None),
+        ("cifar", "filter:4", "cuda", True, None),
+        ("cifar", "filter:4", "cuda", False, None),
+        ("cifar", "filter:4", "packed", True, None),
+        ("trunk", "layer:4", "cuda", True, 8),
+        ("trunk", "layer:4", "cuda", False, 8),
+        ("trunk", "layer:4", "packed", True, 8)],
+}
+MESH_TRUNK_LAYERS, MESH_REPS, MESH_TIMEOUT_S = 8, 3, 300
+
+
+def _export_program(prog, arrays: dict, name: str) -> dict:
+    """A program's arrays into ``arrays`` under ``name/<layer>/<field>``;
+    returns its layer metadata and instance."""
+    import dataclasses
+    layers = []
+    for i, li in enumerate(prog.layers):
+        arrays[f"{name}/{i}/weights"] = li.weights.cpu().numpy()
+        for f in ("t_lo", "t_hi", "flip", "const", "is_const"):
+            arrays[f"{name}/{i}/{f}"] = getattr(li.thresholds, f).cpu().numpy()
+        layers.append({"stride": list(li.stride), "padding": li.padding,
+                       "pool": None if li.pool is None else list(li.pool)})
+    return {"layers": layers,
+            "instance": dataclasses.asdict(prog.instance)}
+
+
+def _import_program(convert, z, name: str, meta: dict):
+    layers = []
+    for i, lm in enumerate(meta["layers"]):
+        layer = {f: z[f"{name}/{i}/{f}"] for f in (
+            "weights", "t_lo", "t_hi", "flip", "const", "is_const")}
+        layer.update(stride=tuple(lm["stride"]), padding=lm["padding"],
+                     pool=None if lm["pool"] is None else tuple(lm["pool"]))
+        layers.append(layer)
+    return convert.program_from_numpy(layers, meta["instance"], device=DEVICE)
+
+
+def mesh_launches(prog, spec: str, packed: bool, microbatches) -> dict:
+    """Kernel launches one rank makes in one meshed run: one conv launch
+    per layer (per layer of its stage and ring step on a layer mesh), and
+    one pack (kernel 4) and one unpack (kernel 5) per exchange of packed
+    activations: per layer between filter shards, per ring step."""
+    from repro_torch.launch.cutie_mesh import MeshSpec
+
+    mesh = MeshSpec.parse(spec)
+    f, s = mesh.filter, mesh.layer
+    n = len(prog.layers)
+    if s > 1:
+        steps = microbatches + s - 1
+        conv, codec = steps * n // s, steps if packed else 0
+    else:
+        conv, codec = n, n if (f > 1 and packed) else 0
+    return {"conv": conv, "pack_trits": codec, "unpack_trits": codec}
+
+
+def _mesh_world(world: int, backend: str, root: str) -> list:
+    """Start ``world`` ranks of this script (``--mesh-rank``), wait for
+    all of them, and return each rank's results; a rank that fails or
+    outlives MESH_TIMEOUT_S fails the path after every rank is stopped."""
+    procs = []
+    for r in range(world):
+        err = open(os.path.join(root, f"w{world}r{r}.err"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+             str(r), str(world), backend, root],
+            stdout=err, stderr=subprocess.STDOUT), err))
+    deadline = time.monotonic() + MESH_TIMEOUT_S + 60
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, err in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            err.close()
+    bad = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
+    if bad:
+        with open(os.path.join(root, f"w{world}r{bad[0]}.err")) as f:
+            tail = f.read()[-3000:]
+        raise RuntimeError(f"mesh world {world} ({backend}): ranks {bad} "
+                           f"failed; rank {bad[0]}'s output:\n{tail}")
+    out = []
+    for r in range(world):
+        with open(os.path.join(root, f"w{world}r{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def mesh_path(torch, P, engine, mp, card: str) -> dict:
+    """The CNN mesh on the card: each case of MESH_CASES run by every rank
+    of its world through `CutiePipeline(mesh=)` must return the unmeshed
+    run's trits on the same backend, bit for bit, on every rank, with the
+    kernel launches of `mesh_launches` per rank; the unmeshed ``cuda`` and
+    ``packed`` runs must agree.  Prints each case's per-rank launches,
+    its collective bytes (dense and packed) and its run ms (the slowest
+    rank's median; 4 ranks share one card, so it is no scaling figure).
+    Returns the launches summed over ranks and the cases."""
+    rng = np.random.default_rng(SEED + 11)
+    c = CIFAR_WIDTH
+    trunk = engine.CutieProgram(
+        [engine.compile_layer(torch.as_tensor(_w(rng, (3, 3, c, c)),
+                                              device=DEVICE), _bn(rng, c))
+         for _ in range(MESH_TRUNK_LAYERS)], engine.CutieInstance())
+    xt = torch.as_tensor(rng.integers(-1, 2, (BATCH, CIFAR_HW, CIFAR_HW, c)),
+                         dtype=torch.int8, device=DEVICE)
+    progs = {"cifar": (mp["compiled"], mp["x"]), "trunk": (trunk, xt)}
+    arrays, meta = {}, {}
+    for name, (prog, x) in progs.items():
+        meta[name] = _export_program(prog, arrays, name)
+        arrays[f"{name}/x"] = x.cpu().numpy()
+        ys = {be: P.CutiePipeline(prog, backend=be, device=DEVICE).run(x)
+              for be in ("cuda", "packed")}
+        if not torch.equal(ys["cuda"], ys["packed"]):
+            raise RuntimeError(f"mesh path: unmeshed {name} differs between "
+                               "cuda and packed")
+        for be, y in ys.items():
+            arrays[f"{name}/y/{be}"] = y.cpu().numpy()
+    totals: dict = {}
+    cases = []
+    with tempfile.TemporaryDirectory() as root:
+        np.savez(os.path.join(root, "mesh.npz"), **arrays)
+        with open(os.path.join(root, "mesh.json"), "w") as f:
+            json.dump(meta, f)
+        for world, backend in MESH_WORLDS.items():
+            t0 = time.perf_counter()
+            ranks = _mesh_world(world, backend, root)
+            wall = time.perf_counter() - t0
+            for i, case in enumerate(MESH_CASES[world]):
+                name, spec, be, packed, mb = case
+                got = [r[i] for r in ranks]
+                want = mesh_launches(progs[name][0], spec, packed, mb)
+                if DEVICE != "cuda":
+                    want = dict.fromkeys(want, 0)
+                conv_key = ("ternary_conv2d" if be == "cuda"
+                            else "ternary_conv2d_packed")
+                for rank, g in enumerate(got):
+                    if not g["same"]:
+                        raise RuntimeError(
+                            f"mesh {spec} {name} on {be} (rank {rank}): "
+                            f"output differs from the unmeshed run")
+                    seen = {"conv": g["launches"][conv_key],
+                            "pack_trits": g["launches"]["pack_trits"],
+                            "unpack_trits": g["launches"]["unpack_trits"]}
+                    other = [k for k in ("ternary_conv2d",
+                                         "ternary_conv2d_packed")
+                             if k != conv_key and g["launches"][k]]
+                    if seen != want or other or g["launches"]["fused_trunk"]:
+                        raise RuntimeError(
+                            f"mesh {spec} {name} on {be} (rank {rank}): "
+                            f"launches {g['launches']}, want {want}")
+                    _add_counts(totals, {k: v for k, v in g["launches"].items()
+                                         if k != "thermometer"})
+                ms = max(g["ms"] for g in got)
+                wire = got[0]["plan"]["wire"]
+                nb = got[0]["bytes"]
+                log(f"phase 4: mesh {spec} {name} (batch {BATCH}) on {be!r}, "
+                    f"{'packed' if packed else 'dense'} collectives over "
+                    f"{wire!r} (world {world}, mode "
+                    f"{got[0]['plan']['mode']}"
+                    + (f", {mb} microbatches, bubble "
+                       f"{got[0]['plan']['pipeline']['bubble_fraction']!r}"
+                       if mb else "")
+                    + f"): every rank's output bit-identical to the unmeshed "
+                    f"{be} run; per-rank launches conv {want['conv']}, "
+                    f"kernel 4 {want['pack_trits']}, kernel 5 "
+                    f"{want['unpack_trits']} (as mesh_launches); collective "
+                    f"bytes per rank dense {nb['dense']} packed "
+                    f"{nb['packed']} on the wire {nb['on_wire']}"
+                    + (f" + layer sum {nb['reduce']}" if "reduce" in nb
+                       else "")
+                    + f"; run ms (slowest rank's median of {MESH_REPS}, "
+                    f"{world} ranks sharing one card, not a scaling figure) "
+                    f"{ms!r}; {card}")
+                cases.append({"world": world, "case": case, "ms": ms,
+                              "bytes": nb, "wire": wire})
+            log(f"phase 4: mesh world {world} on {backend}: {len(ranks)} "
+                f"ranks, {wall!r} s wall with their start; {card}")
+    return {"launches": totals, "cases": cases}
+
+
+def mesh_rank_main(rank: int, world: int, backend: str, root: str) -> int:
+    """``--mesh-rank R WORLD BACKEND DIR``: one rank of the mesh path.
+    Joins the process group (``file://DIR/pg<WORLD>``), rebuilds the
+    programs of ``DIR/mesh.npz`` on the card, runs its world's cases and
+    writes per case the equality with the unmeshed run, the launches of
+    one run, the median ms of MESH_REPS more and the collective bytes to
+    ``DIR/w<WORLD>r<R>.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import convert
+    from repro_torch import pipeline as P
+    from repro_torch.kernels import fused_trunk as FT
+    from repro_torch.kernels import ternary_conv2d as K
+    from repro_torch.kernels import trit_codec as TC
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        backend, init_method=f"file://{os.path.join(root, f'pg{world}')}",
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        with open(os.path.join(root, "mesh.json")) as f:
+            meta = json.load(f)
+        with np.load(os.path.join(root, "mesh.npz")) as z:
+            progs = {name: (_import_program(convert, z, name, m),
+                            torch.as_tensor(z[f"{name}/x"], device=DEVICE),
+                            {be: torch.as_tensor(z[f"{name}/y/{be}"])
+                             for be in ("cuda", "packed")})
+                     for name, m in meta.items()}
+        out = []
+        for name, spec, be, packed, mb in MESH_CASES[world]:
+            prog, x, want = progs[name]
+            pipe = P.CutiePipeline(prog, backend=be, device=DEVICE, mesh=spec,
+                                   packed_collectives=packed,
+                                   microbatches=mb)
+            reset_launches(K, FT, TC)
+            y = pipe.run(x)
+            torch.cuda.synchronize()
+            launches = _launch_counts(K, FT, TC)
+            same = torch.equal(y.cpu(), want[be])
+            ts = []
+            for _ in range(MESH_REPS):
+                dist.barrier()
+                t0 = time.perf_counter()
+                pipe.run(x)
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            plan = pipe.execution_plan()
+            out.append({"same": same, "launches": launches,
+                        "ms": float(np.median(ts)),
+                        "bytes": pipe._sharded.collective_bytes(
+                            tuple(x.shape)),
+                        "plan": {k: plan.get(k) for k in (
+                            "mode", "wire", "collectives", "pipeline")}})
+        with open(os.path.join(root, f"w{world}r{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
 
 
 def _trunk_operands(torch, layers):
@@ -4743,6 +5019,8 @@ def main() -> int:
     compare_matmul_kernels(torch, MM, worst)
     mp = main_path(torch, K, FT, TC, ops, engine, thermometer, compiler, P)
     compiled_programs(torch, K, FT, P, compiler)
+    mesh = mesh_path(torch, P, engine, mp, card)
+    _add_counts(mp["launches"], mesh["launches"])
     llm = llm_main_path(torch, MM, TC, S, TF, DEC, C, codec, configs)
     restart_path(torch, TC, S, llm)
     spec_path(torch, MM, TC, S, TF, DEC, codec, llm, card)
@@ -4794,4 +5072,7 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--restore"]:
         sys.exit(restore_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                                sys.argv[4], sys.argv[5]))
     sys.exit(main())

@@ -1,5 +1,6 @@
 """CUTIE execution on PyTorch: run -> measure over pluggable backends."""
 
+from repro_torch.launch.cutie_mesh import MeshSpec
 from repro_torch.pipeline.backends import (Backend, CudaBackend,
                                            FusedBackend, PackedBackend,
                                            RefBackend, available_backends,
@@ -12,5 +13,6 @@ __all__ = [
     "Backend", "RefBackend", "CudaBackend", "PackedBackend", "FusedBackend",
     "available_backends", "get_backend",
     "CutiePipeline", "layer_out_shape", "program_shapes",
+    "MeshSpec",
     "Tracer", "StatsTracer", "SwitchingTracer",
 ]

@@ -20,6 +20,16 @@ Tracers with ``kernel_stats`` take their counts from the kernels
 themselves (``emit_stats``), so a traced run launches the same kernels
 and reads back one (3,) int32 row per layer; a tracer without it makes
 even ``fused`` run layer by layer.
+
+Multi-device execution is a constructor knob: ``mesh=`` accepts a
+:class:`repro_torch.launch.cutie_mesh.MeshSpec` (or any spelling its
+``parse`` takes: ``8``, ``"data:4,filter:2"``, ``"layer:4"``, a
+``DeviceMesh``) and runs the program over the ranks of the process group
+the caller initialized, one rank per mesh position: data-parallel over
+the batch, filter-parallel over each layer's output channels, or
+pipeline-parallel over the layers, bit-identical to unsharded execution.
+Batch sizes and channel counts that do not divide the mesh are padded in
+and cropped back out.
 """
 
 from __future__ import annotations
@@ -59,18 +69,48 @@ class CutiePipeline:
 
     def __init__(self, program: engine.CutieProgram,
                  backend: str | B.Backend | None = None, device=None, *,
-                 mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= execution is not ported yet: see ROADMAP.md, "
-                "'Modules still to port', item 9 (launch/cutie_mesh.py on "
-                "torch.distributed)")
+                 mesh=None, packed_collectives: bool = True,
+                 microbatches: int | None = None):
         program.validate()
         self.program = program
         self.device = resolve_device(device)
         self.backend = B.get_backend(backend)
-        self._lowered = [self.backend.lower(i, self.device)
-                         for i in program.layers]
+        self.mesh_spec = None
+        self._sharded = None
+        self.scannable = False
+        if mesh is not None:
+            from repro_torch.launch import cutie_mesh
+
+            self.mesh_spec = cutie_mesh.MeshSpec.parse(mesh)
+            if hasattr(self.backend, "build_program"):
+                # mesh execution is per layer; the program-level build
+                # (fused trunk kernels) is dropped on a mesh, as the
+                # reference drops it: execution_plan() names the path
+                import warnings
+
+                warnings.warn(
+                    f"backend {self.backend.name!r} builds whole-program "
+                    "trunk kernels, but mesh= execution is per layer: the "
+                    "program-level build is dropped on this mesh (fused "
+                    "trunks do not shard yet; inter-layer collectives stay "
+                    "5-trits/byte packed). Check pipe.execution_plan() for "
+                    "the chosen path.", UserWarning, stacklevel=2)
+            if self.mesh_spec.layer > 1:
+                self._sharded = cutie_mesh.PipelinedExecution(
+                    program, self.backend, self.mesh_spec, self.device,
+                    microbatches=microbatches, packed=packed_collectives)
+            else:
+                self._sharded = cutie_mesh.ShardedExecution(
+                    program, self.backend, self.mesh_spec, self.device,
+                    packed=packed_collectives)
+            self.scannable = self._sharded.scannable
+            self._lowered = self._sharded.lowered
+        elif microbatches is not None:
+            raise ValueError("microbatches= only applies to pipeline-"
+                             "parallel meshes (mesh=\"layer:N\")")
+        else:
+            self._lowered = [self.backend.lower(i, self.device)
+                             for i in program.layers]
         self._programs: dict[tuple, object] = {}   # built program fns
         self._variants: set[tuple] = set()         # (input shape, traced)
 
@@ -78,7 +118,9 @@ class CutiePipeline:
     def compile(cls, source, *,
                 instance: engine.CutieInstance = engine.GF22_SCM,
                 backend: str | B.Backend | None = None, device=None,
-                mesh=None, **compiler_options) -> "CutiePipeline":
+                mesh=None, packed_collectives: bool = True,
+                microbatches: int | None = None, **compiler_options
+                ) -> "CutiePipeline":
         """Compile a network straight into a pipeline on ``device``.
 
         ``source`` is a :class:`repro_torch.compiler.Graph`, legalized,
@@ -87,16 +129,20 @@ class CutiePipeline:
         ``(w_float, bn_dict[, opts])`` tuples where ``opts`` are keyword
         arguments of :func:`repro_torch.core.engine.compile_layer`.
         ``compiler_options`` (e.g. ``optimize=False``, ``pad_to=128``)
-        apply to a graph only.
+        apply to a graph only; ``mesh``, ``packed_collectives`` and
+        ``microbatches`` bind the pipeline to a mesh as the constructor
+        does.
         """
         from repro_torch import compiler
 
+        mesh_kw = dict(mesh=mesh, packed_collectives=packed_collectives,
+                       microbatches=microbatches)
         if isinstance(source, compiler.Graph):
             result = compiler.compile_graph(source, instance=instance,
                                             device=device,
                                             **compiler_options)
             pipe = cls(result.program, backend=backend, device=device,
-                       mesh=mesh)
+                       **mesh_kw)
             pipe.compile_result = result
             return pipe
         if compiler_options:
@@ -109,7 +155,7 @@ class CutiePipeline:
             instrs.append(engine.compile_layer(
                 w, bn, device=device, **(rest[0] if rest else {})))
         return cls(engine.CutieProgram(instrs, instance), backend=backend,
-                   device=device, mesh=mesh)
+                   device=device, **mesh_kw)
 
     # -- introspection ------------------------------------------------------
 
@@ -123,9 +169,14 @@ class CutiePipeline:
 
     @property
     def batch_quantum(self) -> int:
-        """Executed batches are padded to a multiple of this: 1, since
-        the port runs on one device."""
-        return 1
+        """Executed batches are padded to a multiple of this: the
+        data-parallel degree, times the microbatch count on
+        pipeline-parallel meshes (each data shard must split into whole
+        microbatches).  1 when unsharded."""
+        if self.mesh_spec is None:
+            return 1
+        return self.mesh_spec.data * getattr(self._sharded,
+                                             "microbatches", 1)
 
     @property
     def n_jit_variants(self) -> int:
@@ -142,20 +193,44 @@ class CutiePipeline:
                        ) -> dict:
         """How this pipeline will execute a run.
 
-        ``mode`` is ``"program"`` (the backend's whole-program build: one
-        trunk-kernel launch per fused segment) or ``"per-layer"`` (one
-        kernel launch per layer).  ``fallback`` is ``"tracer"`` when a
-        tracer without a kernel-side mode drops a program-level backend
-        to per-layer execution, else None.  With ``in_shape`` and a
-        backend that plans trunks, ``segments`` lists each segment's
-        layer range, whether it is fused, its priced L2 residency
-        (``l2_bytes``, the port's name for the reference's
+        ``mode`` is ``"sharded-per-layer"`` (a data/filter mesh, layer by
+        layer with inter-layer collectives), ``"sharded-pipeline"`` (a
+        layer mesh: one trunk stage per rank on a ring), ``"program"``
+        (the backend's whole-program build: one trunk-kernel launch per
+        fused segment) or ``"per-layer"`` (one kernel launch per layer).
+        ``fallback`` is ``"mesh"`` when a program-level backend drops to
+        per-layer execution on a data/filter mesh (a layer mesh runs its
+        stages layer by layer on every backend), ``"tracer"`` when a tracer
+        without a kernel-side mode drops it, else None.  A meshed plan
+        also carries ``collectives`` (``"packed"`` or ``"dense"``),
+        ``wire`` (the process group's backend, ``"nccl"``, or ``"gloo,
+        host-staged"`` for card tensors copied through the host) and, on
+        a layer mesh, ``pipeline`` (the schedule's accounting).  With
+        ``in_shape`` and a backend that plans trunks, ``segments`` lists
+        each segment's layer range, whether it is fused, its priced L2
+        residency (``l2_bytes``, the port's name for the reference's
         ``vmem_bytes``) and the planner's reason.
         """
         has_program = hasattr(self.backend, "build_program")
         kernel_stats = tracer is not None and tracer.kernel_stats
         fallback = None
-        if has_program and (tracer is None or kernel_stats):
+        if self._sharded is not None:
+            wire = "5-trits/byte packed" if self._sharded.packed else "dense"
+            if self.mesh_spec.layer > 1:
+                mode = "sharded-pipeline"
+                reason = (f"layer mesh axis: one trunk stage per rank, "
+                          f"microbatches streamed through a send/recv "
+                          f"ring ({wire} activations)")
+            else:
+                mode = "sharded-per-layer"
+                reason = (f"mesh= requested; per-layer execution with "
+                          f"{wire} inter-layer collectives")
+                if has_program:
+                    fallback = "mesh"
+                    reason += ("; the backend's program-level build (fused "
+                               "trunk kernels) is dropped: fused trunks do "
+                               "not shard yet")
+        elif has_program and (tracer is None or kernel_stats):
             mode = "program"
             reason = (f"backend {self.backend_name!r} provides "
                       "build_program (one trunk-kernel launch per fused "
@@ -175,8 +250,16 @@ class CutiePipeline:
                           "kernel-side mode (kernel_stats=False); the "
                           f"program-level build is dropped: {reason}")
         plan = {"mode": mode, "backend": self.backend_name,
-                "device": str(self.device), "mesh": None,
-                "scannable": False, "reason": reason, "fallback": fallback}
+                "device": str(self.device),
+                "mesh": str(self.mesh_spec) if self.mesh_spec else None,
+                "scannable": self.scannable, "reason": reason,
+                "fallback": fallback}
+        if self._sharded is not None:
+            plan["collectives"] = ("packed" if self._sharded.packed
+                                   else "dense")
+            plan["wire"] = self._sharded.wire.name
+            if hasattr(self._sharded, "schedule_stats"):
+                plan["pipeline"] = self._sharded.schedule_stats()
         if in_shape is not None and hasattr(self.backend, "plan"):
             plan["segments"] = [
                 {"start": s.start, "stop": s.stop, "fused": s.fused,
@@ -185,8 +268,10 @@ class CutiePipeline:
         return plan
 
     def __repr__(self) -> str:
+        mesh = f", mesh={self.mesh_spec}" if self.mesh_spec else ""
         return (f"CutiePipeline(layers={self.n_layers}, "
-                f"backend={self.backend_name!r}, device={self.device})")
+                f"backend={self.backend_name!r}, device={self.device}"
+                f"{mesh})")
 
     # -- execution ----------------------------------------------------------
 
@@ -213,6 +298,16 @@ class CutiePipeline:
         if x.dim() != 4:
             raise ValueError(f"expected (N, H, W, C) trits, got "
                              f"{tuple(x.shape)}")
+        if self._sharded is not None:
+            if tracer is not None:
+                raise NotImplementedError(
+                    "tracers are not supported on meshed pipelines yet; "
+                    "run an unsharded pipeline for stats/energy tracing")
+            self._sharded.wire.check_shape(x.shape)
+            n = x.shape[0]
+            x = self._sharded.pad_inputs(x)
+            self._variants.add((tuple(x.shape), False))
+            return self._sharded.crop(self._sharded.run(x), n)
         self._variants.add((tuple(x.shape), tracer is not None))
         fn = self._program(x.shape, tracer)
         if fn is not None:

@@ -15,10 +15,9 @@ and the engine's recovery policy (`FaultPolicy`), while
 :mod:`repro_torch.serving.snapshot` checkpoints the whole serving state
 so a killed engine resumes in-flight decodes bit-identically.
 :mod:`repro_torch.serving.spec` (`SpecExecutor`) is speculative decoding
-over the same paged state.
-
-Not ported yet, raising where it would be reached: ``mesh=`` execution
-(ROADMAP.md §1 item 9).
+over the same paged state.  ``register(..., mesh=)`` serves a compiled
+CNN program sharded over the ranks of a process group
+(`repro_torch.launch.cutie_mesh`).
 """
 
 from repro_torch.serving.blocks import (BlockPool, KVPagedStore,  # noqa: F401

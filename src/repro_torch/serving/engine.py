@@ -900,9 +900,19 @@ class CutieEngine:
         per_device_occupancy = {
             model: [float(v) for v in np.mean(rows, axis=0)]
             for model, rows in per_dev.items()}
-        # mesh topology per meshed model: mesh= execution waits for
-        # ROADMAP.md §1 item 9, so no model is meshed and this stays empty
-        sharding: dict = {}
+        # mesh topology per meshed model; pipeline-parallel (layer)
+        # models additionally report their static GPipe schedule —
+        # per-stage occupancy and bubble fraction
+        sharding = {}
+        for name, ex in self.registry.items():
+            if not isinstance(ex, ProgramExecutor) or ex.mesh_spec is None:
+                continue
+            sharding[name] = {
+                "data": ex.mesh_spec.data, "filter": ex.mesh_spec.filter,
+                "layer": ex.mesh_spec.layer,
+                "devices": ex.mesh_spec.n_devices}
+            if ex.pipeline_schedule is not None:
+                sharding[name]["pipeline"] = ex.pipeline_schedule
         # executor-specific accounting (paged-state block/prefix counters
         # from LLM executors ride in here; see Executor.extra_stats)
         paged_state = {name: s for name, s in

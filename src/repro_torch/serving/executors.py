@@ -117,23 +117,43 @@ class ProgramExecutor(Executor):
     additionally prices each batch with the calibrated energy model
     (per-inference switching energy, padding slots included).
 
-    ``mesh=`` (multi-device execution) is not ported yet and raises.
+    ``mesh``: a mesh spec (see
+    :class:`repro_torch.launch.cutie_mesh.MeshSpec`) for multi-device
+    execution over the ranks of an initialized process group.  The
+    pipeline is rebound onto the mesh (unless it is already meshed), and
+    every bucket is rounded up to a multiple of the pipeline's batch
+    quantum so each executed batch splits evenly across ranks;
+    per-device occupancy rides back on the ExecutionReport for
+    ``engine.stats()``.  Every rank runs its own engine on the same
+    requests, in the same order.
     """
 
     def __init__(self, pipeline, *, buckets: Optional[Sequence[int]] = None,
                  head: Optional[Callable] = None, tracer=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ProgramExecutor(mesh=...) is not ported yet: see "
-                "ROADMAP.md, 'Modules still to port', item 9 "
-                "(launch/cutie_mesh.py on torch.distributed)")
+        if mesh is not None and getattr(pipeline, "mesh_spec", None) is None:
+            from repro_torch.pipeline import CutiePipeline
+
+            pipeline = CutiePipeline(pipeline.program,
+                                     backend=pipeline.backend,
+                                     device=pipeline.device, mesh=mesh)
         self.pipeline = pipeline
-        self.data_parallel = 1                   # one device: no mesh
+        self.mesh_spec = getattr(pipeline, "mesh_spec", None)
+        if self.mesh_spec is not None and tracer is not None:
+            # fail at registration, not inside a later batch that would
+            # take down its batchmates (see validate()'s contract)
+            raise NotImplementedError(
+                "tracers are not supported on meshed pipelines yet; "
+                "register without mesh= to trace stats/energy")
+        self.data_parallel = self.mesh_spec.data if self.mesh_spec else 1
         buckets = tuple(sorted(set(buckets or DEFAULT_BUCKETS)))
         if not buckets or buckets[0] < 1:
             raise ValueError(f"buckets must be positive ints, "
                              f"got {buckets}")
-        self.buckets = buckets
+        # round buckets so every executed batch splits evenly across the
+        # mesh: the data-parallel degree, times the microbatch count on
+        # pipeline-parallel (layer) meshes
+        dp = getattr(pipeline, "batch_quantum", 1) or 1
+        self.buckets = tuple(sorted({-(-b // dp) * dp for b in buckets}))
         self.head = head
         self.tracer = tracer
         self._shape: Optional[tuple] = None      # (H, W, C), set on first submit
@@ -204,7 +224,28 @@ class ProgramExecutor(Executor):
              else feats[i])
             for i, req in enumerate(requests)]
         return ExecutionReport(completions, live, size, rows=rows,
-                               energy_uj=self._price(rows))
+                               energy_uj=self._price(rows),
+                               per_device_live=self._per_device_live(live,
+                                                                     size))
+
+    @property
+    def pipeline_schedule(self) -> Optional[dict]:
+        """Static pipeline-parallel schedule accounting (stage count,
+        per-stage occupancy, bubble fraction) for layer-sharded models;
+        None otherwise.  Rides into ``engine.stats()["sharding"]``."""
+        sharded = getattr(self.pipeline, "_sharded", None)
+        if sharded is None or not hasattr(sharded, "schedule_stats"):
+            return None
+        return sharded.schedule_stats()
+
+    def _per_device_live(self, live: int, size: int) -> Optional[list]:
+        """Live slots landing on each data-parallel device (batch shards
+        are contiguous, so live requests fill the leading shards)."""
+        dp = self.data_parallel
+        if dp <= 1:
+            return None
+        per = size // dp
+        return [min(max(live - k * per, 0), per) for k in range(dp)]
 
     # -- internals ----------------------------------------------------------
 

@@ -32,12 +32,16 @@ class ModelRegistry:
                  **compiler_options) -> Executor:
         """Register ``source`` under ``name``; returns its executor.
 
-        ``backend``/``buckets``/``head``/``tracer`` configure the
-        ProgramExecutor built for program-like sources; ``device`` is
+        ``backend``/``buckets``/``head``/``tracer``/``mesh`` configure
+        the ProgramExecutor built for program-like sources (``mesh`` runs
+        the model sharded over the ranks of an initialized process group
+        — data/filter/layer axes, packed 5-trits/byte inter-rank
+        collectives; see `repro_torch.launch.cutie_mesh`); ``device`` is
         where a program, compile result or graph is bound (the card by
         default); ``instance``/``compiler_options`` apply to the Graph
-        compile path only.  ``mesh`` is not ported yet and raises.  An
-        Executor instance is registered as-is.
+        compile path only.  An Executor instance is registered as-is.
+        Buckets round up to the meshed pipeline's batch quantum (data
+        degree x microbatches).
         """
         executor = self._build(source, backend=backend, buckets=buckets,
                                head=head, tracer=tracer, instance=instance,

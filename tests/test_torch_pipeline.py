@@ -166,7 +166,9 @@ def test_unported_surfaces_name_their_roadmap_item():
     # ``fused`` is ported now (tests/test_torch_fused.py)
     assert CutiePipeline(prog, backend="fused",
                          device="cpu").backend_name == "fused"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*cutie_mesh"):
+    # ``mesh=`` is ported (tests/test_torch_mesh.py); without a process
+    # group of one rank per mesh position it refuses to build
+    with pytest.raises(ValueError, match="init_process_group"):
         CutiePipeline(prog, device="cpu", mesh=8)
     # ``compile`` and CNN serving are ported (tests/test_torch_compiler.py,
     # tests/test_torch_cnn_serving.py)

@@ -13,6 +13,9 @@ Tolerances, stated once:
 
 * the SSD scan on the same inputs (f32): within ``F32_RTOL`` of the
   largest |value| (f32 sums in other orders);
+* the SSD scan's and one mixer's VJPs in float32 throughout (the mixer's
+  params cast to f32 under ``quant="none"``): every cotangent within
+  ``VJP_F32_RTOL`` of its largest |value| against ``jax.vjp``;
 * a mixer's f32 state, whose inputs are bf16 projections that may land
   a bf16 ulp (2**-8 relative) apart: within ``STATE_RTOL`` of its
   largest |value|;
@@ -60,6 +63,7 @@ from repro_torch.serving.blocks import StatePagedStore
 LOGIT_TOL = 2.0 ** -4
 F32_RTOL = 1e-5
 STATE_RTOL = 2.0 ** -6
+VJP_F32_RTOL = 1e-4
 BLOCK = 8
 ARCH = "mamba2_780m"
 _SHARED = list(np.arange(20) % 50)
@@ -139,6 +143,87 @@ def test_ssd_chunked_matches_reference(initial):
     assert y.dtype == st.dtype == torch.float32
     _close_rel(y, jy)
     _close_rel(st, jst)
+
+
+def _rel_err(got, want) -> float:
+    want = np.asarray(want, np.float32)
+    return float(np.abs(_f32(got) - want).max() / np.abs(want).max())
+
+
+def test_ssd_chunked_vjp_f32_matches_reference():
+    # the SSD backward against jax.vjp, in float32 throughout: a fault in
+    # the port's backward shows here, where bf16 rounding (ROADMAP.md §3)
+    # cannot hide it; every cotangent within VJP_F32_RTOL of its largest
+    # |value| (measured at most 3.0e-6, the dt cotangent)
+    rng = np.random.default_rng(5)
+    b, l, h, pd, g, n = 2, 32, 4, 16, 1, 16
+    arrays = [rng.standard_normal((b, l, h, pd)),
+              np.log1p(np.exp(rng.standard_normal((b, l, h)))),
+              np.log(np.linspace(1.0, 16.0, h)),
+              rng.standard_normal((b, l, g, n)),
+              rng.standard_normal((b, l, g, n)),
+              rng.standard_normal((b, h, pd, n))]
+    gy = rng.standard_normal((b, l, h, pd)).astype(np.float32)
+    gs = rng.standard_normal((b, h, pd, n)).astype(np.float32)
+    ts = [torch.tensor(a, dtype=torch.float32, requires_grad=True)
+          for a in arrays]
+    y, st = mamba2.ssd_chunked(*ts[:5], chunk=16, initial_state=ts[5])
+    ((y * torch.from_numpy(gy)).sum()
+     + (st * torch.from_numpy(gs)).sum()).backward()
+
+    def jfn(x, dt, al, bm, cm, s0):
+        return JM.ssd_chunked(x, dt, al, bm, cm, chunk=16, initial_state=s0)
+
+    (jy, jst), vjp = jax.vjp(jfn, *[jnp.asarray(a, jnp.float32)
+                                    for a in arrays])
+    _close_rel(y.detach(), jy)
+    _close_rel(st.detach(), jst)
+    want = vjp((jnp.asarray(gy), jnp.asarray(gs)))
+    for name, t, w in zip(("x", "dt", "a_log", "B", "C", "state"), ts, want):
+        assert _rel_err(t.grad, w) <= VJP_F32_RTOL, name
+
+
+def test_mixer_apply_vjp_f32_matches_reference():
+    # one reduced mamba2 mixer, params cast to float32 (quant="none"), its
+    # apply's VJP against jax.vjp: every parameter leaf and the input
+    # within VJP_F32_RTOL of its largest |value| (measured at most 4.2e-6)
+    kw = dict(quant="none", n_layers=1)
+    jcfg = jreduce(jconfigs.get(ARCH)).replace(**kw)
+    cfg = reduce_for_smoke(configs.get(ARCH)).replace(**kw)
+    jp = jax.jit(JTF.init_params, static_argnums=0)(jcfg,
+                                                   jax.random.PRNGKey(3))
+    jl = jax.tree.map(lambda a: np.asarray(a[0], np.float32),
+                      jp["layers"]["mixer"])
+    lp = convert._tree(jl, "cpu")
+    leaves = []
+    for path, t in _leaf_items(lp):
+        t.requires_grad_(True)
+        leaves.append((path, t))
+    rng = np.random.default_rng(6)
+    u = rng.standard_normal((2, 16, cfg.d_model)).astype(np.float32)
+    tu = torch.tensor(u, requires_grad=True)
+    out = mamba2.apply(lp, tu, cfg)
+    g = rng.standard_normal(tuple(out.shape)).astype(np.float32)
+    (out * torch.from_numpy(g)).sum().backward()
+    jout, vjp = jax.vjp(lambda p, x: JM.apply(p, x, jcfg),
+                        jax.tree.map(jnp.asarray, jl), jnp.asarray(u))
+    assert out.dtype == torch.float32
+    _close_rel(out.detach(), jout)
+    jg, ju = vjp(jnp.asarray(g))
+    assert _rel_err(tu.grad, ju) <= VJP_F32_RTOL, "input"
+    for path, t in leaves:
+        w = jg
+        for k in path:
+            w = w[k]
+        assert _rel_err(t.grad, w) <= VJP_F32_RTOL, "/".join(path)
+
+
+def _leaf_items(tree, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaf_items(v, path + (k,))
+        else:
+            yield path + (k,), v
 
 
 def test_mixer_apply_and_decode_step_match_reference():
