@@ -111,6 +111,18 @@ Phases, each of which fails the script (no result line) when it fails:
    alpha times trits, the resumed losses within ``TRAIN_RESUME_ATOL`` of
    the uninterrupted run's; step ms, the forward + backward share,
    launches per step, peak memory and the loss history are printed.
+   Then the LLM model mesh (`model_mesh_path`; ranks started as
+   ``--model-mesh-rank`` processes, world 1 on NCCL, world 4 on gloo
+   with every rank on the one card): the llama3.2-1B decode cell
+   (`steps.make_prefill_step`, `prefill_with_cache` and 8 steps of
+   `steps.build_cell`'s decode step, the KV cache's sequence over
+   ``model``) bit for bit on ``data:1,model:1`` and within
+   MODEL_MESH_ULPS on ``data:2,model:2`` and ``model:4``, kernel 7 7 x 16
+   per forward per rank; a 4-layer QAT train cell on ``data:2,model:2``
+   against the unmeshed steps, its checkpoint restored onto ``model:4``
+   and ``data:4`` bit for bit; a full-width qwen3-moe layer with
+   ``moe_impl="ep"`` on ``model:4`` against the dense dispatch; ms per
+   step (slowest rank's median) and collective bytes per rank printed.
    Then the moe and ssm families (`moe_path`, `ssm_path`): full-width
    deepseek-moe-16b (31 GB of seeded weights; routed experts dense bf16)
    and mamba2-780m, ``ternary_packed``, serve the same requests: kernel
@@ -225,9 +237,6 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
 BATCH = 64
 SEED = 0
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
-INT8_OPS_PER_S = 1979e12           # H100 SXM dense int8 tensor-core peak
-BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor-core peak
 SOURCE = {
     "ternary_conv2d": "src/repro_torch/csrc/ternary_conv2d.cu",
     "ternary_conv2d_packed": "src/repro_torch/csrc/ternary_conv2d.cu",
@@ -253,6 +262,12 @@ LIBRARY_CONV = "F.conv2d f16 channels-last, 8 calls (exact integers)"
 SPLIT_AT = 4                       # the two-trunk split: layers [0, 4), [4, 8)
 sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.configs.cutie_cnn import CONFIG as CIFAR  # noqa: E402
+from repro_torch.roofline import terms as RT  # noqa: E402
+
+# the bounds' rates: one H100 SXM (`repro_torch.roofline.terms`)
+HBM_BYTES_PER_S = RT.HBM_BW         # device memory
+INT8_OPS_PER_S = RT.PEAK_INT8_OPS   # dense int8 tensor-core peak
+BF16_OPS_PER_S = RT.PEAK_FLOPS      # dense bf16 tensor-core peak
 
 # paper Table III: the merged pool of each conv layer, and the widths
 CIFAR_POOLS = tuple(pool for _op, _mult, pool in CIFAR.layout)
@@ -1337,15 +1352,17 @@ def mesh_launches(prog, spec: str, packed: bool, microbatches) -> dict:
     return {"conv": conv, "pack_trits": codec, "unpack_trits": codec}
 
 
-def _mesh_world(world: int, backend: str, root: str) -> list:
-    """Start ``world`` ranks of this script (``--mesh-rank``), wait for
-    all of them, and return each rank's results; a rank that fails or
-    outlives MESH_TIMEOUT_S fails the path after every rank is stopped."""
+def _mesh_world(world: int, backend: str, root: str,
+                flag: str = "--mesh-rank") -> list:
+    """Start ``world`` ranks of this script (``flag``: ``--mesh-rank`` or
+    ``--model-mesh-rank``), wait for all of them, and return each rank's
+    results; a rank that fails or outlives MESH_TIMEOUT_S fails the path
+    after every rank is stopped."""
     procs = []
     for r in range(world):
         err = open(os.path.join(root, f"w{world}r{r}.err"), "w")
         procs.append((subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+            [sys.executable, os.path.abspath(__file__), flag,
              str(r), str(world), backend, root],
             stdout=err, stderr=subprocess.STDOUT), err))
     deadline = time.monotonic() + MESH_TIMEOUT_S + 60
@@ -1522,6 +1539,595 @@ def mesh_rank_main(rank: int, world: int, backend: str, root: str) -> int:
                             tuple(x.shape)),
                         "plan": {k: plan.get(k) for k in (
                             "mode", "wire", "collectives", "pipeline")}})
+        with open(os.path.join(root, f"w{world}r{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+# The LLM model mesh (`model_mesh_path`): ranks this script starts as
+# processes of its own (``--model-mesh-rank``), world 1 on NCCL, world 4 on
+# gloo with every rank on the one card (exchanges staged through the
+# host).  The decode cell: the main path's llama3.2-1B ternary_packed
+# (full width and depth, the same seeded weights) prefills the 8 prompts
+# through `steps.make_prefill_step` and `prefill_with_cache` into a
+# MODEL_MESH_MAX_LEN cache, then runs MODEL_MESH_STEPS steps of
+# `steps.build_cell`'s decode step, fed the unmeshed greedy tokens: bit
+# for bit on data:1,model:1; on data:2,model:2 and model:4 every logit
+# within MODEL_MESH_ULPS bf16 ulps of its row's largest |logit| of the
+# unmeshed run (measured on an H100 80GB HBM3 at 700 W: at most 2.5 and
+# 1.75; the row-parallel products round their partial sums to bf16 before
+# the all-reduce), and the greedy tokens the unmeshed ones wherever its
+# top-2 margin exceeds that tolerance; kernel 7 launches 7 x 16 per
+# forward per rank.  After the counted run every rank runs one prefill
+# and one decode step of its cell inside `kernel_vs_plain`: each of
+# kernel 7's calls (its slices: N/tp columns, packed rows cut 205 | 205
+# at model:2, or the whole leaf behind an all-gather) within
+# SSM_MIXER_ULPS of its plain version on the same input, at exactly the
+# (M, K, N) that `mm_slice_shapes` works out from the rank's slices.  The
+# train cell: llama3.2-1B QAT at full width and MODEL_MESH_TRAIN_LAYERS
+# layers, batch TRAIN_BATCH, seq TRAIN_SEQ, on data:2,model:2 for
+# MODEL_MESH_TRAIN_STEPS steps: the loss within MODEL_MESH_LOSS_ATOL and
+# the grad norm within MODEL_MESH_GN_RTOL of the unmeshed steps', and the
+# gathered params after the last step against the unmeshed step's, leaf
+# by leaf: every entry within twice the summed learning rates plus a
+# bf16 ulp of the leaf's largest |value| (Adam's first updates are
+# lr * sign(g), and an entry of g within rounding of 0 may take the other
+# sign), and at most MODEL_MESH_PARAM_SHARE of a leaf's entries further
+# apart than the largest lr plus a bf16 ulp (entries whose updates went
+# other ways); then a checkpoint saved on that mesh restores onto model:4
+# and data:4 bit for bit.  The EP cell: one qwen3-moe-30b-a3b MoE
+# layer at full width (128 experts, 1.2 GB of bf16 experts), capacity
+# factor 8, moe_impl="ep" on model:4 against the dense dispatch on every
+# rank, at tests/test_moe_ep.py's tolerances (rtol 2e-2 / atol 2e-3, the
+# gradients' relative L2 error below 2e-2, lb_loss rtol 0.1), y's rtol
+# taken of its largest |value|: the seeded experts give rows of |y| up to
+# about a hundred, each a bf16 sum of 8 gated rows that the dense dispatch
+# adds in one order and EP in four partial sums and an all-reduce, so an
+# entry that cancels to near 0 differs by up to a bf16 ulp of its terms
+# (0.5 at a largest |y| of about a hundred on an H100 80GB HBM3 at 700 W).
+MODEL_MESH_WORLDS = {1: "nccl", 4: "gloo"}
+MODEL_MESH_DECODE = {1: ("data:1,model:1",),
+                     4: ("data:2,model:2", "model:4")}
+MODEL_MESH_STEPS, MODEL_MESH_MAX_LEN, MODEL_MESH_ULPS = 8, 64, 4
+MODEL_MESH_TRAIN_LAYERS, MODEL_MESH_TRAIN_STEPS = 4, 2
+# the train cell's losses and grad norms against the unmeshed steps'
+# (measured on an H100 80GB HBM3 at 700 W: within 2.3e-3 and 4.1e-4
+# relative; the meshed gradients are summed in other orders and round
+# partial products to bf16: 0.4-2% relative L2 per leaf at step 1, a
+# sign taken the other way at up to 1% of the entries, where the two
+# unmeshed runs on the card are bit-identical)
+MODEL_MESH_LOSS_ATOL, MODEL_MESH_GN_RTOL = 2.0 ** -6, 2.0 ** -8
+# tests/test_torch_model_mesh.py's REF_STEP_SHARE
+MODEL_MESH_PARAM_SHARE = 0.01
+MODEL_MESH_RESTORES = ("model:4", "data:4")
+MODEL_MESH_EP_TOKENS, MODEL_MESH_EP_CAPACITY = (4, 64), 8.0
+
+
+def _ulp_rows(torch, rows):
+    """A bf16 ulp of each row's largest |value| (last axis)."""
+    m = rows.float().abs().amax(dim=-1, keepdim=True).clamp(min=1e-30)
+    return torch.exp2(torch.floor(torch.log2(m)) - 7)
+
+
+def _digest(torch, tree) -> float:
+    """A float64 sum over every leaf of a tree (dicts and lists)."""
+    from repro_torch.train.loop import _leaves
+
+    return float(sum(t.double().sum() for t in _leaves(tree)))
+
+
+def _mm_train_cfg():
+    from repro_torch import configs
+
+    return configs.get(LLM_ARCH).replace(quant="ternary",
+                                         n_layers=MODEL_MESH_TRAIN_LAYERS)
+
+
+def _mm_train_params(torch, TF):
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 27)
+    return TF.init_params(_mm_train_cfg(), gen)
+
+
+def _mm_adam():
+    from repro_torch.optim import adam
+
+    return adam.AdamConfig(total_steps=4, warmup_steps=1)
+
+
+def _mm_batch(torch, step: int) -> dict:
+    rng = np.random.default_rng(SEED + 28 + step)
+    vocab = _mm_train_cfg().vocab
+    return {k: torch.as_tensor(rng.integers(0, vocab, (TRAIN_BATCH,
+                                                        TRAIN_SEQ)),
+                               device=DEVICE) for k in ("tokens", "labels")}
+
+
+def _mm_unmeshed_decode(torch, TF, DEC, params, cfg, tokens, fed):
+    """The unmeshed decode cell: the prefill's last logits, then one row
+    per step fed ``fed`` (or its own greedy tokens when None); returns
+    (logits (steps + 1, B, 1, V), tokens fed (steps, B, 1))."""
+    b = tokens.shape[0]
+    with torch.no_grad():
+        rows = [TF.forward_logits(params, {"tokens": tokens}, cfg)]
+        _, caches = DEC.prefill_with_cache(params, {"tokens": tokens}, cfg,
+                                           MODEL_MESH_MAX_LEN)
+        toks = []
+        for i in range(MODEL_MESH_STEPS):
+            tok = rows[-1].argmax(-1) if fed is None else fed[i]
+            toks.append(tok)
+            pos = torch.full((b,), tokens.shape[1] + i, device=DEVICE)
+            lg, caches = DEC.decode_step(params, tok, caches, pos, cfg)
+            rows.append(lg)
+    return torch.stack(rows), torch.stack(toks)
+
+
+def model_mesh_path(torch, MM, TF, DEC, llm, card: str) -> int:
+    """The LLM model mesh on the card (see MODEL_MESH_*): this process
+    runs the unmeshed decode cell and train steps, the ranks the meshed
+    ones and the EP cell.  Prints each cell's checks, ms per step (the
+    slowest rank's median) and collective bytes per rank.  Returns the
+    kernel-7 launches summed over every rank's decode cells."""
+    from repro_torch.launch import steps as ST
+
+    cfg, params = llm["cfg"], llm["params"]
+    tokens = torch.as_tensor(np.stack(llm["prompts"]), device=DEVICE)
+    logits, fed = _mm_unmeshed_decode(torch, TF, DEC, params, cfg, tokens,
+                                      None)
+    tparams = _mm_train_params(torch, TF)
+    step = ST.make_train_step(_mm_train_cfg(), _mm_adam())
+    from repro_torch.optim import adam
+    from repro_torch.train.loop import _leaves
+    opt = adam.init_state(_leaves(tparams))
+    train = {"loss": [], "grad_norm": [], "lr": [], "ms": [],
+             "digest": _digest(torch, tparams)}
+    for i in range(MODEL_MESH_TRAIN_STEPS):
+        sync(torch)
+        t0 = time.perf_counter()
+        tparams, opt, m = step(tparams, opt, _mm_batch(torch, i))
+        sync(torch)
+        train["ms"].append((time.perf_counter() - t0) * 1e3)
+        train["loss"].append(float(m["loss"]))
+        train["grad_norm"].append(float(m["grad_norm"]))
+        train["lr"].append(float(m["lr"]))
+    after = [t.cpu() for t in _leaves(tparams)]
+    del tparams, opt, m
+    torch.cuda.empty_cache()
+    log(f"phase 4: model mesh: unmeshed train steps ({_mm_train_cfg().name} "
+        f"QAT, {MODEL_MESH_TRAIN_LAYERS} layers, batch {TRAIN_BATCH}, seq "
+        f"{TRAIN_SEQ}): losses {train['loss']!r} grad norms "
+        f"{train['grad_norm']!r} ms {train['ms']!r}; {card}")
+    total = 0
+    with tempfile.TemporaryDirectory() as root:
+        np.savez(os.path.join(root, "model_mesh.npz"),
+                 logits=logits.float().cpu().numpy(),
+                 fed=fed.cpu().numpy(), prompts=tokens.cpu().numpy())
+        with open(os.path.join(root, "model_mesh.json"), "w") as f:
+            json.dump({"train": train, "digest": _digest(torch, params)}, f)
+        torch.save(after, os.path.join(root, "model_mesh_train.pt"))
+        del logits, after
+        for world, backend in MODEL_MESH_WORLDS.items():
+            t0 = time.perf_counter()
+            ranks = _mesh_world(world, backend, root, "--model-mesh-rank")
+            wall = time.perf_counter() - t0
+            total += _model_mesh_report(ranks, world, backend, train, cfg,
+                                        card)
+            log(f"phase 4: model mesh world {world} on {backend}: "
+                f"{len(ranks)} ranks, {wall!r} s wall with their start; "
+                f"{card}")
+    return total
+
+
+def _model_mesh_report(ranks, world, backend, train, cfg, card) -> int:
+    """Check and print one world's results; its kernel-7 launches."""
+    launches = 0
+    for i, spec in enumerate(MODEL_MESH_DECODE[world]):
+        got = [r["decode"][i] for r in ranks]
+        for rank, g in enumerate(got):
+            what = f"model mesh {spec} (rank {rank})"
+            if g["launches"] != g["want"]:
+                raise RuntimeError(f"{what}: kernel 7 launched "
+                                   f"{g['launches']}, want {g['want']}")
+            if world == 1 and not g["bitwise"]:
+                raise RuntimeError(f"{what}: logits differ from the unmeshed "
+                                   "run's")
+            if g["max_ulps"] > MODEL_MESH_ULPS:
+                raise RuntimeError(f"{what}: a logit {g['max_ulps']} ulps "
+                                   "from the unmeshed run's")
+            if any(m > MODEL_MESH_ULPS for m in g["token_diffs"]):
+                raise RuntimeError(f"{what}: greedy tokens differ at top-2 "
+                                   f"margins {g['token_diffs']} ulps")
+            if g["cache_len"] != MODEL_MESH_MAX_LEN // g["tp"]:
+                raise RuntimeError(f"{what}: the cache holds "
+                                   f"{g['cache_len']} positions per rank")
+            if sorted(g["vs_plain"]) != sorted(g["slice_shapes"]) or \
+                    max(g["vs_plain"].values()) > SSM_MIXER_ULPS:
+                raise RuntimeError(f"{what}: kernel 7 against its plain "
+                                   f"version (M, K, N) -> ulps "
+                                   f"{g['vs_plain']}, want the shapes "
+                                   f"{g['slice_shapes']} within "
+                                   f"{SSM_MIXER_ULPS}")
+            launches += g["launches"]
+        vs_plain: dict = {}
+        for g in got:
+            for k, v in g["vs_plain"].items():
+                vs_plain[k] = max(vs_plain.get(k, 0.0), v)
+        g = got[0]
+        ms = max(r["ms"] for r in got)
+        log(f"phase 4: model mesh decode cell {spec} ({cfg.name} "
+            f"ternary_packed, {LLM_REQUESTS} prompts x {LLM_PROMPT} tokens, "
+            f"{MODEL_MESH_STEPS} decode steps, cache {MODEL_MESH_MAX_LEN} "
+            f"with {g['cache_len']} positions per rank; {backend}): "
+            + ("every logit bit-identical to the unmeshed run; "
+               if world == 1 else
+               f"largest logit difference {max(r['max_ulps'] for r in got)!r}"
+               f" bf16 ulps of its row's max |logit| (at most "
+               f"{MODEL_MESH_ULPS}; abs {max(r['max_abs'] for r in got)!r}); ")
+            + f"greedy tokens {g['tokens_equal']} of {g['tokens_total']} "
+            f"equal, differences at top-2 margins {g['token_diffs']}; kernel "
+            f"7 launched {g['launches']} times per rank (7 x {cfg.n_layers} "
+            f"x {2 + MODEL_MESH_STEPS} forwards); decode step ms (slowest "
+            f"rank's median) {ms!r}, prefill ms {max(r['prefill_ms'] for r in got)!r}"
+            f"; collective bytes per rank per decode step "
+            f"{g['bytes_per_step']}; {world} ranks on one card; {card}")
+        log(f"phase 4: model mesh decode cell {spec}: kernel 7 against its "
+            f"plain version on the same input in one prefill and one decode "
+            f"step, max |err| in bf16 ulps of the row's largest |output| "
+            f"per (M, K, N) over every rank: "
+            f"{ {k: round(v, 3) for k, v in sorted(vs_plain.items())} } "
+            f"(tolerance {SSM_MIXER_ULPS}); {card}")
+    if world == 1:
+        return launches
+    t = [r["train"] for r in ranks]
+    for rank, r in enumerate(t):
+        if not np.allclose(r["loss"], train["loss"], rtol=0,
+                           atol=MODEL_MESH_LOSS_ATOL) or not np.allclose(
+                r["grad_norm"], train["grad_norm"], rtol=MODEL_MESH_GN_RTOL):
+            raise RuntimeError(f"model mesh train (rank {rank}): losses "
+                               f"{r['loss']} grad norms {r['grad_norm']}, "
+                               f"unmeshed {train['loss']} "
+                               f"{train['grad_norm']}")
+        if not all(r["restored"].values()):
+            raise RuntimeError(f"model mesh train (rank {rank}): restores "
+                               f"{r['restored']} not all bit-identical")
+    r = t[0]
+    if not r["param_share"] or r["param_over"] or \
+            max(r["param_share"]) > MODEL_MESH_PARAM_SHARE:
+        raise RuntimeError(f"model mesh train: params after step "
+                           f"{MODEL_MESH_TRAIN_STEPS} vs the unmeshed "
+                           f"step's: leaves {r['param_over']} past their "
+                           f"bound, shares beyond the largest lr + one ulp "
+                           f"{r['param_share']}")
+    e = [r["ep"] for r in ranks]
+    for rank, r in enumerate(e):
+        if not r["y_close"] or abs(r["lb"] - r["lb_dense"]) > \
+                0.1 * abs(r["lb_dense"]) or max(r["grad_rel"].values()) >= 2e-2:
+            raise RuntimeError(f"model mesh EP (rank {rank}): {r}")
+    log(f"phase 4: model mesh train cell data:2,model:2 ({_mm_train_cfg().name}"
+        f" QAT, {MODEL_MESH_TRAIN_LAYERS} layers, batch {TRAIN_BATCH}, seq "
+        f"{TRAIN_SEQ}, ZeRO-1 moments): losses {t[0]['loss']!r} (unmeshed "
+        f"{train['loss']!r}, within {MODEL_MESH_LOSS_ATOL}), grad norms "
+        f"{t[0]['grad_norm']!r} (unmeshed {train['grad_norm']!r}, rtol "
+        f"{MODEL_MESH_GN_RTOL}); params after step {MODEL_MESH_TRAIN_STEPS} "
+        f"against the unmeshed step's: largest |diff| over the leaves "
+        f"{max(t[0]['param_max_abs'])!r} (each leaf's bound 2 x the summed "
+        f"lr {sum(train['lr'])!r} + a bf16 ulp of its largest |value|), "
+        f"largest share of a leaf's entries beyond the largest lr + one ulp"
+        f" {max(t[0]['param_share'])!r} (at most {MODEL_MESH_PARAM_SHARE}; "
+        f"beyond one ulp {max(t[0]['param_ulp_share'])!r}); "
+        f"step ms (slowest rank's median) "
+        f"{max(float(np.median(r['ms'])) for r in t)!r}; collective bytes "
+        f"per rank per step {t[0]['bytes_per_step']}; checkpoint save "
+        f"{t[0]['save_s']!r} s ({t[0]['ckpt_bytes']} B on disk), restores "
+        f"bit-identical onto {', '.join(MODEL_MESH_RESTORES)} in "
+        f"{t[0]['restore_s']!r} s; {card}")
+    log(f"phase 4: model mesh EP cell model:4 (qwen3-moe-30b-a3b MoE layer, "
+        f"{e[0]['experts_local']} of 128 experts per rank, "
+        f"{MODEL_MESH_EP_TOKENS[0]} x {MODEL_MESH_EP_TOKENS[1]} tokens, "
+        f"capacity factor {MODEL_MESH_EP_CAPACITY}): y within rtol 2e-2 of "
+        f"the largest |y| ({e[0]['y_top']!r}) + atol 2e-3 of the dense "
+        f"dispatch (max abs {max(r['y_max_abs'] for r in e)!r}, relative "
+        f"L2 {max(r['y_rel_l2'] for r in e)!r}), lb_loss {e[0]['lb']!r} vs "
+        f"{e[0]['lb_dense']!r}, gradients' relative L2 error at most "
+        f"{max(max(r['grad_rel'].values()) for r in e)!r}; forward ms "
+        f"(slowest rank's median) ep {max(r['ep_ms'] for r in e)!r}, dense "
+        f"{max(r['dense_ms'] for r in e)!r}; collective bytes per rank per "
+        f"forward {e[0]['bytes']}; {card}")
+    return launches
+
+
+def _mm_decode_cell(torch, MM, TF, DEC, M, SH, ST, C, cfg, params, z,
+                    spec: str, world: int) -> dict:
+    """One rank's meshed decode cell on ``spec`` (see MODEL_MESH_*)."""
+    from repro_torch.models.config import ShapeSpec
+
+    tokens = torch.as_tensor(z["prompts"], device=DEVICE)
+    want = torch.as_tensor(z["logits"], device=DEVICE)
+    fed = torch.as_tensor(z["fed"], device=DEVICE)
+    b, s = tokens.shape
+    own = None
+    if world == 1:        # the bit-for-bit check: this process, unmeshed
+        own, _ = _mm_unmeshed_decode(torch, TF, DEC, params, cfg, tokens,
+                                     fed)
+    mesh = M.make_mesh(*M.parse(spec), device=DEVICE)
+    fn, _, sp = ST.build_cell(cfg, ShapeSpec("d", MODEL_MESH_MAX_LEN, b,
+                                             "decode"), mesh)
+    pf, _, psp = ST.build_cell(cfg, ShapeSpec("p", s, b, "prefill"), mesh)
+    pspecs, tok_spec, _, pos_spec = sp["in"]
+    local = SH.shard_tree(params, pspecs, mesh)
+    lb = {"tokens": SH.shard_leaf(tokens, psp["in"][1]["tokens"], mesh)}
+    sync(torch)
+    mesh.barrier()
+    reset_launches(MM)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        first = pf(local, lb)
+        with C.use_mesh(mesh):
+            _, caches = DEC.prefill_with_cache(local, lb, cfg,
+                                               MODEL_MESH_MAX_LEN)
+        sync(torch)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        rows = [first]
+        ts, nbytes = [], []
+        for i in range(MODEL_MESH_STEPS):
+            pos = torch.full((b,), s + i, device=DEVICE)
+            tok, pos = (SH.shard_leaf(fed[i], tok_spec, mesh),
+                        SH.shard_leaf(pos, pos_spec, mesh))
+            sent = sum(mesh.sent.values())
+            sync(torch)
+            t0 = time.perf_counter()
+            lg, caches = fn(local, tok, caches, pos)
+            sync(torch)
+            ts.append((time.perf_counter() - t0) * 1e3)
+            nbytes.append(sum(mesh.sent.values()) - sent)
+            rows.append(lg)
+        launches = MM.LAUNCHES["ternary_matmul"]
+        got = torch.stack([SH.gather_leaf(r, sp["out"][0], mesh)
+                           for r in rows])
+        with kernel_vs_plain(torch, MM, C) as vs_plain:
+            with C.use_mesh(mesh):
+                _, again = DEC.prefill_with_cache(local, lb, cfg,
+                                                  MODEL_MESH_MAX_LEN)
+            pos = torch.full((b,), s, device=DEVICE)
+            fn(local, SH.shard_leaf(fed[0], tok_spec, mesh), again,
+               SH.shard_leaf(pos, pos_spec, mesh))
+        del again
+    bl = lb["tokens"].shape[0]                   # this rank's batch rows
+    diff = (got.float() - want.float()).abs()
+    ulps = diff / _ulp_rows(torch, want)
+    top2 = want.float().topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]) / _ulp_rows(torch, want)[..., 0]
+    g_tok, w_tok = got.argmax(-1), want.argmax(-1)
+    return {"spec": spec, "launches": launches,
+            "bitwise": own is not None and torch.equal(got, own),
+            "cache_len": int(caches["kv"]["k"].shape[2]),
+            "tp": mesh.axis_size("model"),
+            "want": (7 * cfg.n_layers * (2 + MODEL_MESH_STEPS)
+                     if DEVICE == "cuda" else 0),
+            "ms": float(np.median(ts)), "prefill_ms": prefill_ms,
+            "max_ulps": float(ulps.max()), "max_abs": float(diff.max()),
+            "tokens_equal": int((g_tok == w_tok).sum()),
+            "tokens_total": int(w_tok.numel()),
+            "token_diffs": margin[g_tok != w_tok].tolist(),
+            "bytes_per_step": int(np.median(nbytes)),
+            "vs_plain": {str(k): v for k, v in vs_plain.items()},
+            "slice_shapes": [str((m, k, n)) for m in (bl * s, bl)
+                             for k, n in mm_slice_shapes(cfg, local, mesh)]}
+
+
+def mm_slice_shapes(cfg, local, mesh) -> list:
+    """The (K, N) at which kernel 7 runs on this rank's slices of a
+    packed layer: N/tp columns of a column-sharded leaf; for a leaf whose
+    packed rows are cut over ``model``, the K range [5r c, min(K,
+    5r (c + 1))) of its r byte rows at model coordinate c; K whole for
+    a replicated leaf (its input all-gathered)."""
+    d, q, kv, f = (cfg.d_model, cfg.n_heads * cfg.d_head,
+                   cfg.n_kv * cfg.d_head, cfg.d_ff)
+    lp, c = local["layers"][0], mesh.coord("model")
+    out = set()
+    for grp, name, k in (("attn", "wq", d), ("attn", "wk", d),
+                         ("attn", "wv", d), ("attn", "wo", q),
+                         ("mlp", "gate", d), ("mlp", "up", d),
+                         ("mlp", "down", f)):
+        r, n = lp[grp][name]["w_packed"].shape
+        if r != -(-k // 5):
+            k = min(k, 5 * r * (c + 1)) - 5 * r * c
+        out.add((k, n))
+    return sorted(out)
+
+
+def _mm_train_cell(torch, TF, M, SH, ST, root: str, train: dict) -> dict:
+    """One rank's train cell on data:2,model:2, its checkpoint and the
+    restores (see MODEL_MESH_*)."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.data.pipeline import make_global
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import adam
+    from repro_torch.train.loop import _leaves
+
+    params = _mm_train_params(torch, TF)
+    if _digest(torch, params) != train["digest"]:
+        raise RuntimeError("model mesh train: the rank drew other weights")
+    mesh = M.make_mesh((2, 2), ("data", "model"), device=DEVICE)
+    fn, _, sp = ST.build_cell(_mm_train_cfg(), ShapeSpec(
+        "t", TRAIN_SEQ, TRAIN_BATCH, "train"), mesh, _mm_adam())
+    local = SH.shard_tree(params, sp["in"][0], mesh)
+    del params
+    opt = adam.init_state(_leaves(local), sp["placement"])
+    out = {"loss": [], "grad_norm": [], "ms": [], "bytes_per_step": 0}
+    for i in range(MODEL_MESH_TRAIN_STEPS):
+        batch = make_global(_mm_batch(torch, i), mesh, sp["in"][2])
+        sync(torch)
+        mesh.barrier()
+        sent = sum(mesh.sent.values())
+        t0 = time.perf_counter()
+        local, opt, m = fn(local, opt, batch)
+        sync(torch)
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["bytes_per_step"] = sum(mesh.sent.values()) - sent
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+    del opt
+    full = SH.gather_tree(local, sp["in"][0], mesh)
+    bound = 2 * sum(train["lr"])
+    out.update(param_max_abs=[], param_share=[], param_ulp_share=[],
+               param_over=[])
+    # every rank gathered the same tree: rank 0 holds it to the unmeshed
+    unmeshed = torch.load(os.path.join(root, "model_mesh_train.pt")) \
+        if mesh.rank == 0 else []
+    for i, (a, w) in enumerate(zip(_leaves(full) if unmeshed else [],
+                                   unmeshed, strict=True)):
+        if a.shape != w.shape:
+            raise RuntimeError(f"model mesh train: leaf {i} gathered as "
+                               f"{tuple(a.shape)}, unmeshed {tuple(w.shape)}")
+        w = w.to(DEVICE).float()
+        diff = (a.float() - w).abs()
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(
+            2.0 ** -126))) - 7)
+        out["param_max_abs"].append(float(diff.max()))
+        out["param_ulp_share"].append(float((diff > ulp).float().mean()))
+        out["param_share"].append(float((diff > ulp + max(train["lr"]))
+                                        .float().mean()))
+        if float(diff.max()) > bound + float(ulp.max()):
+            out["param_over"].append(i)
+        del w, diff, ulp
+    d = os.path.join(root, "ckpt")
+    t0 = time.perf_counter()
+    ckpt.save(d, MODEL_MESH_TRAIN_STEPS, {"params": local}, mesh=mesh,
+              pspecs={"params": sp["in"][0]})
+    out["save_s"] = time.perf_counter() - t0
+    out["ckpt_bytes"] = sum(os.path.getsize(os.path.join(w, f))
+                            for w, _, fs in os.walk(d) for f in fs)
+    del local
+    t0 = time.perf_counter()
+    out["restored"] = {}
+    for spec in MODEL_MESH_RESTORES:
+        m2 = M.make_mesh(*M.parse(spec), device=DEVICE)
+        specs = {"params": SH.param_specs(full, m2)}
+        want = SH.shard_tree({"params": full}, specs, m2)
+        got, man = ckpt.restore(d, want, mesh=m2, pspecs=specs)
+        out["restored"][spec] = man["step"] == MODEL_MESH_TRAIN_STEPS and all(
+            torch.equal(a, b) and a.dtype == b.dtype
+            for a, b in zip(_leaves(got), _leaves(want)))
+        del got, want
+    out["restore_s"] = time.perf_counter() - t0
+    return out
+
+
+def _mm_ep_cell(torch, M, SH, C) -> dict:
+    """One rank's EP cell on model:4 against the dense dispatch of the
+    whole layer in the same process (see MODEL_MESH_*)."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+    from repro_torch.optim import adam
+
+    cfg = configs.get("qwen3-moe-30b-a3b").replace(
+        capacity_factor=MODEL_MESH_EP_CAPACITY)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 29)
+    p = moe.init(gen, cfg)
+    x = torch.randn((*MODEL_MESH_EP_TOKENS, cfg.d_model), generator=gen,
+                    device=DEVICE).to(torch.bfloat16)
+    keys = sorted(p)
+
+    def run(leaves, impl):
+        y, aux = moe.apply(leaves, x, cfg.replace(moe_impl=impl))
+        g = torch.autograd.grad((y.float() ** 2).sum(),
+                                [leaves[k] for k in keys])
+        return y.detach(), aux, g
+
+    dense = {k: p[k].clone().requires_grad_(True) for k in keys}
+    y_d, aux_d, g_d = run(dense, "dense")
+    mesh = M.make_mesh((4,), ("model",), device=DEVICE)
+    specs = SH.param_specs({"moe": p}, mesh)["moe"]
+    local = {k: SH.shard_leaf(p[k], specs[k], mesh).contiguous()
+             .requires_grad_(True) for k in keys}
+    with C.use_mesh(mesh):
+        sent = sum(mesh.sent.values())
+        y_e, aux_e, g_e = run(local, "ep")
+        nbytes = sum(mesh.sent.values()) - sent
+    placement = adam.Placement(mesh, tuple(specs[k] for k in keys),
+                               tuple(specs[k] for k in keys))
+    g_e = adam.reduce_grads(list(g_e), placement)
+    diff = (y_e.float() - y_d.float()).abs()
+    rel = {}
+    for k, ge, gd in zip(keys, g_e, g_d):
+        gd = SH.shard_leaf(gd, specs[k], mesh)
+        rel[k] = float((ge.float() - gd.float()).norm()
+                       / gd.float().norm().clamp(min=1e-9))
+    times = {}
+    for impl, leaves in (("ep", local), ("dense", dense)):
+        ts = []
+        for _ in range(4):
+            sync(torch)
+            mesh.barrier()
+            t0 = time.perf_counter()
+            with torch.no_grad(), C.use_mesh(mesh if impl == "ep" else None):
+                moe.apply(leaves, x, cfg.replace(moe_impl=impl))
+            sync(torch)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        times[impl] = float(np.median(ts[1:]))
+    top = float(y_d.float().abs().max())
+    return {"experts_local": int(local["gate_proj"].shape[0]),
+            "y_max_abs": float(diff.max()), "y_top": top,
+            "y_rel_l2": float((y_e.float() - y_d.float()).norm()
+                              / y_d.float().norm()),
+            "y_close": float(diff.max()) <= 2e-3 + 2e-2 * top,
+            "lb": float(aux_e["lb_loss"]), "lb_dense": float(aux_d["lb_loss"]),
+            "grad_rel": rel, "ep_ms": times["ep"], "dense_ms": times["dense"],
+            "bytes": nbytes}
+
+
+def model_mesh_rank_main(rank: int, world: int, backend: str,
+                         root: str) -> int:
+    """``--model-mesh-rank R WORLD BACKEND DIR``: one rank of the model
+    mesh path.  Joins the process group (``file://DIR/mpg<WORLD>``),
+    draws the main path's llama3.2-1B weights (their digest must be the
+    parent's), runs its world's decode cells, and in the world of 4 the
+    train cell and the EP cell, and writes its results to
+    ``DIR/w<WORLD>r<R>.json``; any failed check raises."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.kernels import ternary_matmul as MM
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import common as C
+    from repro_torch.models import decoding as DEC
+    from repro_torch.models import transformer as TF
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        backend, init_method=f"file://{os.path.join(root, f'mpg{world}')}",
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        with open(os.path.join(root, "model_mesh.json")) as f:
+            meta = json.load(f)
+        with np.load(os.path.join(root, "model_mesh.npz")) as z:
+            z = {k: z[k] for k in z.files}
+        cfg = configs.get(LLM_ARCH).replace(quant="ternary_packed",
+                                            attn_kv_chunk=16)
+        params = llm_params(torch, TF, cfg)
+        if _digest(torch, params) != meta["digest"]:
+            raise RuntimeError("model mesh: the rank drew other weights")
+        out = {"decode": [_mm_decode_cell(torch, MM, TF, DEC, M, SH, ST, C,
+                                          cfg, params, z, spec, world)
+                          for spec in MODEL_MESH_DECODE[world]]}
+        del params, z
+        torch.cuda.empty_cache()
+        if world > 1:
+            out["train"] = _mm_train_cell(torch, TF, M, SH, ST, root,
+                                          meta["train"])
+            torch.cuda.empty_cache()
+            out["ep"] = _mm_ep_cell(torch, M, SH, C)
         with open(os.path.join(root, f"w{world}r{rank}.json"), "w") as f:
             json.dump(out, f)
         dist.barrier()
@@ -5014,39 +5620,58 @@ def main() -> int:
             f"of dynamic shared memory, {per_sm} blocks per SM")
     log_trunk_plan(FT, trunk_cases()[0])
 
+    spent = [("start", time.perf_counter())]   # seconds per path
     worst = compare_kernels(torch, K, codec)
     compare_new_kernels(torch, FT, TC, worst)
     compare_matmul_kernels(torch, MM, worst)
+    spent.append(("compare", time.perf_counter()))
     mp = main_path(torch, K, FT, TC, ops, engine, thermometer, compiler, P)
+    spent.append(("main_path", time.perf_counter()))
     compiled_programs(torch, K, FT, P, compiler)
+    spent.append(("compiled_programs", time.perf_counter()))
     mesh = mesh_path(torch, P, engine, mp, card)
     _add_counts(mp["launches"], mesh["launches"])
+    spent.append(("mesh_path", time.perf_counter()))
     llm = llm_main_path(torch, MM, TC, S, TF, DEC, C, codec, configs)
+    spent.append(("llm_main_path", time.perf_counter()))
     restart_path(torch, TC, S, llm)
+    spent.append(("restart_path", time.perf_counter()))
     spec_path(torch, MM, TC, S, TF, DEC, codec, llm, card)
+    spent.append(("spec_path", time.perf_counter()))
     llm_train_path(torch, TF, inq, loop, card)
+    spent.append(("llm_train_path", time.perf_counter()))
+    llm["launches"] += model_mesh_path(torch, MM, TF, DEC, llm, card)
+    spent.append(("model_mesh_path", time.perf_counter()))
+    torch.cuda.empty_cache()
     moe_run = moe_path(torch, MM, TC, S, TF, DEC, C, codec, moe, configs,
                        card)
+    spent.append(("moe_path", time.perf_counter()))
     torch.cuda.empty_cache()
     ssm_run = ssm_path(torch, MM, TC, S, TF, DEC, C, codec, configs, card)
+    spent.append(("ssm_path", time.perf_counter()))
     torch.cuda.empty_cache()
     runs = [moe_run, ssm_run]
     for path in (hybrid_path, encdec_path):
         runs.append(path(torch, MM, TF, DEC, C, configs, card))
+        spent.append((path.__name__, time.perf_counter()))
         torch.cuda.empty_cache()
     runs.append(vlm_path(torch, MM, TC, S, TF, DEC, C, configs, card))
+    spent.append(("vlm_path", time.perf_counter()))
     torch.cuda.empty_cache()
     llm["launches"] += sum(r["launches"] for r in runs)
     _add_counts(mp["launches"], moe_run["codec"])
     _add_counts(mp["launches"], ssm_run["codec"])
     cnn = cnn_main_path(torch, K, FT, TC, P, S, Q, CNN, inq, adam, cifar,
                         configs_cnn, engine, compiler, ops)
+    spent.append(("cnn_main_path", time.perf_counter()))
     program_latency(torch, P, mp, card)
+    spent.append(("program_latency", time.perf_counter()))
     kernels, conv_lib = time_kernels(torch, F, K, codec, engine, mp, card,
                                         worst)
     kernels += time_new_kernels(torch, FT, TC, mp, llm, card, worst,
                                 conv_lib)
     kernels += time_matmul_kernels(torch, MM, llm, card, worst)
+    spent.append(("time_kernels", time.perf_counter()))
     # kernel 7 at the large M of the encdec and vlm paths, one encode or
     # one forward's projections (phase 4's k7_times)
     k7 = next(r for r in kernels if r["name"] == "ternary_matmul")
@@ -5058,9 +5683,15 @@ def main() -> int:
         "bound_ms": max(r["times"]["bytes_ms"], r["times"]["ops_ms"])}
         for r in runs if "times" in r}
     serving_numbers(torch, S, TF, llm, card)
+    spent.append(("serving_numbers", time.perf_counter()))
     trit_serving_numbers(torch, S, TC, codec, llm, card)
+    spent.append(("trit_serving_numbers", time.perf_counter()))
     cnn_numbers(torch, Q, CNN, S, P, adam, cifar, cnn, card)
+    spent.append(("cnn_numbers", time.perf_counter()))
     reset_launches(K, FT, TC, MM)          # timing launches are not counted
+    log("seconds per path: " + ", ".join(
+        f"{name} {t - prev:.1f}" for (_, prev), (name, t) in
+        zip(spent, spent[1:])))
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -5075,4 +5706,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
         sys.exit(mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]),
                                 sys.argv[4], sys.argv[5]))
+    if sys.argv[1:2] == ["--model-mesh-rank"]:
+        sys.exit(model_mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                                      sys.argv[4], sys.argv[5]))
     sys.exit(main())

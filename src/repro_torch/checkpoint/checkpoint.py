@@ -26,9 +26,14 @@ checkpoint written by either package restores in the other:
   not change the checkpoint) and writes the files on a worker thread;
   `wait()` joins it.
 * **self-pruning** - keeps the last ``keep`` checkpoints.
-
-Restoring onto a device mesh (the reference's ``mesh=``/``pspecs=``)
-waits for the port's mesh (ROADMAP.md §1 item 9).
+* **meshes** - on a device mesh (`repro_torch.launch.mesh.Mesh`, one
+  process per position) each rank holds its slices of the leaves under
+  the partition specs ``pspecs`` (`repro_torch.core.placement`).  A
+  save gathers the global tree on every rank and rank 0 writes it, so
+  the files are those of an unmeshed save.  A restore onto a mesh reads
+  each leaf whole on every rank (a trit leaf decoded as unmeshed) and
+  keeps the rank's slice under its own mesh's specs: a checkpoint saved
+  on one mesh restores onto another (elastic restart).
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import codec
+from repro_torch.core import placement as PL
 
 # torch dtypes numpy has no type for: stored as raw bytes under these names
 _TORCH_BYTES = {torch.bfloat16: "bfloat16"}
@@ -140,10 +146,27 @@ def _write(root: str, step: int, encoded, extra: dict | None,
     return final
 
 
+def _global(tree, mesh, pspecs):
+    """The tree to write: ``tree`` itself unmeshed; on a mesh the
+    gathered global tree, or None on a rank other than 0."""
+    if mesh is None:
+        return tree
+    tree = PL.gather_tree(tree, pspecs, mesh)
+    return tree if mesh.rank == 0 else None
+
+
 def save(root: str, step: int, tree, extra: dict | None = None,
-         keep: int = 3) -> str:
-    """Synchronous atomic save.  Returns the final directory path."""
-    return _write(root, step, _encode(tree), extra, keep)
+         keep: int = 3, mesh=None, pspecs=None) -> str:
+    """Synchronous atomic save.  Returns the final directory path.  On a
+    mesh every rank calls it with its slices; rank 0 writes, and every
+    rank returns after the write."""
+    tree = _global(tree, mesh, pspecs)
+    final = os.path.join(root, f"step_{step:09d}")
+    if tree is not None:
+        final = _write(root, step, _encode(tree), extra, keep)
+    if mesh is not None:
+        mesh.barrier()
+    return final
 
 
 def steps(root: str) -> list[int]:
@@ -198,12 +221,12 @@ def restore(root: str, template, step: int | None = None, mesh=None,
 
     Returns (tree, manifest).  A leaf whose template is a tensor comes
     back as a tensor on that tensor's device and of its dtype (a trit
-    leaf unpacked there); any other leaf as a numpy array.
+    leaf unpacked there); any other leaf as a numpy array.  With
+    ``mesh``, each tensor leaf is this rank's slice under its spec in
+    ``pspecs`` (replicated where ``pspecs`` is None); the template's
+    leaves are then the rank's slices, or anything with their device and
+    dtype.
     """
-    if mesh is not None or pspecs is not None:
-        raise NotImplementedError(
-            "restore onto a device mesh waits for the port's mesh "
-            "(ROADMAP.md §1 item 9)")
     step = latest_step(root) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {root}")
@@ -211,12 +234,20 @@ def restore(root: str, template, step: int | None = None, mesh=None,
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     by_path = {e["path"]: e for e in manifest["leaves"]}
+    flat = _flatten(template)
+    specs = (PL.spec_leaves(pspecs) if pspecs is not None
+             else [PL.P()] * len(flat))
+    if len(specs) != len(flat):
+        raise ValueError(f"{len(specs)} specs for {len(flat)} leaves")
     leaves = []
-    for path, tpl in _flatten(template):
+    for (path, tpl), spec in zip(flat, specs):
         e = by_path.get(path)
         if e is None:
             raise KeyError(f"checkpoint missing leaf {path}")
-        leaves.append(_decode(np.load(os.path.join(d, e["file"])), e, tpl))
+        leaf = _decode(np.load(os.path.join(d, e["file"])), e, tpl)
+        if mesh is not None and isinstance(leaf, torch.Tensor):
+            leaf = PL.shard_leaf(leaf, spec, mesh).contiguous()
+        leaves.append(leaf)
     return _unflatten(template, iter(leaves)), manifest
 
 
@@ -233,8 +264,14 @@ class CheckpointManager:
     def should_save(self, step: int) -> bool:
         return step > 0 and step % self.every == 0
 
-    def save_async(self, step: int, tree, extra: dict | None = None):
+    def save_async(self, step: int, tree, extra: dict | None = None,
+                   mesh=None, pspecs=None):
+        """On a mesh every rank calls it with its slices (the gather is a
+        collective) and rank 0 writes."""
         self.wait()
+        tree = _global(tree, mesh, pspecs)
+        if tree is None:
+            return
         encoded = _encode(tree)
         self._thread = threading.Thread(
             target=_write, args=(self.root, step, encoded, extra, self.keep),

@@ -76,12 +76,13 @@ def _lead_sum(y: torch.Tensor, r: int) -> torch.Tensor:
     return _lead_sum(acc, r)
 
 
-def _sum(x: torch.Tensor, axes) -> torch.Tensor:
+def _sum(x: torch.Tensor, axes, psum=None) -> torch.Tensor:
     """`_window_sum` in at least float32, rounded back to x's dtype: the
     reference's jnp reductions of a bf16 (or f16) tensor accumulate in
     float32 and round the result, and XLA rounds at every op boundary."""
     acc = torch.promote_types(x.dtype, torch.float32)
-    return _window_sum(x.to(acc), axes).to(x.dtype)
+    total = _window_sum(x.to(acc), axes)
+    return (total if psum is None else psum(total)).to(x.dtype)
 
 
 def ternarize(x: torch.Tensor, delta) -> torch.Tensor:
@@ -94,8 +95,8 @@ def binarize(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 0, 1.0, -1.0).to(x.dtype)
 
 
-def twn_delta(w: torch.Tensor, axis=None, ratio: float = 0.7
-              ) -> torch.Tensor:
+def twn_delta(w: torch.Tensor, axis=None, ratio: float = 0.7, psum=None,
+              n_shards: int = 1) -> torch.Tensor:
     """TWN threshold delta = ratio * mean(|w|) (Li et al., 2016).
 
     ``axis=None`` gives a per-tensor threshold; reduction axes give one
@@ -103,23 +104,32 @@ def twn_delta(w: torch.Tensor, axis=None, ratio: float = 0.7
     multiplies by 1/n, as XLA turns the reference's division by n; for a
     bf16 ``w`` the mean and ``ratio`` are rounded to bf16 first, as the
     reference's weakly typed ``ratio * mean`` is.
+
+    ``w`` may be one of ``n_shards`` equal slices of a tensor along the
+    reduced axes: ``psum`` then sums each partial f32 sum over the slices
+    (a model-axis all-reduce) before the mean is taken.
     """
     axes = tuple(range(w.dim())) if axis is None else tuple(axis)
-    n = 1
+    n = n_shards
     for a in axes:
         n *= w.shape[a]
     acc = torch.promote_types(w.dtype, torch.float32)
-    mean = (_window_sum(w.abs().to(acc), axes) * (1.0 / n)).to(w.dtype)
+    total = _window_sum(w.abs().to(acc), axes)
+    if psum is not None:
+        total = psum(total)
+    mean = (total * (1.0 / n)).to(w.dtype)
     r = torch.full((), ratio, dtype=w.dtype, device=w.device)
     return r * (mean.reshape(()) if axis is None else mean)
 
 
-def twn_scale(w: torch.Tensor, wq: torch.Tensor, axis=None) -> torch.Tensor:
-    """Optimal TWN scale: mean |w| over the non-zero support of ``wq``."""
+def twn_scale(w: torch.Tensor, wq: torch.Tensor, axis=None, psum=None
+              ) -> torch.Tensor:
+    """Optimal TWN scale: mean |w| over the non-zero support of ``wq``
+    (``psum``: as in `twn_delta`)."""
     axes = tuple(range(w.dim())) if axis is None else tuple(axis)
     nz = (wq != 0).to(w.dtype)
-    num = _sum(w.abs() * nz, axes)
-    den = _sum(nz, axes)
+    num = _sum(w.abs() * nz, axes, psum)
+    den = _sum(nz, axes, psum)
     if axis is None:
         num, den = num.reshape(()), den.reshape(())
     return num / torch.clamp(den, min=1.0)
@@ -149,19 +159,22 @@ def _ste_identity(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 
 
 def ternarize_ste(w: torch.Tensor, axis=None, ratio: float = 0.7,
-                  with_scale: bool = True) -> torch.Tensor:
+                  with_scale: bool = True, psum=None,
+                  n_shards: int = 1) -> torch.Tensor:
     """QAT weight ternarization: forward = alpha * ternarize(w), STE backward.
 
     The gradient w.r.t. ``w`` is passed straight through (clipped
     implicitly by the downstream Hardtanh in the paper's recipe, so no
     extra clipping here).  ``alpha`` is a constant w.r.t. the backward
-    (standard TWN practice).
+    (standard TWN practice).  ``psum`` and ``n_shards``: ``w`` is a slice
+    along the reduced axes (see `twn_delta`).
     """
     wd = w.detach()
-    delta = twn_delta(wd, axis=axis, ratio=ratio)
+    delta = twn_delta(wd, axis=axis, ratio=ratio, psum=psum,
+                      n_shards=n_shards)
     wq = ternarize(wd, delta)
     if with_scale:
-        wq = twn_scale(wd, wq, axis=axis) * wq
+        wq = twn_scale(wd, wq, axis=axis, psum=psum) * wq
     return _ste_identity(w, wq)
 
 

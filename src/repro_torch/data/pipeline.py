@@ -1,11 +1,14 @@
-"""Host-side background prefetch of batches.
+"""Host->device pipeline: mesh placement of a batch + background prefetch.
+
+`make_global(batch_np, mesh, pspecs)` gives this rank its part of each
+batch leaf under the batch partition specs (its rows over the mesh's
+batch axes), as tensors on its device.  In the reference that is
+`jax.make_array_from_process_local_data`; here one process runs per
+mesh position, so each rank keeps its own slice of the global batch.
 
 `Prefetcher` overlaps host-side batch synthesis with device compute by one
 step (double buffering on a worker thread) — the data-pipeline half of the
 paper's "loading phase overlaps with execution phase" scheduling (Fig. 3).
-
-The reference's `make_global` (placing a batch on a device mesh) waits for
-``mesh=`` execution and raises.
 """
 
 from __future__ import annotations
@@ -13,13 +16,25 @@ from __future__ import annotations
 import queue
 import threading
 
+import numpy as np
+import torch
+
+from repro_torch.core import placement as PL
+
 
 def make_global(batch_np: dict, mesh, pspecs: dict) -> dict:
-    """Not ported yet: mesh placement of a batch."""
-    raise NotImplementedError(
-        "data.pipeline.make_global is not ported yet: see ROADMAP.md, "
-        "'Modules still to port', item 9 (launch/cutie_mesh.py on "
-        "torch.distributed)")
+    """Each leaf of ``batch_np`` (numpy arrays or tensors, global) cut to
+    this rank's slice under ``pspecs`` (a missing key: replicated), on
+    ``mesh.device``.  Axes that do not divide a dimension drop, as
+    `shardings.fit_named` drops them."""
+    out = {}
+    for k, v in batch_np.items():
+        t = v if isinstance(v, torch.Tensor) else torch.as_tensor(
+            np.asarray(v))
+        spec = PL.fits(PL.resolve(pspecs.get(k, PL.P()), mesh),
+                       tuple(t.shape), mesh)
+        out[k] = PL.shard_leaf(t, spec, mesh).to(mesh.device).contiguous()
+    return out
 
 
 class Prefetcher:

@@ -1,25 +1,34 @@
 """Training entry point:
 ``python -m repro_torch.launch.train --arch llama3.2-1b ...``.
 
-The reference's CLI (`repro.launch.train`) on one device: the reduced
-(smoke) config by default, the full-size architecture with
-``--full-config``.  It runs on the card, or on the CPU only when asked
-with ``--device cpu``.  ``--mesh auto`` with one visible device means no
-mesh, as in the reference; a mesh over more devices waits for ROADMAP.md
-§1 item 9.  ``--history PATH`` writes the loop's history rows as JSON
+The reference's CLI (`repro.launch.train`): the reduced (smoke) config
+by default, the full-size architecture with ``--full-config``.  It runs
+on the card, or on the CPU only when asked with ``--device cpu``.
+``--mesh auto`` in a single process means no mesh, as the reference
+with one device.  Launched as several processes (``torchrun
+--nproc-per-node N -m repro_torch.launch.train ...``, which sets
+``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK`` and the rendezvous address),
+``--mesh auto`` joins them in one process group (NCCL on cards, one
+card per process, ``cuda:LOCAL_RANK``; gloo with ``--device cpu``) and
+trains on a ``data`` mesh over them: every rank draws the same params
+and batches, trains on its rows, and rank 0 prints and writes the
+history.  ``--history PATH`` writes the loop's history rows as JSON
 lines.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch.data import tokens
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as M
 from repro_torch.models import transformer as TF
 from repro_torch.models.config import ShapeSpec, reduce_for_smoke
 from repro_torch.optim import adam
@@ -58,12 +67,10 @@ def main(argv=None):
         cfg = reduce_for_smoke(cfg)
     if args.quant:
         cfg = cfg.replace(quant=args.quant)
-    if args.mesh == "auto" and dev.type == "cuda" \
-            and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"--mesh auto over {torch.cuda.device_count()} devices waits "
-            "for the port's mesh (ROADMAP.md §1 item 9); make one device "
-            "visible or pass --mesh none")
+    mesh = None
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.mesh == "auto" and world > 1:
+        dev, mesh = _data_mesh(dev, world)
 
     shape = ShapeSpec("cli", args.seq, args.batch, "train")
     src = tokens.for_arch(cfg, shape)
@@ -101,7 +108,13 @@ def main(argv=None):
     acfg = adam.AdamConfig(lr=args.lr, total_steps=args.steps,
                            warmup_steps=max(1, args.steps // 10))
 
-    result = loop.train(loss_fn, params, data_fn, tcfg, acfg)
+    try:
+        result = loop.train(loss_fn, params, data_fn, tcfg, acfg, mesh=mesh)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
+    if mesh is not None and int(os.environ.get("RANK", "0")) != 0:
+        return result
     if args.history:
         loop.write_history(args.history, result)
 
@@ -113,6 +126,17 @@ def main(argv=None):
     if result["stragglers"]:
         print(f"stragglers: {len(result['stragglers'])}")
     return result
+
+
+def _data_mesh(dev: torch.device, world: int):
+    """This process's device and a ``data`` mesh over the launched world
+    (the rendezvous from the launcher's environment)."""
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(dev)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method="env://")
+    return dev, M.make_mesh((world,), ("data",), dev)
 
 
 if __name__ == "__main__":

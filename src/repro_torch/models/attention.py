@@ -46,20 +46,35 @@ def init(gen, cfg, d_model=None, prefix_dtype=torch.bfloat16):
     return p
 
 
-def _project_q(p, x, cfg, positions, rope: bool):
+def _project_q(p, x, cfg, positions, rope: bool, heads=None):
+    """Query heads (B, S, H, Dh); under a tensor-parallel mesh only the
+    heads [lo, hi) of ``heads``."""
     b, s, _ = x.shape
-    q = C.linear(p["wq"], x, quant=cfg.quant).reshape(
-        b, s, cfg.n_heads, cfg.d_head)
+    h, dh = cfg.n_heads, cfg.d_head
+    q = C.linear(p["wq"], x, quant=cfg.quant,
+                 dims=(x.shape[-1], h * dh))
+    if heads is not None:
+        q = C.width_range(q, h * dh, heads[0] * dh, heads[1] * dh)
+        h = heads[1] - heads[0]
+    q = q.reshape(b, s, h, dh)
     if cfg.qk_norm:
         q = C.rmsnorm(p["q_norm"], q)
     return C.apply_rope(q, positions, cfg.rope_theta) if rope else q
 
 
-def _project_kv(p, x, cfg, positions, rope: bool):
+def _project_kv(p, x, cfg, positions, rope: bool, heads=None):
+    """Key and value heads (B, S, Hk, Dh); under a tensor-parallel mesh
+    only the kv heads [lo, hi) of ``heads``."""
     b, s, _ = x.shape
     hk, dh = cfg.n_kv, cfg.d_head
-    k = C.linear(p["wk"], x, quant=cfg.quant).reshape(b, s, hk, dh)
-    v = C.linear(p["wv"], x, quant=cfg.quant).reshape(b, s, hk, dh)
+    kv = []
+    for name in ("wk", "wv"):
+        y = C.linear(p[name], x, quant=cfg.quant,
+                     dims=(x.shape[-1], hk * dh))
+        if heads is not None:
+            y = C.width_range(y, hk * dh, heads[0] * dh, heads[1] * dh)
+        kv.append(y.reshape(b, s, -1, dh))
+    k, v = kv
     if cfg.qk_norm:
         k = C.rmsnorm(p["k_norm"], k)
     if rope:
@@ -67,9 +82,23 @@ def _project_kv(p, x, cfg, positions, rope: bool):
     return k, v
 
 
-def _project_qkv(p, x, cfg, positions, rope: bool = True):
-    return (_project_q(p, x, cfg, positions, rope),
-            *_project_kv(p, x, cfg, positions, rope))
+def tp_heads(cfg):
+    """Under a tensor-parallel mesh, the (query, kv) head ranges this
+    rank attends for: its model slice of the query heads where n_heads
+    divides the model axis (the reference's "heads" mode), with the kv
+    heads they read; else every head on every rank (the reference's
+    "seq" mode shards the queries' sequence instead; the port repeats
+    the whole attention per rank).  None without such a mesh."""
+    mesh = C.tp_mesh()
+    if mesh is None:
+        return None
+    t, r = mesh.axis_size(C.MODEL), mesh.coord(C.MODEL)
+    h, hk = cfg.n_heads, cfg.n_kv
+    if h % t:
+        return (0, h), (0, hk)
+    g = h // hk
+    h0, h1 = r * h // t, (r + 1) * h // t
+    return (h0, h1), (h0 // g, (h1 - 1) // g + 1)
 
 
 def flash_attention(q, k, v, *, q_chunk: int, kv_chunk: int,
@@ -143,48 +172,81 @@ def flash_attention(q, k, v, *, q_chunk: int, kv_chunk: int,
 
 
 def attention(p, x, cfg, *, positions, causal=True, rope=True,
-              kv_override=None):
+              kv_override=None, full_kv=False):
     """Full-sequence attention (train / prefill).  Returns (y, (k, v)).
 
     The returned (k, v) keep the compact n_kv head count (cache layout);
     the flash path repeats them to n_heads.  ``kv_override`` (k, v) (B, T,
     Hk, Dh) replaces x's own keys and values (cross-attention: the
-    encoder's projection).
+    encoder's projection).  Under a tensor-parallel mesh the returned
+    (k, v) are the kv heads this rank read (`tp_heads`), or every kv head
+    with ``full_kv``.
     """
-    if kv_override is None:
-        q, k, v = _project_qkv(p, x, cfg, positions, rope)
-    else:
-        q = _project_q(p, x, cfg, positions, rope)
+    heads = tp_heads(cfg)
+    qh, kh = heads if heads is not None else (None, None)
+    q = _project_q(p, x, cfg, positions, rope, qh)
+    if kv_override is not None:
         k, v = kv_override
-    return _attend_rows(p, q, k, v, cfg, causal=causal), (k, v)
+    else:
+        k, v = _project_kv(p, x, cfg, positions, rope,
+                           (0, cfg.n_kv) if full_kv and heads else kh)
+    y = _attend_rows(p, q, *_read_heads(k, v, heads), cfg, causal=causal,
+                     heads=heads)
+    return y, (k, v)
 
 
 def attend(p, x, cfg, positions, prefix_kv):
     """Causal self-attention of the rows of x, at ``positions``, over
     ``prefix_kv`` (B, C, Hk, Dh) cached rows for positions 0..C-1 (or
     none) and themselves.  Returns (y, (k, v)) of x's own rows."""
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    heads = tp_heads(cfg)
+    q = _project_q(p, x, cfg, positions, True,
+                   None if heads is None else heads[0])
+    k, v = _project_kv(p, x, cfg, positions, True,
+                       None if heads is None else (0, cfg.n_kv))
     kf, vf, n_cached = k, v, 0
     if prefix_kv is not None:
         pk, pv = prefix_kv
         kf = torch.cat([pk.to(q.dtype), k], dim=1)
         vf = torch.cat([pv.to(q.dtype), v], dim=1)
         n_cached = pk.shape[1]
-    return _attend_rows(p, q, kf, vf, cfg, q_offset=n_cached), (k, v)
+    y = _attend_rows(p, q, *_read_heads(kf, vf, heads), cfg,
+                     q_offset=n_cached, heads=heads)
+    return y, (k, v)
 
 
-def _attend_rows(p, q, k, v, cfg, *, causal=True, q_offset=0):
+def _read_heads(k, v, heads):
+    """The kv heads ``heads[1]`` of every kv head's (k, v), or (k, v) as
+    they are (unmeshed, or already those heads)."""
+    if heads is None or k.shape[2] == heads[1][1] - heads[1][0]:
+        return k, v
+    return k[:, :, heads[1][0]:heads[1][1]], v[:, :, heads[1][0]:heads[1][1]]
+
+
+def _attend_rows(p, q, k, v, cfg, *, causal=True, q_offset=0, heads=None):
     """The output projection of q's attention over (k, v) (B, T, Hk, Dh),
-    repeated to the full head count."""
+    repeated to the full head count (to q's heads ``heads[0]`` from the
+    kv heads ``heads[1]`` under a tensor-parallel mesh)."""
     g = cfg.n_heads // cfg.n_kv
-    kr = torch.repeat_interleave(k, g, dim=2) if g > 1 else k
-    vr = torch.repeat_interleave(v, g, dim=2) if g > 1 else v
+    if heads is not None:
+        (h0, h1), (k0, _) = heads
+        idx = torch.tensor([j // g - k0 for j in range(h0, h1)],
+                           device=k.device)
+        kr, vr = k.index_select(2, idx), v.index_select(2, idx)
+    else:
+        kr = torch.repeat_interleave(k, g, dim=2) if g > 1 else k
+        vr = torch.repeat_interleave(v, g, dim=2) if g > 1 else v
     out = flash_attention(q, kr, vr, q_chunk=cfg.attn_q_chunk,
                           kv_chunk=cfg.attn_kv_chunk, causal=causal,
                           q_offset=q_offset,
                           bf16_scores=cfg.attn_bf16_scores)
     b, s, _, _ = out.shape
-    return C.linear(p["wo"], out.reshape(b, s, -1), quant=cfg.quant)
+    return _out_proj(p, out.reshape(b, s, -1), cfg)
+
+
+def _out_proj(p, o, cfg):
+    return C.linear(p["wo"], o, quant=cfg.quant,
+                    dims=(cfg.n_heads * cfg.d_head, cfg.d_model))
 
 
 # ---------------------------------------------------------------------------
@@ -206,7 +268,8 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
     }
 
 
-def decode_attention(p, x, cfg, cache, pos, *, rope=True, cross=False):
+def decode_attention(p, x, cfg, cache, pos, *, rope=True, cross=False,
+                     kv_sharded: bool = True):
     """x (B, 1, D); pos (B,) int per-row write/read positions.
 
     Returns (y, cache).  The self-attention form writes the new k/v rows
@@ -214,7 +277,15 @@ def decode_attention(p, x, cfg, cache, pos, *, rope=True, cross=False):
     caller's tensors here are its own, so the port saves the copy).  The
     cross-attention form (whisper's decoder) reads the static encoder
     projection in ``cache``, writes nothing and masks nothing.
+
+    Under a tensor-parallel mesh see `_decode_attention_tp`;
+    ``kv_sharded`` says whether the cache holds this rank's model slice
+    of the sequence (the reference's placement) or all of it.
     """
+    mesh = C.tp_mesh()
+    if mesh is not None:
+        return _decode_attention_tp(p, x, cfg, cache, pos, rope, cross,
+                                    kv_sharded, mesh)
     b = x.shape[0]
     h, hk, dh = cfg.n_heads, cfg.n_kv, cfg.d_head
     pos = torch.as_tensor(pos, device=x.device).to(torch.int64)
@@ -245,5 +316,56 @@ def decode_attention(p, x, cfg, cache, pos, *, rope=True, cross=False):
     out = torch.einsum("bhgqk,bkhd->bqhgd", w.to(ve.dtype).to(torch.float32),
                        ve.to(torch.float32))
     out = out.reshape(b, 1, h * dh).to(x.dtype)
-    y = C.linear(p["wo"], out, quant=cfg.quant)
-    return y, {"k": k, "v": v}
+    return _out_proj(p, out, cfg), {"k": k, "v": v}
+
+
+def _decode_attention_tp(p, x, cfg, cache, pos, rope, cross, kv_sharded,
+                         mesh):
+    """`decode_attention` with the KV cache's sequence over ``model``
+    (flash-decoding, the reference's `cache_pspecs`).
+
+    Every rank takes every query head (all-gathered where ``wq`` is
+    column-sharded) against its slice [t0, t0 + T_l) of the cache, for
+    all kv heads.  The new token's k and v rows (every kv head) are
+    written only on the rank whose slice holds its position.  The
+    softmax is split: each rank's max is all-reduced (max), then its sum
+    of exponentials (sum), so every rank normalizes by the global sum,
+    rounds its weights to the cache dtype as the unsplit softmax's are,
+    and its weighted V is all-reduced (sum).  A replicated cache
+    (``kv_sharded=False``) attends locally."""
+    b = x.shape[0]
+    h, hk, dh = cfg.n_heads, cfg.n_kv, cfg.d_head
+    pos = torch.as_tensor(pos, device=x.device).to(torch.int64)
+    pos = pos.expand(b) if pos.dim() == 0 else pos
+    positions = pos[:, None]
+    q = _project_q(p, x, cfg, positions, rope, (0, h))
+    k, v = cache["k"], cache["v"]
+    t_l = k.shape[1]
+    t0 = mesh.coord(C.MODEL) * t_l if kv_sharded else 0
+    if not cross:
+        knew, vnew = _project_kv(p, x, cfg, positions, rope, (0, hk))
+        rows = torch.nonzero((pos >= t0) & (pos < t0 + t_l)).flatten()
+        k[rows, pos[rows] - t0] = knew[rows, 0].to(k.dtype)
+        v[rows, pos[rows] - t0] = vnew[rows, 0].to(v.dtype)
+    qg = q.reshape(b, 1, hk, h // hk, dh).to(torch.float32)
+    ke = k.to(q.dtype).to(torch.float32)
+    sc = torch.einsum("bqhgd,bkhd->bhgqk", qg, ke) * dh ** -0.5
+    if not cross:
+        live = (t0 + torch.arange(t_l, device=x.device))[None] \
+            <= pos[:, None]
+        sc = torch.where(live[:, None, None, None], sc,
+                         torch.full((), NEG_INF, dtype=sc.dtype,
+                                    device=x.device))
+    if kv_sharded:
+        m = mesh.all_reduce(sc.amax(dim=-1, keepdim=True), C.MODEL, "max")
+        e = torch.exp(sc - m)
+        w = e / mesh.all_reduce(e.sum(dim=-1, keepdim=True), C.MODEL)
+    else:
+        w = torch.softmax(sc, dim=-1)
+    ve = v.to(x.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w.to(ve.dtype).to(torch.float32),
+                       ve.to(torch.float32))
+    if kv_sharded:
+        out = mesh.all_reduce(out, C.MODEL)
+    out = out.reshape(b, 1, h * dh).to(x.dtype)
+    return _out_proj(p, out, cfg), {"k": k, "v": v}

@@ -85,6 +85,25 @@ class ShapeSpec:
     kind: str                        # train | prefill | decode
 
 
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+# Sub-quadratic sequence mixing is required for long_500k: only the SSM /
+# hybrid families run it; full-attention archs record a skip.
+LONG_CONTEXT_FAMILIES = ("ssm", "hybrid")
+
+
+def shapes_for(cfg: ArchConfig) -> list[str]:
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.family in LONG_CONTEXT_FAMILIES:
+        names.append("long_500k")
+    return names
+
+
 def reduce_for_smoke(cfg: ArchConfig) -> ArchConfig:
     """Same-family reduced config for CPU smoke tests."""
     kw = dict(

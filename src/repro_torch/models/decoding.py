@@ -2,8 +2,9 @@
 
 Cache layout: stacked over layers, ``{"kv": {"k"/"v": (L, B, T, Hk,
 Dh)}}``, as in the reference (deepseek-moe's leading dense layers use
-the first cache slots).  A decode step writes its new rows into the KV
-caches it is given, in place, and returns them.  The ssm family carries
+the first cache slots); on a tensor-parallel mesh each rank holds its
+model slice of T (`cache_pspecs`).  A decode step writes its new rows
+into the KV caches it is given, in place, and returns them.  The ssm family carries
 ``{"ssm": {"conv_x", "conv_b", "conv_c": (L, B, W-1, Ch) bf16, "ssm":
 (L, B, H, P, N) f32}}`` instead, constant in sequence length; its decode
 step returns new state tensors and leaves the given ones as they were
@@ -20,7 +21,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.placement import P
 from repro_torch.models import attention as attn
+from repro_torch.models import common as C
 from repro_torch.models import mamba2, mlp, moe
 from repro_torch.models import transformer as TF
 from repro_torch.models.config import ArchConfig
@@ -78,12 +81,17 @@ def _moe(lp, x, cfg):
 # ---------------------------------------------------------------------------
 
 
-def decode_step(p, token, caches, pos, cfg: ArchConfig):
+def decode_step(p, token, caches, pos, cfg: ArchConfig, *,
+                kv_sharded: bool = True):
     """token (B, 1) int; pos (B,) int (unused by the ssm family).
-    Returns (logits, caches)."""
+    Returns (logits, caches).  Under a tensor-parallel mesh the logits
+    are this rank's vocabulary slice and ``kv_sharded`` says whether the
+    KV caches hold its model slice of the sequence (`cache_pspecs`) or
+    all of it."""
+    TF.check_tp(cfg)
     x = TF._embed(p, token, cfg)
     if cfg.family in ("dense", "vlm", "moe"):
-        x, kv = _decode_attn_stack(p, x, caches["kv"], pos, cfg)
+        x, kv = _decode_attn_stack(p, x, caches["kv"], pos, cfg, kv_sharded)
         new = {"kv": kv}
     elif cfg.family == "ssm":
         x, st = _decode_ssm_stack(p, x, caches["ssm"], cfg)
@@ -102,18 +110,38 @@ def decode_step(p, token, caches, pos, cfg: ArchConfig):
     return x @ TF.head_weight(p, cfg), new
 
 
-def _decode_attn_stack(p, x, kv, pos, cfg):
+def cache_pspecs(cfg: ArchConfig):
+    """Partition specs matching `init_caches`: the reference's, with the
+    KV caches' sequence over ``model`` (flash-decoding layout)."""
+    kvspec = {"k": P(None, C.BATCH, C.MODEL, None, None),
+              "v": P(None, C.BATCH, C.MODEL, None, None)}
+    if cfg.family in ("dense", "vlm", "moe"):
+        return {"kv": kvspec}
+    ssm_spec = {"conv_x": P(None, C.BATCH, None, C.MODEL),
+                "conv_b": P(None, C.BATCH, None, None),
+                "conv_c": P(None, C.BATCH, None, None),
+                "ssm": P(None, C.BATCH, C.MODEL, None, None)}
+    if cfg.family == "ssm":
+        return {"ssm": ssm_spec}
+    if cfg.family == "hybrid":
+        return {"ssm": ssm_spec, "kv": kvspec}
+    if cfg.family == "encdec":
+        return {"kv": kvspec, "cross": kvspec}
+    raise ValueError(cfg.family)
+
+
+def _decode_attn_stack(p, x, kv, pos, cfg, kv_sharded=True):
     for i, (lp, lcfg, ffn) in enumerate(_attn_layers(p, cfg)):
         x = _decode_body(x, lp, kv["k"][i], kv["v"][i], cfg=lcfg, pos=pos,
-                         ffn=ffn)
+                         ffn=ffn, kv_sharded=kv_sharded)
     return x, kv
 
 
-def _decode_body(h, lp, ck, cv, *, cfg, pos, ffn=_mlp):
+def _decode_body(h, lp, ck, cv, *, cfg, pos, ffn=_mlp, kv_sharded=True):
     """One layer of a decode step; writes its k/v rows into ck/cv."""
     a, _ = attn.decode_attention(
         lp["attn"], TF._norm(cfg, lp["ln1"], h), cfg, {"k": ck, "v": cv},
-        pos)
+        pos, kv_sharded=kv_sharded)
     h = h + a
     return h + ffn(lp, TF._norm(cfg, lp["ln2"], h), cfg)
 
@@ -182,6 +210,7 @@ def prefill_with_cache(p, batch, cfg: ArchConfig, max_len: int):
             "see serving runtime")
     if cfg.family not in ("dense", "vlm", "moe"):
         raise ValueError(cfg.family)
+    TF.check_tp(cfg)
     tokens = batch["tokens"]
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)[None]
@@ -190,17 +219,29 @@ def prefill_with_cache(p, batch, cfg: ArchConfig, max_len: int):
     for lp, lcfg, ffn in _attn_layers(p, cfg):
         x, (k, v) = _prefill_body(x, lp, cfg=lcfg, positions=positions,
                                   max_len=max_len, ffn=ffn)
-        ks.append(k)
-        vs.append(v)
+        ks.append(_seq_slice(k, max_len))
+        vs.append(_seq_slice(v, max_len))
     caches = {"kv": {"k": torch.stack(ks), "v": torch.stack(vs)}}
     x = TF._norm(cfg, p["ln_f"], x[:, -1:])
     return x @ TF.head_weight(p, cfg), caches
 
 
+def _seq_slice(t, max_len: int):
+    """A prefilled cache (B, max_len, Hk, Dh): under a tensor-parallel
+    mesh this rank's model slice of the sequence where max_len divides
+    the model axis (the placement `decode_step` takes by default), else
+    all of it."""
+    mesh = C.tp_mesh()
+    if mesh is None or max_len % mesh.axis_size(C.MODEL):
+        return t
+    n = max_len // mesh.axis_size(C.MODEL)
+    return t[:, mesh.coord(C.MODEL) * n:][:, :n].contiguous()
+
+
 def _prefill_body(h, lp, *, cfg, positions, max_len, ffn=_mlp):
     s = h.shape[1]
     a, (k, v) = attn.attention(lp["attn"], TF._norm(cfg, lp["ln1"], h), cfg,
-                               positions=positions)
+                               positions=positions, full_kv=True)
     h = h + a
     y = ffn(lp, TF._norm(cfg, lp["ln2"], h), cfg)
     pad = (0, 0, 0, 0, 0, max_len - s)

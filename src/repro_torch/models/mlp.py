@@ -1,4 +1,4 @@
-"""Dense FFN (SwiGLU / GELU)."""
+"""Dense FFN (SwiGLU / GELU) with Megatron column/row TP sharding."""
 
 from __future__ import annotations
 
@@ -20,10 +20,13 @@ def init(gen, cfg, d_model=None, d_ff=None):
 
 
 def apply(p, x, cfg):
-    up = C.linear(p["up"], x, quant=cfg.quant)
+    """Under a tensor-parallel mesh up/gate are column-sharded (h holds
+    this rank's slice of d_ff) and down row-sharded (`common.linear`)."""
+    d, f = x.shape[-1], cfg.d_ff
+    up = C.linear(p["up"], x, quant=cfg.quant, dims=(d, f))
     if cfg.act == "silu":
-        gate = C.linear(p["gate"], x, quant=cfg.quant)
+        gate = C.linear(p["gate"], x, quant=cfg.quant, dims=(d, f))
         h = F.silu(gate) * up
     else:
         h = F.gelu(up, approximate="tanh")     # jax.nn.gelu's default
-    return C.linear(p["down"], h, quant=cfg.quant)
+    return C.linear(p["down"], h, quant=cfg.quant, dims=(f, d))

@@ -23,8 +23,17 @@ The reference's choices are kept where they decide a result:
   card give the same bits;
 * a padded prefill bucket's tokens route and take capacity too.
 
-The reference's shard_map expert parallelism (``moe_impl="ep"`` under a
-mesh) waits for ROADMAP.md §1 item 9: the port runs on one device.
+Under a mesh (`repro_torch.models.common.use_mesh`) each rank routes
+its own batch rows (the data shard), with a capacity from its own token
+count, as the reference's expert parallelism does, and the aux losses
+are the mean of the data shards'.  ``moe_impl="ep"`` on a mesh whose
+``model`` axis divides ``n_experts`` runs `_apply_ep`, the reference's
+shard_map expert parallelism: each model rank holds E/tp experts, the
+tokens are replicated over ``model``, every rank dispatches over the
+global expert ids and keeps only its own experts' assignments, and one
+all-reduce over ``model`` combines ``y``.  The dense dispatch on a mesh
+whose experts are sharded runs each rank's experts on its slice of the
+dispatch buffer and all-gathers their rows.
 Aux losses (switch-style load balance, router z-loss) come back as the
 reference's.
 """
@@ -58,13 +67,47 @@ def _capacity(n_tokens: int, cfg) -> int:
     return max(128, -(-c // 128) * 128)            # 128-aligned, >= 128
 
 
-def apply(p, x, cfg, mesh=None):
+def apply(p, x, cfg):
     """x (B, S, D) -> (y, aux) with aux = {lb_loss, z_loss}."""
-    if cfg.moe_impl == "ep" and mesh is not None:
-        raise NotImplementedError(
-            "expert parallelism (moe_impl='ep' over a mesh) is not ported: "
-            "ROADMAP.md §1 item 9")
+    mesh = C.get_mesh()
+    if (cfg.moe_impl == "ep" and mesh is not None
+            and "model" in mesh.axis_names
+            and cfg.n_experts % mesh.shape["model"] == 0):
+        return _apply_ep(p, x, cfg, mesh)
     return _apply_dense(p, x, cfg)
+
+
+def _aux(logits, probs, idx, e):
+    """Switch-style load balance and router z-loss of one dispatch; on a
+    mesh, the mean over its data shards."""
+    me = probs.mean(dim=0)                                   # (E,)
+    ce = F.one_hot(idx, e).to(torch.float32).sum(dim=1).mean(dim=0)
+    lb_loss = e * (me * ce).sum()
+    z_loss = (torch.logsumexp(logits, dim=-1) ** 2).mean()
+    mesh = C.get_mesh()
+    if mesh is None:
+        return lb_loss, z_loss
+    dp = 1
+    for a in C.BATCH:
+        dp *= mesh.axis_size(a)
+    return C.batch_sum(lb_loss) / dp, C.batch_sum(z_loss) / dp
+
+
+def _shared(p, x, y, cfg):
+    if "shared" in p:
+        shared_cfg = cfg.replace(d_ff=cfg.d_ff_expert * cfg.n_shared_experts)
+        y = y + mlp.apply(p["shared"], x, shared_cfg)
+    return y
+
+
+def _experts(p, e0: int, e1: int):
+    """The expert weights [e0, e1) of the local leaves (which hold all
+    experts, or exactly those)."""
+    out = []
+    for k in ("gate_proj", "up_proj", "down_proj"):
+        w = p[k]
+        out.append(w if w.shape[0] == e1 - e0 else w[e0:e1])
+    return out
 
 
 def route(p, xt, cfg):
@@ -119,11 +162,7 @@ def _apply_dense(p, x, cfg):
     xt = x.reshape(t, d)
     logits, probs, gates, idx = route(p, xt, cfg)
 
-    # ---- aux losses (switch-transformer style) ----
-    me = probs.mean(dim=0)                                   # (E,)
-    ce = F.one_hot(idx, e).to(torch.float32).sum(dim=1).mean(dim=0)
-    lb_loss = e * (me * ce).sum()
-    z_loss = (torch.logsumexp(logits, dim=-1) ** 2).mean()
+    lb_loss, z_loss = _aux(logits, probs, idx, e)
 
     # ---- sort-based dispatch: kept rows copied into their own slots ----
     order, sorted_e, token_of, keep, slot = dispatch(idx, cap, e)
@@ -133,17 +172,59 @@ def _apply_dense(p, x, cfg):
     buf = buf[:e * cap].reshape(e, cap, d)
 
     # ---- expert SwiGLU (batched over experts) ----
-    gate = torch.bmm(buf, p["gate_proj"])
-    up = torch.bmm(buf, p["up_proj"])
-    h = F.silu(gate) * up
-    out = torch.bmm(h, p["down_proj"]).reshape(e * cap, d)
+    mesh = C.get_mesh()
+    if p["gate_proj"].shape[0] == e:
+        out = _expert_ffn(buf, p["gate_proj"], p["up_proj"], p["down_proj"])
+    else:                        # this rank's experts; their rows gathered
+        el = p["gate_proj"].shape[0]
+        e0 = mesh.coord(C.MODEL) * el
+        out = mesh.all_gather(
+            _expert_ffn(buf[e0:e0 + el], *_experts(p, e0, e0 + el)),
+            C.MODEL, dim=0)
+    out = out.reshape(e * cap, d)
 
     # ---- combine: k gated rows per token, in ascending expert order ----
     flat_gates = gates.reshape(-1)[order]
     contrib = out[slot] * (flat_gates * keep).to(x.dtype)[:, None]
     y = combine(contrib, order, t, k).reshape(b, s, d)
+    return _shared(p, x, y, cfg), {"lb_loss": lb_loss, "z_loss": z_loss}
 
-    if "shared" in p:
-        shared_cfg = cfg.replace(d_ff=cfg.d_ff_expert * cfg.n_shared_experts)
-        y = y + mlp.apply(p["shared"], x, shared_cfg)
-    return y, {"lb_loss": lb_loss, "z_loss": z_loss}
+
+def _expert_ffn(buf, gate_w, up_w, down_w):
+    gate = torch.bmm(buf, gate_w)
+    up = torch.bmm(buf, up_w)
+    return torch.bmm(F.silu(gate) * up, down_w)
+
+
+def _apply_ep(p, x, cfg, mesh):
+    """Expert parallelism (the reference's shard_map ``local_fn``): x
+    (b_l, S, D) is this data shard's tokens, replicated over ``model``;
+    this rank runs the experts [m * E/tp, (m + 1) * E/tp).  The dispatch
+    runs over the global expert ids (the same on every model rank) at a
+    128-aligned capacity per (data shard, expert); assignments to other
+    ranks' experts add zero rows, and the all-reduce over ``model``
+    combines ``y``."""
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.n_experts, cfg.topk
+    el = e // mesh.shape[C.MODEL]
+    e0 = mesh.coord(C.MODEL) * el
+    cap = _capacity(t, cfg)
+    xt = x.reshape(t, d)
+    logits, probs, gates, idx = route(p, xt, cfg)
+    lb_loss, z_loss = _aux(logits, probs, idx, e)
+
+    order, sorted_e, token_of, keep, slot = dispatch(idx, cap, e)
+    keep = keep & (sorted_e >= e0) & (sorted_e < e0 + el)
+    slot = torch.where(keep, slot - e0 * cap, 0)       # local slots
+    dest = torch.where(keep, slot, el * cap)
+    buf = x.new_zeros((el * cap + 1, d))
+    buf[dest] = xt[token_of]
+    out = _expert_ffn(buf[:el * cap].reshape(el, cap, d),
+                      *_experts(p, e0, e0 + el)).reshape(el * cap, d)
+
+    flat_gates = gates.reshape(-1)[order]
+    contrib = out[slot] * (flat_gates * keep).to(x.dtype)[:, None]
+    y = mesh.all_reduce(combine(contrib, order, t, k), C.MODEL)
+    return (_shared(p, x, y.reshape(b, s, d), cfg),
+            {"lb_loss": lb_loss, "z_loss": z_loss})

@@ -198,7 +198,32 @@ def head_weight(p, cfg):
 
 
 def _embed(p, tokens, cfg):
-    return p["embed"][tokens].to(torch.bfloat16)
+    """Token embeddings; under a tensor-parallel mesh ``embed`` holds this
+    rank's vocabulary slice (``P("model", None)``): a lookup masked to
+    the slice, then an all-reduce over ``model``."""
+    e = p["embed"]
+    mesh = C.tp_mesh()
+    if mesh is None or e.shape[0] == vocab_padded(cfg):
+        return e[tokens].to(torch.bfloat16)
+    n = e.shape[0]
+    v0 = mesh.coord(C.MODEL) * n
+    mine = (tokens >= v0) & (tokens < v0 + n)
+    rows = e[(tokens - v0).clamp(0, n - 1)] * mine[..., None].to(e.dtype)
+    return mesh.all_reduce(rows, C.MODEL).to(torch.bfloat16)
+
+
+#: the families with model-axis tensor parallelism
+TP_FAMILIES = ("dense", "moe", "vlm")
+
+
+def check_tp(cfg: ArchConfig) -> None:
+    """Refuse a tensor-parallel mesh for a family without model-axis TP
+    (it runs on any ``data`` mesh)."""
+    if C.tp_mesh() is not None and cfg.family not in TP_FAMILIES:
+        raise NotImplementedError(
+            f"model-axis tensor parallelism for the {cfg.family} family is "
+            "not ported yet (ROADMAP.md §1 item 12); run it on a mesh "
+            "without a model axis larger than 1")
 
 
 def _runner(cfg):
@@ -284,15 +309,21 @@ def _xattn_kv(pattn, enc_out, cfg):
 
 def project_patches(p, patches):
     """llava's projector: fc2(gelu(fc1(patches))), bf16, no quantization."""
-    img = C.linear(p["mm_proj"]["fc1"], patches.to(torch.bfloat16))
-    return C.linear(p["mm_proj"]["fc2"],
-                    torch.nn.functional.gelu(img, approximate="tanh"))
+    fc1, fc2 = p["mm_proj"]["fc1"], p["mm_proj"]["fc2"]
+    d = fc2["w"].shape[1]
+    img = C.linear(fc1, patches.to(torch.bfloat16),
+                   dims=(patches.shape[-1], d))
+    return C.linear(fc2, torch.nn.functional.gelu(img, approximate="tanh"),
+                    dims=(d, d))
 
 
 def forward_loss(p, batch, cfg):
     """Training forward -> (scalar loss, metrics).  ``batch`` holds
     ``tokens`` and ``labels`` (B, S), and ``frames`` (B, T, D) for encdec
-    or ``patches`` (B, P, d_vision) for vlm."""
+    or ``patches`` (B, P, d_vision) for vlm.  On a mesh each rank holds
+    its batch rows and the loss is the global token mean
+    (`losses.chunked_xent`)."""
+    check_tp(cfg)
     tokens = batch["tokens"]
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)[None]
@@ -312,14 +343,17 @@ def forward_loss(p, batch, cfg):
         x, aux = backbone(p, _embed(p, tokens, cfg), cfg, positions)
     x = _norm(cfg, p["ln_f"], x)
     loss, cnt = losses.chunked_xent(x, head_weight(p, cfg), batch["labels"],
-                                    chunk=cfg.loss_chunk)
+                                    chunk=cfg.loss_chunk,
+                                    vocab=vocab_padded(cfg))
     total = loss + 1e-2 * aux["lb_loss"] + 1e-3 * aux["z_loss"]
     return total, {"xent": loss, **aux, "tokens": cnt}
 
 
 def forward_logits(p, batch, cfg):
     """Prefill forward -> last-position logits (serving path).  The vlm
-    branch reads the tokens only, as the reference's does."""
+    branch reads the tokens only, as the reference's does.  Under a
+    tensor-parallel mesh the logits are this rank's vocabulary slice."""
+    check_tp(cfg)
     tokens = batch["tokens"]
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)[None]

@@ -22,17 +22,26 @@ import torch
 from repro_torch.core import ternary as T
 
 
-def compress_leaf(g: torch.Tensor, residual=None):
-    """g -> (g_ternary, new_residual, zero share of the trits)."""
+def compress_leaf(g: torch.Tensor, residual=None, psum=None,
+                  n_shards: int = 1):
+    """g -> (g_ternary, new_residual, zero share of the trits).
+
+    ``g`` may be one of ``n_shards`` equal slices of a tensor: ``psum``
+    then sums the per-tensor statistics' partial sums over the slices
+    (see `repro_torch.core.ternary.twn_delta`), so every slice takes the
+    whole tensor's threshold, scale and zero share."""
     gf = g.to(torch.float32)
     if residual is not None:
         gf = gf + residual
-    delta = T.twn_delta(gf)                     # per-tensor threshold
+    delta = T.twn_delta(gf, psum=psum, n_shards=n_shards)  # per tensor
     q = T.ternarize(gf, delta)
-    scale = T.twn_scale(gf, q)
+    scale = T.twn_scale(gf, q, psum=psum)
     gq = (scale * q).to(g.dtype)
     res = gf - gq.to(torch.float32)
-    return gq, res, (q == 0).to(torch.float32).mean()
+    zeros = (q == 0).to(torch.float32)
+    if psum is None:
+        return gq, res, zeros.mean()
+    return gq, res, psum(zeros.sum()) / (zeros.numel() * n_shards)
 
 
 def _map(fn, tree):
@@ -41,16 +50,19 @@ def _map(fn, tree):
     return [fn(v) for v in tree]
 
 
-def compress_tree(grads):
-    """Stateless ternarization of every leaf (wire-format compression)."""
+def compress_tree(grads, shards=None):
+    """Stateless ternarization of every leaf (wire-format compression).
+    ``shards``: for a list of slices, each leaf's ``(psum, n_shards)``
+    (see `compress_leaf`)."""
     sp = []
 
-    def leaf(g):
-        gq, _, s = compress_leaf(g)
+    def leaf(g, shard=(None, 1)):
+        gq, _, s = compress_leaf(g, None, *shard)
         sp.append(s)
         return gq
 
-    out = _map(leaf, grads)
+    out = (_map(leaf, grads) if shards is None
+           else [leaf(g, s) for g, s in zip(grads, shards, strict=True)])
     stats = {"grad_sparsity": torch.stack(sp).mean()} if sp else {}
     return out, stats
 

@@ -24,9 +24,24 @@ PyTorch:
 ``jax.value_and_grad`` + ``jax.jit`` become one eager forward and
 `torch.autograd.grad`.  Parameters are a tree of dicts and lists of
 tensors; the optimizer sees its leaves in the checkpoint's order (dict
-keys sorted, as JAX orders a tree's leaves).  Restoring onto a device
-mesh (``mesh=``, ``pspecs=``, or a non-elastic restore, ``elastic=False``)
-waits for the port's mesh (ROADMAP.md §1 item 9) and raises.
+keys sorted, as JAX orders a tree's leaves).
+
+On a device mesh (``mesh=``, `repro_torch.launch.mesh.Mesh`; one process
+per mesh position, every rank calling `train` with the same global
+``params`` and ``data_fn``) each rank trains its slices of the
+parameters under ``pspecs`` (default: `shardings.param_specs` of the
+params) with ZeRO-1 moments, on its rows of each batch
+(`repro_torch.data.pipeline.make_global`); the loss is the global token
+mean.  INQ masks and ternary gradient compression act on each rank's
+slices, after the gradients are reduced, with the whole leaf's
+statistics: a compressed slice's per-tensor threshold and scale sum
+their partial sums over the leaf's sharded axes, and an INQ freeze
+ranks and quantizes the gathered leaf, then keeps this rank's slice.
+Checkpoints hold
+the global tree (gathered, written by rank 0).  ``elastic=True``
+restores the latest one onto this run's mesh, whatever mesh saved it;
+``elastic=False`` restores it whole and then cuts this rank's slices.
+The returned params and moments are this rank's slices.
 """
 
 from __future__ import annotations
@@ -41,6 +56,9 @@ import torch
 
 from repro_torch import checkpoint as ckpt
 from repro_torch.core import inq
+from repro_torch.data.pipeline import make_global
+from repro_torch.launch import shardings as SH
+from repro_torch.models import common as C
 from repro_torch.optim import adam, compress
 
 
@@ -56,7 +74,7 @@ class TrainLoopConfig:
     fail_at_step: int = -1            # preemption simulation (-1 = off)
     grad_compress: str = "none"       # none | ternary
     inq: inq.INQConfig | None = None  # staged quantization (QAT runs)
-    elastic: bool = True              # False raises (ROADMAP.md §1 item 9)
+    elastic: bool = True
 
 
 def _leaves(tree) -> list:
@@ -85,25 +103,32 @@ def _rebuild(template, it):
 
 
 def make_step(loss_fn: Callable, adam_cfg: adam.AdamConfig,
-              cfg: TrainLoopConfig):
-    """loss_fn(params, batch) -> (loss, metrics dict)."""
+              cfg: TrainLoopConfig, placement: adam.Placement | None = None):
+    """loss_fn(params, batch) -> (loss, metrics dict).  With a
+    ``placement`` the step runs on this rank's slices under its mesh."""
 
     def step(params, opt_state, inq_state, batch):
         leaves = [t.detach().requires_grad_(True) for t in _leaves(params)]
         p = _rebuild(params, iter(leaves))
         eff = inq.apply(inq_state, p) if inq_state is not None else p
-        loss, metrics = loss_fn(eff, batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with C.use_mesh(None if placement is None else placement.mesh):
+            loss, metrics = loss_fn(eff, batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(t) if g is None else g
                  for t, g in zip(leaves, grads)]
+        if placement is not None:
+            grads = adam.reduce_grads(grads, placement)
         if inq_state is not None:
             grads = _leaves(inq.mask_grads(
                 inq_state, _rebuild(params, iter(grads))))
         if cfg.grad_compress == "ternary":
-            grads, comp_metrics = compress.compress_tree(grads)
+            grads, comp_metrics = compress.compress_tree(
+                grads, None if placement is None else
+                [placement.shard_sum(i) for i in range(len(grads))])
             metrics = {**metrics, **comp_metrics}
         new, opt_state, om = adam.apply_update(
-            [t.detach() for t in leaves], grads, opt_state, adam_cfg)
+            [t.detach() for t in leaves], grads, opt_state, adam_cfg,
+            placement)
         return (_rebuild(params, iter(new)), opt_state,
                 {**metrics, **om, "loss": loss.detach()})
 
@@ -129,14 +154,26 @@ def train(loss_fn: Callable, params: Any, data_fn: Callable,
     Returns {params, opt_state, inq_state, history, stragglers,
     restored_from}.
     """
-    if mesh is not None or pspecs is not None or not cfg.elastic:
-        raise NotImplementedError(
-            "training on a device mesh (mesh=, pspecs=, elastic=False) "
-            "waits for the port's mesh (ROADMAP.md §1 item 9)")
     adam_cfg = adam_cfg or adam.AdamConfig(total_steps=cfg.total_steps)
     hooks = hooks or {}
-    opt_state = adam.init_state(_leaves(params))
+    if mesh is None and pspecs is not None:
+        raise ValueError("partition specs without a mesh: pass mesh=")
+    placement = specs = None
+    if mesh is not None:
+        if pspecs is None:
+            pspecs = SH.param_specs(params, mesh)
+        zspecs = SH.zero1_specs(params, pspecs, mesh)
+        placement = adam.Placement(mesh, tuple(SH.spec_leaves(pspecs)),
+                                   tuple(SH.spec_leaves(zspecs)))
+        params = SH.shard_tree(params, pspecs, mesh)
+    opt_state = adam.init_state(_leaves(params), placement)
     inq_state = inq.init_state(params) if cfg.inq is not None else None
+    if mesh is not None:
+        specs = {"params": pspecs,
+                 "opt": {"mu": list(placement.zspecs),
+                         "nu": list(placement.zspecs), "step": SH.P()}}
+        if inq_state is not None:
+            specs["inq"] = _inq_specs(inq_state, pspecs)
     inq_frac = 0.0
     start_step = 0
     restored_from = None
@@ -149,7 +186,15 @@ def train(loss_fn: Callable, params: Any, data_fn: Callable,
             tmpl = {"params": params, "opt": opt_state}
             if inq_state is not None:
                 tmpl["inq"] = inq_state
-            tree, manifest = manager.restore_latest(tmpl)
+            if mesh is None:
+                tree, manifest = manager.restore_latest(tmpl)
+            elif cfg.elastic:
+                tree, manifest = manager.restore_latest(tmpl, mesh=mesh,
+                                                        pspecs=specs)
+            else:                  # whole, then this rank's slices
+                tree, manifest = manager.restore_latest(
+                    SH.gather_tree(tmpl, specs, mesh))
+                tree = SH.shard_tree(tree, specs, mesh)
             params, opt_state = tree["params"], tree["opt"]
             opt_state["step"] = int(opt_state["step"])
             inq_state = tree.get("inq", inq_state)
@@ -157,7 +202,9 @@ def train(loss_fn: Callable, params: Any, data_fn: Callable,
             inq_frac = manifest["extra"].get("inq_frac", 0.0)
             restored_from = manifest["step"]
 
-    step_fn = make_step(loss_fn, adam_cfg, cfg)
+    step_fn = make_step(loss_fn, adam_cfg, cfg, placement)
+    if mesh is not None:
+        bspecs = None
 
     history, stragglers = [], []
     ewma_t = None
@@ -166,15 +213,22 @@ def train(loss_fn: Callable, params: Any, data_fn: Callable,
         if cfg.inq is not None:
             want = inq.phase_for_step(step, cfg.total_steps, cfg.inq)
             if want > inq_frac:
-                inq_state = inq.freeze(inq_state, params, want, cfg.inq)
+                inq_state = _freeze(inq_state, params, want, cfg.inq,
+                                    mesh, specs)
                 inq_frac = want
         if step == cfg.fail_at_step:
             if manager:
                 manager.wait()
+            if mesh is not None:
+                mesh.barrier()
             raise PreemptionError(f"simulated preemption at step {step}")
 
         t0 = time.perf_counter()
         batch = data_fn(step)
+        if mesh is not None:
+            if bspecs is None:
+                bspecs = _batch_specs(batch, mesh)
+            batch = make_global(batch, mesh, bspecs)
         params, opt_state, metrics = step_fn(
             params, opt_state, inq_state, batch)
         float(metrics["loss"])                 # waits for the step
@@ -207,19 +261,63 @@ def train(loss_fn: Callable, params: Any, data_fn: Callable,
             tree = {"params": params, "opt": opt_state}
             if inq_state is not None:
                 tree["inq"] = inq_state
-            manager.save_async(step, tree, extra={"inq_frac": inq_frac})
+            manager.save_async(step, tree, extra={"inq_frac": inq_frac},
+                               mesh=mesh, pspecs=specs)
 
     if manager:
         tree = {"params": params, "opt": opt_state}
         if inq_state is not None:
             tree["inq"] = inq_state
         manager.save_async(cfg.total_steps - 1, tree,
-                           extra={"inq_frac": inq_frac})
+                           extra={"inq_frac": inq_frac}, mesh=mesh,
+                           pspecs=specs)
         manager.wait()
+        if mesh is not None:
+            mesh.barrier()
 
     return {"params": params, "opt_state": opt_state,
             "inq_state": inq_state, "history": history,
-            "stragglers": stragglers, "restored_from": restored_from}
+            "stragglers": stragglers, "restored_from": restored_from,
+            "pspecs": pspecs}
+
+
+def _freeze(state, params, frac: float, icfg, mesh, specs):
+    """`inq.freeze`; on a mesh over the gathered leaves, so the ranking
+    and the group statistics are the whole tensor's, then sliced."""
+    if mesh is None:
+        return inq.freeze(state, params, frac, icfg)
+    whole = inq.freeze(SH.gather_tree(state, specs["inq"], mesh),
+                       SH.gather_tree(params, specs["params"], mesh),
+                       frac, icfg)
+    return SH.shard_tree(whole, specs["inq"], mesh)
+
+
+def _inq_specs(state, pspecs):
+    """The INQ state's specs: each ``{"mask", "q"}`` its weight's."""
+    if state is None:
+        return None
+    if inq._is_st(state):
+        return {"mask": pspecs, "q": pspecs}
+    if isinstance(state, dict):
+        return {k: _inq_specs(state[k], pspecs[k]) for k in state}
+    return [_inq_specs(s, p) for s, p in zip(state, pspecs, strict=True)]
+
+
+def _batch_specs(batch: dict, mesh) -> dict:
+    """Every batch leaf's rows over the mesh's batch axes; the batch
+    must divide them (a replicated batch would count twice in the
+    global token mean)."""
+    axes = tuple(a for a in C.BATCH if a in mesh.axis_names)
+    dp = 1
+    for a in axes:
+        dp *= mesh.shape[a]
+    specs = {}
+    for k, v in batch.items():
+        if v.shape[0] % dp:
+            raise ValueError(f"batch leaf {k!r} has {v.shape[0]} rows, "
+                             f"which do not divide into {dp} data shards")
+        specs[k] = SH.P(axes, *([None] * (len(v.shape) - 1)))
+    return specs
 
 
 def write_history(path: str, result: dict):

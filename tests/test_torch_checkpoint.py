@@ -214,13 +214,30 @@ def test_save_async_copies_before_it_returns(tmp_path):
 
 
 def test_mesh_restore_names_its_roadmap_item(tmp_path):
-    ckpt.save(str(tmp_path), 0, {"a": np.zeros(1)})
-    for kw in ({"mesh": object()}, {"pspecs": {"a": None}}):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            ckpt.restore(str(tmp_path), {"a": np.zeros(1)}, **kw)
+    """A restore onto a mesh keeps this rank's slice of each leaf under
+    its spec (the meshed save and the elastic restore across meshes run
+    in tests/test_torch_model_mesh.py); ``CheckpointManager`` passes mesh
+    and specs through, and a spec tree of another length refuses."""
+    from repro_torch.launch.shardings import P
+
+    class Rank1Of2:                      # rank 1's view of a data:2 mesh
+        axis_names, shape = ("data",), {"data": 2}
+
+        def coord(self, axis):
+            return 1
+
+    a = torch.arange(8, dtype=torch.float32).reshape(4, 2)
+    ckpt.save(str(tmp_path), 0, {"a": a, "n": np.zeros(1)})
+    tmpl = {"a": torch.zeros((2, 2)), "n": np.zeros(1)}
+    specs = {"a": P("data", None), "n": P(None)}
+    got, _ = ckpt.restore(str(tmp_path), tmpl, mesh=Rank1Of2(), pspecs=specs)
+    assert torch.equal(got["a"], a[2:])
     mgr = ckpt.CheckpointManager(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        mgr.restore_latest({"a": np.zeros(1)}, mesh=object())
+    got, _ = mgr.restore_latest(tmpl, mesh=Rank1Of2(), pspecs=specs)
+    assert torch.equal(got["a"], a[2:]) and np.array_equal(got["n"],
+                                                           np.zeros(1))
+    with pytest.raises(ValueError, match="specs"):
+        ckpt.restore(str(tmp_path), tmpl, pspecs={"a": P(None)})
 
 
 def test_cnn_params_round_trip_both_ways(tmp_path):

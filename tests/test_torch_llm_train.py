@@ -342,13 +342,46 @@ def test_preempt_and_resume_bit_identical(setting, tmp_path):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("kw,cfg_kw", [({"mesh": object()}, {}),
+class _OneRankOfTwo:
+    """Rank 0's view of a ``data:2`` mesh, without a process group: the
+    loop shards its params before it draws a batch."""
+    axis_names, shape, size, device = ("data",), {"data": 2}, 2, "cpu"
+
+    def coord(self, axis):
+        return 0
+
+    def axis_size(self, axis):
+        return self.shape.get(axis, 1)
+
+
+@pytest.mark.parametrize("kw,cfg_kw", [({"mesh": _OneRankOfTwo()}, {}),
                                        ({"pspecs": {}}, {}),
                                        ({}, {"elastic": False})],
                          ids=["mesh", "pspecs", "elastic"])
-def test_loop_refuses_a_mesh(kw, cfg_kw):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        loop.train(None, {}, None, loop.TrainLoopConfig(**cfg_kw), **kw)
+def test_loop_refuses_a_mesh(kw, cfg_kw, tmp_path):
+    """The mesh loop's refusals (tests/test_torch_model_mesh.py trains on
+    real meshes): a batch whose rows do not divide the data shards (it
+    would count twice in the global token mean), specs without a mesh.
+    ``elastic=False`` without a mesh is the reference's plain restore."""
+    params = {"w": torch.ones((4, 2))}
+
+    def loss_fn(p, batch):
+        return (p["w"] * batch["x"].sum()).sum(), {}
+
+    def data_fn(step):
+        return {"x": torch.ones((3, 2))}
+
+    if "elastic" in cfg_kw:
+        tcfg = loop.TrainLoopConfig(total_steps=2, ckpt_dir=str(tmp_path),
+                                    ckpt_every=1, **cfg_kw)
+        loop.train(loss_fn, params, data_fn, tcfg)
+        res = loop.train(loss_fn, params, data_fn, loop.TrainLoopConfig(
+            total_steps=3, ckpt_dir=str(tmp_path), ckpt_every=1, **cfg_kw))
+        assert res["restored_from"] == 1
+        return
+    with pytest.raises(ValueError, match="data shards|without a mesh"):
+        loop.train(loss_fn, params, data_fn,
+                   loop.TrainLoopConfig(total_steps=1, **cfg_kw), **kw)
 
 
 def test_launch_train_cli(tmp_path, capsys):

@@ -126,8 +126,9 @@ def test_moe_apply_matches_reference():
     _close(y, jy, _moe_tol(jy))
     for k in ("lb_loss", "z_loss"):
         assert float(aux[k]) == pytest.approx(float(jaux[k]), rel=AUX_RTOL)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        moe.apply(lp, x, cfg.replace(moe_impl="ep"), mesh=object())
+    # "ep" without a mesh is the dense dispatch, as in the reference
+    y_ep, _ = moe.apply(lp, x, cfg.replace(moe_impl="ep"))
+    assert torch.equal(y_ep, y)
 
 
 def _reference_routing(router, xt, cfg, cap):

@@ -368,8 +368,19 @@ def test_prefetcher_orders_steps_and_propagates_errors():
     jpf = jdpipe.Prefetcher(lambda s: {"step": s}, start_step=1)
     assert jpf.get() == (1, {"step": 1})
     jpf.close()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        dpipe.make_global({}, None, {})
+    # make_global: this rank's rows of each batch leaf (the meshed runs
+    # are tests/test_torch_model_mesh.py's)
+    from repro_torch.launch.shardings import P
+
+    class Rank1Of2:                      # rank 1's view of a data:2 mesh
+        axis_names, shape, device = ("data",), {"data": 2}, "cpu"
+
+        def coord(self, axis):
+            return 1
+
+    got = dpipe.make_global({"x": np.arange(8).reshape(4, 2)}, Rank1Of2(),
+                            {"x": P("data", None)})
+    assert got["x"].tolist() == [[4, 5], [6, 7]]
 
 
 # ---------------------------------------------------------------------------

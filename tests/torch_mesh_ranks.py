@@ -1,4 +1,5 @@
-"""The rank side of the port's mesh tests (tests/test_torch_mesh*.py).
+"""The rank side of the port's mesh tests (tests/test_torch_mesh*.py and
+tests/test_torch_model_mesh.py).
 
 Each test file spawns one process per mesh position on the CPU, joined
 by a gloo process group initialized from a file under the test's
@@ -8,7 +9,11 @@ programs the parent exported with ``np.savez`` through
 through the port's meshed entry points (`CutiePipeline(mesh=)`,
 `ProgramExecutor(mesh=)` via `CutieEngine.register(mesh=)`), and writes
 its outputs to ``rank<r>.npz`` and its plans, byte counts, statistics and
-refusals to ``rank<r>.json`` in the same directory.
+refusals to ``rank<r>.json`` in the same directory.  The LLM model
+mesh's rank side (`model_rank_main`, at the end) takes the reference's
+parameters as flat ``np.savez`` arrays instead and runs its cases
+through `repro_torch.launch` (mesh, shardings, steps), the training
+loop and the checkpoint.
 """
 
 from __future__ import annotations
@@ -55,17 +60,28 @@ def export_programs(root: str, programs: dict, inputs: dict,
         json.dump({"programs": meta, "cases": cases}, f)
 
 
-def spawn_worlds(roots: dict) -> dict:
+def spawn_worlds(roots: dict, target=None) -> dict:
     """Run every case of each world (ranks -> directory) on its own
     spawned ranks, all worlds at once; returns each world's per-rank
     (arrays, json) results.  Every rank is joined; a rank that raises, or
     a world past its deadline, fails the call after every rank left is
-    terminated."""
+    terminated.  ``target(rank, world, root)`` is the rank's entry
+    (default `rank_main`, the CNN mesh's)."""
+    return join_worlds(start_worlds(roots, target), roots)
+
+
+def start_worlds(roots: dict, target=None) -> list:
+    """`spawn_worlds`'s start: every world's ranks, not waited for."""
     import torch.multiprocessing as mp
 
-    ctxs = [mp.start_processes(rank_main, args=(world, root), nprocs=world,
-                               join=False, start_method="spawn")
+    return [mp.start_processes(target or rank_main, args=(world, root),
+                               nprocs=world, join=False,
+                               start_method="spawn")
             for world, root in roots.items()]
+
+
+def join_worlds(ctxs: list, roots: dict) -> dict:
+    """`spawn_worlds`'s join of the worlds `start_worlds` started."""
     deadline = time.monotonic() + JOIN_TIMEOUT_S
     try:
         pending = list(ctxs)
@@ -253,6 +269,468 @@ def rank_main(rank: int, world: int, root: str) -> None:
         arrays, info = {}, {}
         for case in meta["cases"]:
             _KINDS[case["kind"]](case, progs, inputs, arrays, info)
+        np.savez(os.path.join(root, f"rank{rank}.npz"), **arrays)
+        with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+            json.dump(info, f)
+        # no rank closes its connections while a peer still reads them
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+# -- the LLM model mesh (tests/test_torch_model_mesh.py) ----------------------
+
+#: the decode cell's prompt length, cache length and decode steps
+PROMPT, MAX_LEN, DECODE_STEPS = 12, 16, 3
+
+
+def export_model_mesh(root: str, arrays: dict, meta: dict) -> None:
+    """Flat arrays (``model/<path>`` leaves of the reference's trees and
+    the inputs) and the JSON metadata (configs, cases) under ``root``."""
+    np.savez(os.path.join(root, "model.npz"), **arrays)
+    with open(os.path.join(root, "model.json"), "w") as f:
+        json.dump(meta, f)
+
+
+def flatten_tree(tree, prefix: str, leaf=np.asarray) -> dict:
+    """A parameter tree (dicts of arrays, or of tensors with ``leaf=_f32``)
+    as flat arrays."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten_tree(v, f"{prefix}/{k}", leaf))
+        elif v is not None:
+            out[f"{prefix}/{k}"] = leaf(v)
+    return out
+
+
+class _Model:
+    """A rank's view of the exported arrays: configs, the port's params
+    (converted from the reference's), and the inputs."""
+
+    def __init__(self, root: str):
+        with open(os.path.join(root, "model.json")) as f:
+            self.meta = json.load(f)
+        with np.load(os.path.join(root, "model.npz")) as z:
+            self.z = {k: z[k] for k in z.files}
+
+    def cfg(self, name: str):
+        from repro_torch import configs
+        from repro_torch.models.config import reduce_for_smoke
+
+        m = self.meta["models"][name]
+        return reduce_for_smoke(configs.get(m["arch"])).replace(**m["kw"])
+
+    def tree(self, name: str) -> dict:
+        """The reference's tree of ``name`` as nested dicts of tensors
+        (bf16 leaves were exported as float32 of their exact values)."""
+        dtypes = self.meta["models"][name]["dtypes"]
+        out: dict = {}
+        for key, a in self.z.items():
+            if not key.startswith(f"{name}/"):
+                continue
+            path = key[len(name) + 1:]
+            node = out
+            *parents, leaf = path.split("/")
+            for part in parents:
+                node = node.setdefault(part, {})
+            t = torch.from_numpy(a)
+            node[leaf] = t.to(getattr(torch, dtypes[path]))
+        return out
+
+    def params(self, name: str) -> dict:
+        """The port's per-layer params of the reference's stacked tree."""
+        from repro_torch.models import transformer as TF
+
+        return {k: [{kk: _contig(vv) for kk, vv in layer.items()}
+                    for layer in v] if k in TF.LAYER_LISTS else v
+                for k, v in TF.unstack_layers(self.tree(name)).items()}
+
+
+def _contig(node):
+    if isinstance(node, dict):
+        return {k: _contig(v) for k, v in node.items()}
+    return node.contiguous()
+
+
+def _f32(t) -> np.ndarray:
+    return t.detach().to(torch.float32).numpy()
+
+
+def _mesh(shape, axes=("data", "model")):
+    from repro_torch.launch import mesh as M
+
+    return M.make_mesh(tuple(shape), tuple(axes), device="cpu")
+
+
+def _batch(z, step: int) -> dict:
+    return {k: torch.from_numpy(z[f"batch/{k}"][step]).to(torch.int64)
+            for k in ("tokens", "labels")}
+
+
+def _m_train(case, mdl, arrays, info):
+    """One meshed train step and one unmeshed, twice, from the same
+    params and batches: losses, grad norms, the params' largest
+    difference after the steps, and how many slices the moments split
+    into."""
+    from repro_torch.data.pipeline import make_global
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import adam
+    from repro_torch.train import loop
+
+    mesh = _mesh(case["shape"])
+    cfg, params = mdl.cfg("train"), mdl.params("train")
+    b, s = mdl.z["batch/tokens"].shape[1:]
+    acfg = adam.AdamConfig(total_steps=4, warmup_steps=1)
+    fn, _, sp = steps.build_cell(cfg, ShapeSpec("t", s, b, "train"), mesh,
+                                 acfg)
+    local = SH.shard_tree(params, sp["in"][0], mesh)
+    opt = adam.init_state(loop._leaves(local), sp["placement"])
+    ref = steps.make_train_step(cfg, acfg)
+    rp, ropt = params, adam.init_state(loop._leaves(params))
+    got: dict = {"loss": [], "grad_norm": [], "lr": [], "ref_loss": [],
+                 "ref_grad_norm": [], "ref_lr": []}
+    for step in range(2):
+        batch = _batch(mdl.z, step)
+        rp, ropt, rm = ref(rp, ropt, batch)
+        local, opt, m = fn(local, opt, make_global(batch, mesh,
+                                                   sp["in"][2]))
+        for k in ("loss", "grad_norm", "lr"):
+            got[k].append(float(m[k]))
+            got[f"ref_{k}"].append(float(rm[k]))
+        whole = SH.gather_tree(local, sp["in"][0], mesh)
+        arrays.update(flatten_tree(TF.stack_layers(whole),
+                                   f"{case['id']}/params{step}", _f32))
+    full = loop._leaves(SH.gather_tree(local, sp["in"][0], mesh))
+    want = loop._leaves(rp)
+    got["param_max_diff"] = max(float((a.float() - w.float()).abs().max())
+                                for a, w in zip(full, want))
+    got["params_equal"] = all(torch.equal(a, w) for a, w in zip(full, want))
+    got["moment_slices"] = max(p.numel() // mu.numel()
+                               for p, mu in zip(full, opt["mu"]))
+    got["param_slices"] = max(p.numel() // q.numel()
+                              for p, q in zip(full, loop._leaves(local)))
+    info[case["id"]] = got
+
+
+def _m_decode(case, mdl, arrays, info):
+    """The ``ternary_packed`` decode cell: a meshed prefill
+    (`make_prefill_step` and `prefill_with_cache`) and DECODE_STEPS
+    steps of `build_cell`'s decode step, teacher-forced, beside the
+    unmeshed port's; every logits tensor gathered.  Records the local
+    cache's sequence length, the rows of ``wo``'s packed slice and the
+    gathered caches' largest difference from the unmeshed ones."""
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch import steps
+    from repro_torch.models import common as C
+    from repro_torch.models import decoding as DEC
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.config import ShapeSpec
+
+    mesh = _mesh(case["shape"])
+    name = case["model"]
+    cfg, params = mdl.cfg(name), mdl.params(name)
+    prompt = torch.from_numpy(mdl.z["prompt"]).to(torch.int64)
+    b = prompt.shape[0]
+    max_len = case.get("max_len", MAX_LEN)
+    fn, _, sp = steps.build_cell(cfg, ShapeSpec("d", max_len, b, "decode"),
+                                 mesh)
+    pf, _, psp = steps.build_cell(cfg, ShapeSpec("p", PROMPT, b, "prefill"),
+                                  mesh)
+    pspecs, tok_spec, cache_specs, pos_spec = sp["in"]
+    local = SH.shard_tree(params, pspecs, mesh)
+    batch = {"tokens": prompt}
+    lbatch = {"tokens": SH.shard_leaf(prompt, psp["in"][1]["tokens"], mesh)}
+    cid = case["id"]
+    with torch.no_grad():
+        arrays[f"{cid}/prefill"] = _f32(SH.gather_leaf(
+            pf(local, lbatch), psp["out"], mesh))
+        arrays[f"{cid}/prefill_port"] = _f32(TF.forward_logits(params,
+                                                               batch, cfg))
+        want_lg, want_c = DEC.prefill_with_cache(params, batch, cfg, max_len)
+        with C.use_mesh(mesh):
+            lg, caches = DEC.prefill_with_cache(local, lbatch, cfg, max_len)
+        arrays[f"{cid}/prefill_cache"] = _f32(SH.gather_leaf(
+            lg, sp["out"][0], mesh))
+        got, want = [], []
+        for i in range(DECODE_STEPS):
+            tok = torch.from_numpy(mdl.z["dtoks"][i]).to(torch.int64)
+            pos = torch.full((b,), PROMPT + i, dtype=torch.int64)
+            wl, want_c = DEC.decode_step(params, tok, want_c, pos, cfg)
+            gl, caches = fn(local, SH.shard_leaf(tok, tok_spec, mesh),
+                            caches, SH.shard_leaf(pos, pos_spec, mesh))
+            got.append(_f32(SH.gather_leaf(gl, sp["out"][0], mesh)))
+            want.append(_f32(wl))
+    arrays[f"{cid}/decode"] = np.stack(got)
+    arrays[f"{cid}/decode_port"] = np.stack(want)
+    kv_spec = cache_specs["kv"]["k"]
+    full_k = SH.gather_leaf(caches["kv"]["k"], kv_spec, mesh)
+    info[cid] = {
+        "cache_local_len": int(caches["kv"]["k"].shape[2]),
+        "cache_spec": [None if e is None else e for e in kv_spec],
+        "cache_max_diff": float((full_k.float() - want_c["kv"]["k"].float())
+                                .abs().max()),
+        "wo_rows": int(local["layers"][0]["attn"]["wo"]["w_packed"].shape[0]),
+        "wo_rows_global": int(params["layers"][0]["attn"]["wo"]["w_packed"]
+                              .shape[0]),
+    }
+
+
+def _m_elastic(case, mdl, arrays, info):
+    """Save the params (and a trit leaf) on a (4, 2) mesh, restore onto
+    (2, 4): each rank's slices and the gathered tree bit for bit."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.launch import shardings as SH
+
+    params = mdl.params("train")
+    g = torch.Generator().manual_seed(3)
+    tree = {"params": params,
+            "trits": torch.randint(-1, 2, (8, 6), generator=g,
+                                   dtype=torch.int8)}
+    mesh_a, mesh_b = _mesh((4, 2)), _mesh((2, 4))
+
+    def specs(mesh):
+        return {"params": SH.param_specs(params, mesh),
+                "trits": SH.P("model", None)}
+
+    d = os.path.join(case["root"], "elastic")
+    ckpt.save(d, 7, SH.shard_tree(tree, specs(mesh_a), mesh_a),
+              mesh=mesh_a, pspecs=specs(mesh_a))
+    sb = specs(mesh_b)
+    tmpl = SH.tree_map2(lambda t, s: torch.zeros_like(
+        SH.shard_leaf(t, s, mesh_b)), tree, sb)
+    got, man = ckpt.restore(d, tmpl, mesh=mesh_b, pspecs=sb)
+    want = SH.shard_tree(tree, sb, mesh_b)
+    from repro_torch.train.loop import _leaves
+    info[case["id"]] = {
+        "step": man["step"],
+        "local_equal": all(torch.equal(a, w) and a.dtype == w.dtype
+                           for a, w in zip(_leaves(got), _leaves(want))),
+        "global_equal": all(torch.equal(a, w) for a, w in zip(
+            _leaves(SH.gather_tree(got, sb, mesh_b)), _leaves(tree))),
+        "trit_encoding": [e["encoding"] for e in man["leaves"]
+                          if e["path"] == "trits"][0],
+        "sliced": sum(a.numel() < w.numel() for a, w in zip(
+            _leaves(got), _leaves(tree))),
+    }
+
+
+def _m_loop(case, mdl, arrays, info):
+    """`train(mesh=)`: an uninterrupted run on (2, 2); a run preempted at
+    step 3 and restarted on (1, 4) (elastic) and one restarted on (4, 1)
+    with ``elastic=False``; an INQ run with ternary gradients on (2, 2),
+    uninterrupted and preempted at step 2; each run's history of
+    losses.  The uninterrupted INQ run is also held against the same run
+    unmeshed: its losses and gradient sparsities, and, gathered, its
+    params and frozen masks."""
+    from repro_torch.core import inq
+    from repro_torch.launch import shardings as SH
+    from repro_torch.models import transformer as TF
+    from repro_torch.optim import adam
+    from repro_torch.train import loop
+
+    cfg = mdl.cfg("train")
+    params = TF.stack_layers(mdl.params("train"))
+    steps_n, b, s = 5, 4, 16
+
+    def data_fn(step):
+        rng = np.random.default_rng(100 + step)
+        return {k: torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)))
+                for k in ("tokens", "labels")}
+
+    def loss_fn(p, batch):
+        return TF.forward_loss(TF.unstack_layers(p), batch, cfg)
+
+    acfg = adam.AdamConfig(total_steps=steps_n, warmup_steps=1)
+
+    trees = {}
+
+    def run(shape, tag, fail=-1, elastic=True, inq_cfg=None, n=steps_n):
+        """``shape`` None: unmeshed, without checkpoints."""
+        tcfg = loop.TrainLoopConfig(
+            total_steps=n, ckpt_dir=os.path.join(case["root"], tag)
+            if shape else "",
+            ckpt_every=1 if inq_cfg else 2, log_every=1, fail_at_step=fail,
+            elastic=elastic, inq=inq_cfg,
+            grad_compress="ternary" if inq_cfg else "none")
+        mesh = _mesh(shape) if shape else None
+        res = loop.train(loss_fn, params, data_fn, tcfg, acfg, mesh=mesh)
+        p, st = res["params"], res["inq_state"]
+        if mesh is not None:
+            p, st = SH.gather_tree({"p": p, "st": st}, {
+                "p": res["pspecs"],
+                "st": loop._inq_specs(st, res["pspecs"])}, mesh).values()
+        trees[tag] = (p, st)
+        return {"losses": [r["loss"] for r in res["history"]],
+                "sparsity": [r.get("grad_sparsity") for r in
+                             res["history"]],
+                "steps": [r["step"] for r in res["history"]],
+                "restored_from": res["restored_from"]}
+
+    out = {"full": run((2, 2), "a")}
+    inq_cfg = inq.INQConfig(schedule=(0.5,))
+    out["inq"] = {"full": run((2, 2), "inq-a", inq_cfg=inq_cfg, n=4),
+                  "unmeshed": run(None, "inq-u", inq_cfg=inq_cfg, n=4)}
+    (pm, sm), (pu, su) = trees["inq-a"], trees["inq-u"]
+    masks = [(a["mask"], b["mask"]) for a, b in zip(
+        inq._state_leaves(sm), inq._state_leaves(su), strict=True)]
+    out["inq"]["mask_diff_share"] = float(
+        sum(int((a != b).sum()) for a, b in masks)
+        / sum(b.numel() for _, b in masks))
+    out["inq"]["frozen"] = inq.frozen_fraction(su)
+    out["inq"]["param_max_diff"] = max(
+        float((a.float() - b.float()).abs().max())
+        for a, b in zip(loop._leaves(pm), loop._leaves(pu), strict=True))
+    try:
+        run((2, 2), "inq-b", fail=2, inq_cfg=inq_cfg, n=4)
+        out["inq"]["preempted"] = False
+    except loop.PreemptionError:
+        out["inq"]["preempted"] = True
+    out["inq"]["resumed"] = run((2, 2), "inq-b", inq_cfg=inq_cfg, n=4)
+    for tag, shape, elastic in (("elastic", (1, 4), True),
+                                ("whole", (4, 1), False)):
+        try:
+            run((2, 2), tag, fail=3)
+            out[f"{tag}_preempted"] = False
+        except loop.PreemptionError:
+            out[f"{tag}_preempted"] = True
+        out[tag] = run(shape, tag, elastic=elastic)
+    info[case["id"]] = out
+
+
+def _m_ep(case, mdl, arrays, info):
+    """qwen3-moe's reduced MoE layer at capacity factor 8: ``ep`` and the
+    dense dispatch on a (2, 4) mesh, outputs gathered and gradients of
+    sum(y^2) reduced and gathered, beside the unmeshed dense layer's."""
+    from repro_torch.launch import shardings as SH
+    from repro_torch.models import common as C
+    from repro_torch.models import moe
+    from repro_torch.optim import adam
+
+    mesh = _mesh(case["shape"])
+    cfg = mdl.cfg("moe")
+    p = mdl.tree("moe")
+    x = torch.from_numpy(mdl.z["ep_x"]).to(torch.bfloat16)
+    specs = SH.param_specs({"moe": p}, mesh)["moe"]
+    keys = sorted(p)
+    placement = adam.Placement(mesh, tuple(specs[k] for k in keys),
+                               tuple(specs[k] for k in keys))
+    xspec = SH.P(("pod", "data"), None, None)
+    xl = SH.shard_leaf(x, xspec, mesh)
+    for impl in ("dense", "ep"):
+        leaves = {k: SH.shard_leaf(p[k], specs[k], mesh).contiguous()
+                  .requires_grad_(True) for k in keys}
+        with C.use_mesh(mesh):
+            y, aux = moe.apply(leaves, xl, cfg.replace(moe_impl=impl))
+            loss = C.batch_sum((y.float() ** 2).sum())
+            grads = torch.autograd.grad(loss, [leaves[k] for k in keys])
+        grads = adam.reduce_grads(list(grads), placement)
+        arrays[f"{case['id']}/{impl}/y"] = _f32(SH.gather_leaf(
+            y.detach(), xspec, mesh))
+        for k, g in zip(keys, grads):
+            arrays[f"{case['id']}/{impl}/grad/{k}"] = _f32(
+                SH.gather_leaf(g, specs[k], mesh))
+        info[f"{case['id']}/{impl}"] = {
+            "lb_loss": float(aux["lb_loss"]), "z_loss": float(aux["z_loss"]),
+            "experts_local": int(leaves["gate_proj"].shape[0])}
+    pr = {k: p[k].clone().requires_grad_(True) for k in keys}
+    y, aux = moe.apply(pr, x, cfg)
+    grads = torch.autograd.grad((y.float() ** 2).sum(), [pr[k] for k in keys])
+    arrays[f"{case['id']}/port/y"] = _f32(y)
+    for k, g in zip(keys, grads):
+        arrays[f"{case['id']}/port/grad/{k}"] = _f32(g)
+    info[f"{case['id']}/port"] = {"lb_loss": float(aux["lb_loss"])}
+
+
+def _m_global(case, mdl, arrays, info):
+    """`make_global` of an (8, 6) batch on (2, 2) and a batch-1
+    `fit_named`; an ssm model's logits on a data mesh against the
+    unmeshed ones."""
+    from repro_torch.data.pipeline import make_global
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch import steps
+    from repro_torch.models import common as C
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.config import ShapeSpec
+
+    mesh = _mesh(case["shape"])
+    batch = {"tokens": np.arange(48).reshape(8, 6),
+             "labels": np.arange(48).reshape(8, 6) + 100}
+    cfg = mdl.cfg("train")
+    bspecs = steps.batch_pspecs(cfg, ShapeSpec("t", 6, 8, "train"))
+    got = make_global(batch, mesh, bspecs)
+    one = SH.fit_named(mesh, SH.P(("data",), None),
+                       torch.empty((1, 1), device="meta"))
+    ssm = mdl.cfg("ssm")
+    sp = TF.init_params(ssm, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(mdl.z["prompt"]).to(torch.int64)
+    dmesh = _mesh((4, 1))
+    with torch.no_grad():
+        want = TF.forward_logits(sp, {"tokens": toks}, ssm)
+        with C.use_mesh(dmesh):
+            rows = SH.shard_leaf(toks, SH.P("data", None), dmesh)
+            local = TF.forward_logits(sp, {"tokens": rows}, ssm)
+    info[case["id"]] = {
+        "tokens": got["tokens"].tolist(), "labels": got["labels"].tolist(),
+        "device": str(got["tokens"].device),
+        "batch1_spec": [e for e in one],
+        "ssm_data_mesh_equal": bool(torch.equal(SH.gather_leaf(
+            local, SH.P("data", None, None), dmesh), want)),
+    }
+
+
+def _m_refusals(case, mdl, arrays, info):
+    """The model mesh's refusals, in an order every rank keeps."""
+    from repro_torch.launch import steps
+    from repro_torch.models import common as C
+    from repro_torch.models import transformer as TF
+
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    mesh = _mesh((2, world // 2))
+    ssm = mdl.cfg("ssm")
+    sp = TF.init_params(ssm, torch.Generator().manual_seed(0))
+    toks = torch.zeros((2, 4), dtype=torch.int64)
+
+    def ssm_tp():
+        with C.use_mesh(mesh):
+            TF.forward_logits(sp, {"tokens": toks}, ssm)
+
+    info[case["id"]] = {
+        "world_too_small": _refusal(lambda: _mesh((2, world))),
+        "world_too_large": _refusal(lambda: _mesh((world // 2, 1))),
+        "unknown_axis": _refusal(lambda: _mesh((1, world), ("data", "x"))),
+        "ssm_tp": _refusal(ssm_tp),
+        "ssm_build_cell": _refusal(lambda: steps.build_cell(
+            ssm, "decode_32k", mesh)),
+    }
+
+
+_MODEL_KINDS = {"train": _m_train, "decode": _m_decode,
+                "elastic": _m_elastic, "loop": _m_loop, "ep": _m_ep,
+                "global": _m_global, "refusal": _m_refusals}
+
+
+def model_rank_main(rank: int, world: int, root: str) -> None:
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(root, 'pg')}",
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+    try:
+        mdl = _Model(root)
+        arrays, info = {}, {}
+        for case in mdl.meta["cases"]:
+            case = {**case, "root": root}
+            t0 = time.perf_counter()
+            _MODEL_KINDS[case["kind"]](case, mdl, arrays, info)
+            info[f"{case['id']}/seconds"] = time.perf_counter() - t0
         np.savez(os.path.join(root, f"rank{rank}.npz"), **arrays)
         with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
             json.dump(info, f)
