@@ -122,11 +122,34 @@ Phases, each of which fails the script (no result line) when it fails:
    against the unmeshed steps, its checkpoint restored onto ``model:4``
    and ``data:4`` bit for bit; a full-width qwen3-moe layer with
    ``moe_impl="ep"`` on ``model:4`` against the dense dispatch; ms per
-   step (slowest rank's median) and collective bytes per rank printed.
+   step (slowest rank's median) and collective bytes per rank printed;
+   on ``model:4`` one more decode step walked (`roofline.hlo.walk`)
+   beside the dry run's walk of the same cell on ``meta`` tensors
+   (`launch.dryrun.local_args` on a `StandInMesh`): exchanges equal op
+   for op, argument bytes equal the rank's local bytes.
+   Then GPipe and the ssm, hybrid and encdec families on a model axis
+   (`gpipe_tp_path`; ``--gpipe-tp-rank`` processes, world 1 on NCCL,
+   worlds 2 and 4 on gloo): `launch.pipeline.pipeline_forward_loss` of
+   the main path's llama3.2-1B weights (full width and depth, 8 layers a
+   stage, batch 8 x seq 128, 4 microbatches) on ``pod:2`` and
+   ``pod:2,model:2``, its loss and the last stage's final hidden rows
+   against the unmeshed `forward_loss`'s (bit for bit on ``pod:2``), its
+   collective-permutes against the dry run's prediction record for
+   record; mamba2-780m (8 of 48 layers, batch 8) on ``data:1,model:1``
+   (bit for bit) and ``model:2``, zamba2-2.7b (one attn_every period) on
+   ``model:2`` and ``model:4``, whisper-medium (4 + 4 layers, 1 x 1500
+   frames, the cross cache split over ``model``) on ``model:2``, each a
+   prefill step and a prompt + 4 decode steps of `steps.build_cell`
+   against the unmeshed run and the unmeshed run with the row-cut
+   projections' bf16 partial sums (`row_partials`) within the cell's
+   FAMILY_MESH_ULPS; kernel 7 per sliced shape against its plain
+   version in every cell.
    Then the moe and ssm families (`moe_path`, `ssm_path`): full-width
-   deepseek-moe-16b (31 GB of seeded weights; routed experts dense bf16)
-   and mamba2-780m, ``ternary_packed``, serve the same requests: kernel
-   7 launches 196 per deepseek forward and 3 x 48 per mamba2 token step;
+   deepseek-moe-16b (all 28 layers; seeded weights, routed experts
+   dense bf16) and mamba2-780m
+   (``SSM_PATH_LAYERS`` of its 48 layers), ``ternary_packed``, serve the
+   same requests: kernel 7 launches 4 x layers + 3 + 3 x (layers - 1)
+   per deepseek forward and 3 x layers per mamba2 token step;
    paged and contiguous tokens identical; a second deepseek serve
    bit-identical in tokens and logits; deepseek's plain-matmul prefill
    held layer by layer and end to end (`moe_plain_prefill_check`), its
@@ -139,12 +162,13 @@ Phases, each of which fails the script (no result line) when it fails:
    a 2-layer truncated draft under the margin rule and the trit
    `StatePagedStore` on the card; each
    with its serving times and device busy share.
-   Then the hybrid, encdec and vlm families, full width and depth,
+   Then the hybrid, encdec and vlm families, full width (and depth but
+   zamba2's, cut to ``HYBRID_PATH_LAYERS`` of 54),
    ``ternary_packed``, seeded weights (`hybrid_path`, `encdec_path`,
    `vlm_path`): zamba2-2.7b runs 4 of the requests' prompts through
-   `ssm_prefill` and 16 greedy decode steps (kernel 7 3 x 54 + 7 x 9 =
-   225 per token step; the 9 applications of the shared block read one
-   weight set and write 9 distinct KV caches; every kernel-7 call of a
+   `ssm_prefill` and 16 greedy decode steps (kernel 7 3 x 18 + 7 x 3 =
+   75 per token step; the 3 applications of the shared block read one
+   weight set and write 3 distinct KV caches; every kernel-7 call of a
    decode step and every mixer call of a prefill against the plain
    matmul on the same input; the chunked forward against the recurrence
    layer by layer, the shared block included); whisper-medium encodes 2 x
@@ -398,6 +422,11 @@ SSM_LAYER_RTOL, SSM_CORR, SSM_DRAFT_LAYERS = 2.0 ** -4, 0.9, 2
 HYBRID_ARCH, ENCDEC_ARCH, VLM_ARCH = (
     "zamba2-2.7b", "whisper-medium", "llava-next-mistral-7b")
 HYBRID_BATCH, HYBRID_MAX_LEN = 4, 256
+# depth cuts of the ssm and hybrid paths (full width; every check kept):
+# 16 of mamba2-780m's 48 layers, 3 of zamba2-2.7b's 9 attn_every periods
+# (18 of 54 layers), so the script keeps within its time with the GPipe
+# and model-axis path (PERF.md section 4)
+SSM_PATH_LAYERS, HYBRID_PATH_LAYERS = 16, 18
 ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_MAX_LEN, ENCDEC_LAYER_ULPS = 2, 8, 64, 8
 VLM_TEXT, VLM_LOSS_TOL = 64, 2.0 ** -5
 SERVE_BUCKETS, SERVE_REQUESTS, SERVE_POOL = (1, 2, 4, 8), 256, 256
@@ -1604,6 +1633,8 @@ MODEL_MESH_LOSS_ATOL, MODEL_MESH_GN_RTOL = 2.0 ** -6, 2.0 ** -8
 MODEL_MESH_PARAM_SHARE = 0.01
 MODEL_MESH_RESTORES = ("model:4", "data:4")
 MODEL_MESH_EP_TOKENS, MODEL_MESH_EP_CAPACITY = (4, 64), 8.0
+# the decode cell whose step the dry run predicts (`launch.dryrun`)
+MODEL_MESH_DRYRUN = "model:4"
 
 
 def _ulp_rows(torch, rows):
@@ -1750,6 +1781,12 @@ def _model_mesh_report(ranks, world, backend, train, cfg, card) -> int:
                                    f"{g['vs_plain']}, want the shapes "
                                    f"{g['slice_shapes']} within "
                                    f"{SSM_MIXER_ULPS}")
+            d = g["dryrun"]
+            if spec == MODEL_MESH_DRYRUN and (
+                    not d["records_equal"]
+                    or d["arg_bytes"] != d["dry_arg_bytes"]):
+                raise RuntimeError(f"{what}: the dry run's decode step "
+                                   f"differs from the run's: {d}")
             launches += g["launches"]
         vs_plain: dict = {}
         for g in got:
@@ -1779,6 +1816,17 @@ def _model_mesh_report(ranks, world, backend, train, cfg, card) -> int:
             f"per (M, K, N) over every rank: "
             f"{ {k: round(v, 3) for k, v in sorted(vs_plain.items())} } "
             f"(tolerance {SSM_MIXER_ULPS}); {card}")
+        if spec == MODEL_MESH_DRYRUN:
+            d = g["dryrun"]
+            log(f"phase 4: model mesh decode cell {spec}: the dry run "
+                f"(`launch.dryrun`, a meta walk on a stand-in mesh) against "
+                f"one decode step walked on every rank: exchanges equal op "
+                f"for op ({d['records']} records, "
+                f"{d['wire']!r} wire bytes per rank), argument bytes "
+                f"{d['dry_arg_bytes']} = the rank's local bytes "
+                f"{d['arg_bytes']}, FLOPs {d['dry_flops']!r} (run "
+                f"{d['flops']!r}); dry-run memory per rank {d['memory']}; "
+                f"{card}")
     if world == 1:
         return launches
     t = [r["train"] for r in ranks]
@@ -1895,6 +1943,14 @@ def _mm_decode_cell(torch, MM, TF, DEC, M, SH, ST, C, cfg, params, z,
             fn(local, SH.shard_leaf(fed[0], tok_spec, mesh), again,
                SH.shard_leaf(pos, pos_spec, mesh))
         del again
+        dry = None
+        if spec == MODEL_MESH_DRYRUN:
+            # one more step, walked, with the dry run's int32 token and pos
+            pos = torch.full((b,), s + MODEL_MESH_STEPS, dtype=torch.int32,
+                             device=DEVICE)
+            dry = _mm_dryrun(torch, M, ST, cfg, fn, (
+                local, SH.shard_leaf(fed[-1].to(torch.int32), tok_spec, mesh),
+                caches, SH.shard_leaf(pos, pos_spec, mesh)), mesh, b)
     bl = lb["tokens"].shape[0]                   # this rank's batch rows
     diff = (got.float() - want.float()).abs()
     ulps = diff / _ulp_rows(torch, want)
@@ -1915,7 +1971,31 @@ def _mm_decode_cell(torch, MM, TF, DEC, M, SH, ST, C, cfg, params, z,
             "bytes_per_step": int(np.median(nbytes)),
             "vs_plain": {str(k): v for k, v in vs_plain.items()},
             "slice_shapes": [str((m, k, n)) for m in (bl * s, bl)
-                             for k, n in mm_slice_shapes(cfg, local, mesh)]}
+                             for k, n in mm_slice_shapes(cfg, local, mesh)],
+            "dryrun": dry}
+
+
+def _mm_dryrun(torch, M, ST, cfg, fn, args, mesh, b) -> dict:
+    """A decode step of the cell walked for real (`hlo.walk`: its
+    exchanges, argument bytes and FLOPs) beside the dry run's walk of
+    the same cell on ``meta`` tensors on a `StandInMesh` at this rank's
+    coordinates (`dryrun.local_args`)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.roofline import hlo
+
+    w = hlo.walk(fn, args, mesh)
+    stand = M.StandInMesh(tuple(mesh.shape[a] for a in mesh.axis_names),
+                          mesh.axis_names,
+                          coord={a: mesh.coord(a) for a in mesh.axis_names})
+    mw = hlo.walk(*dryrun.local_args(cfg, ShapeSpec(
+        "d", MODEL_MESH_MAX_LEN, b, "decode"), stand), stand)
+    return {"records_equal": list(w.records) == list(mw.records),
+            "records": len(w.records), "arg_bytes": w.argument_bytes,
+            "dry_arg_bytes": mw.argument_bytes, "flops": w.flops,
+            "dry_flops": mw.flops,
+            "wire": hlo.collective_bytes(mw.records)["total_wire_bytes"],
+            "memory": hlo.memory(mw)}
 
 
 def mm_slice_shapes(cfg, local, mesh) -> list:
@@ -2128,6 +2208,662 @@ def model_mesh_rank_main(rank: int, world: int, backend: str,
                                           meta["train"])
             torch.cuda.empty_cache()
             out["ep"] = _mm_ep_cell(torch, M, SH, C)
+        with open(os.path.join(root, f"w{world}r{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+# -- phase 4: GPipe over pod and the ssm, hybrid and encdec families on a
+# model axis (the last slice) ------------------------------------------------
+
+# Ranks are processes of this script (``--gpipe-tp-rank``): world 1 on
+# NCCL, worlds 2 and 4 on gloo with every rank on the one card.  Every
+# meshed run is held to the same unmeshed run on the card (this
+# process): the pipelined loss and the last stage's final hidden rows
+# (the input of `losses.chunked_xent`) bit for bit on pod:2, within
+# GPIPE_LOSS_ATOL and GPIPE_HIDDEN_ULPS on pod:2,model:2; each family's
+# logits within its cell's FAMILY_MESH_ULPS (bit for bit on
+# data:1,model:1); kernel 7 against its plain version per sliced shape
+# within SSM_MIXER_ULPS.  Depths are cut (PERF.md section 4): each
+# gloo exchange is host-staged (about 3 ms), and a decode step of a
+# family on a model axis makes several per layer.
+GPIPE_TP_WORLDS = {1: "nccl", 2: "gloo", 4: "gloo"}
+GPIPE_MESHES = {2: "pod:2", 4: "pod:2,model:2"}
+GPIPE_MICRO = 4
+FAMILY_CELLS = {1: (("ssm", "data:1,model:1"),),
+                2: (("ssm", "model:2"), ("hybrid", "model:2"),
+                    ("encdec", "model:2")),
+                4: (("hybrid", "model:4"),)}
+FAMILY_SSM_LAYERS, FAMILY_ENCDEC_LAYERS = 8, 4
+FAMILY_BATCH = {"ssm": 8, "hybrid": HYBRID_BATCH, "encdec": 1}
+FAMILY_PROMPT = {"ssm": 16, "hybrid": 16, "encdec": ENCDEC_PROMPT}
+FAMILY_STEPS, FAMILY_MAX_LEN = 4, 32
+# a family cell's logits in bf16 ulps of each row's largest |logit|,
+# per cell: (against the unmeshed run; against the unmeshed run with the
+# row-cut projections' bf16 partial sums, `row_partials`, its prefill
+# row; the same, its decode rows), each twice its reading on an H100
+# 80GB HBM3 at 700 W, rounded up.  A model axis rounds
+# each row-cut projection's bf16 partial sums (on the CPU the meshed run
+# equals the `row_partials` run bit for bit), and the SSM stack
+# amplifies that rounding (the ssm family's end-to-end correlation is
+# held at SSM_CORR, not 0.99, for the same reason): zamba2 on model:2
+# reads 15.06 ulps from the unmeshed run, its decode rows 0 from the
+# `row_partials` run (its prefill row 5.25: the SSD's einsums on head
+# slices).  On model:4 kernel 7's column slices also take another K
+# split (the kernel's plan follows N), so the `row_partials` run is no
+# closer there (20.5).  mamba2's out_proj (615 packed rows) and
+# whisper's row products at model:2 read 2.75 and 2.5 at most.
+FAMILY_MESH_ULPS = {"ssm model:2": (6, 3, 6),
+                    "hybrid model:2": (31, 11, 0),
+                    "encdec model:2": (5, 5, 5),
+                    "hybrid model:4": (33, 16, 41)}
+# the pipelined loss on pod:2,model:2 against the unmeshed one (read
+# 4.3e-4 on an H100 80GB HBM3 at 700 W; the CPU's
+# reduced model 1.2e-3), and its last stage's final hidden rows in bf16
+# ulps of each row's largest |value|, twice the 7.0 read there
+GPIPE_LOSS_ATOL, GPIPE_HIDDEN_ULPS = 2e-3, 14
+
+
+def family_cfg(configs, fam: str):
+    """The depth-cut ``ternary_packed`` config of a family's cell:
+    mamba2-780m at FAMILY_SSM_LAYERS of 48 layers, zamba2-2.7b at one
+    ``attn_every`` period (6 mamba2 layers and the shared block),
+    whisper-medium at FAMILY_ENCDEC_LAYERS encoder and decoder layers."""
+    if fam == "ssm":
+        return configs.get(SSM_ARCH).replace(quant="ternary_packed",
+                                            n_layers=FAMILY_SSM_LAYERS)
+    if fam == "hybrid":
+        cfg = configs.get(HYBRID_ARCH)
+        return cfg.replace(quant="ternary_packed", n_layers=cfg.attn_every)
+    return configs.get(ENCDEC_ARCH).replace(
+        quant="ternary_packed", n_layers=FAMILY_ENCDEC_LAYERS,
+        enc_layers=FAMILY_ENCDEC_LAYERS)
+
+
+def family_launches(cfg, prompt: int) -> int:
+    """Kernel 7's launches in one family cell: the prefill step's forward,
+    (whisper: the encode and k/v of the cross cache) and prompt +
+    FAMILY_STEPS decode steps."""
+    steps = prompt + FAMILY_STEPS
+    if cfg.family == "encdec":
+        fwd = 6 * cfg.enc_layers + 10 * cfg.n_layers     # + xattn k, v
+        cross = 6 * cfg.enc_layers + 2 * cfg.n_layers    # encode, k, v
+        return fwd + cross + 8 * cfg.n_layers * steps
+    per = 3 * cfg.n_layers + 7 * (cfg.n_layers // cfg.attn_every
+                                  if cfg.family == "hybrid" else 0)
+    return per * (1 + steps)
+
+
+def family_inputs(torch, cfg, fam: str) -> dict:
+    """The cell's seeded prompt (and whisper's frames) on the card."""
+    b, p = FAMILY_BATCH[fam], FAMILY_PROMPT[fam]
+    rng = np.random.default_rng(SEED + 40)
+    out = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (b, p)),
+                                     device=DEVICE)}
+    if fam == "encdec":
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(SEED + 41)
+        out["frames"] = torch.randn((b, cfg.enc_seq, cfg.d_model),
+                                    generator=gen, device=DEVICE
+                                    ).to(torch.bfloat16)
+    return out
+
+
+def _family_run(torch, TF, DEC, C, SH, ST, cfg, params, inp, mesh=None,
+                fed=None) -> dict:
+    """One family cell: `build_cell`'s prefill step on the prompt, then
+    the prompt teacher-forced and FAMILY_STEPS steps (``fed`` tokens, or
+    greedy) through its decode step from zero caches (whisper's cross
+    cache from the encoder's output), unmeshed with ``mesh`` None.
+    Returns every logits row (gathered), the tokens fed, ms per decode
+    step and the caches."""
+    from repro_torch.models.config import ShapeSpec
+
+    b, p = inp["tokens"].shape
+    if mesh is None:
+        def prefill(prm, bt):
+            return TF.forward_logits(prm, bt, cfg)
+
+        def step(prm, tok, caches, pos):
+            return DEC.decode_step(prm, tok, caches, pos, cfg)
+        local, lin, caches = params, inp, DEC.init_caches(
+            cfg, b, FAMILY_MAX_LEN, device=DEVICE)
+
+        def cut(t, _spec):
+            return t
+
+        def whole(t, _spec):
+            return t
+        out_spec = tok_spec = pos_spec = None
+    else:
+        prefill, _, psp = ST.build_cell(cfg, ShapeSpec("p", p, b, "prefill"),
+                                        mesh)
+        step, _, sp = ST.build_cell(cfg, ShapeSpec(
+            "d", FAMILY_MAX_LEN, b, "decode"), mesh)
+        pspecs, tok_spec, cache_specs, pos_spec = sp["in"]
+        out_spec = sp["out"][0]
+
+        def cut(t, spec):
+            return SH.shard_leaf(t, spec, mesh).contiguous()
+
+        def whole(t, spec):
+            return SH.gather_leaf(t, spec, mesh)
+        local = SH.shard_tree(params, pspecs, mesh)
+        lin = {k: cut(v, psp["in"][1][k]) for k, v in inp.items()}
+        caches = SH.shard_tree(DEC.init_caches(cfg, b, FAMILY_MAX_LEN,
+                                               device=DEVICE),
+                               cache_specs, mesh)
+    with torch.no_grad():
+        rows = [whole(prefill(local, {"tokens": lin["tokens"], **(
+            {"frames": lin["frames"]} if "frames" in lin else {})}),
+            out_spec)]
+        if cfg.family == "encdec":
+            with C.use_mesh(mesh):
+                enc = TF.encode(local, lin["frames"], cfg)
+                for i, lp in enumerate(local["layers"]):
+                    k, v = TF._xattn_kv(lp["xattn"], enc, cfg, full_kv=True)
+                    caches["cross"]["k"][i] = DEC._seq_slice(k, cfg.enc_seq)
+                    caches["cross"]["v"][i] = DEC._seq_slice(v, cfg.enc_seq)
+            del enc
+        toks, ms = [], []
+        for t in range(p + FAMILY_STEPS):
+            if t < p:
+                tok = inp["tokens"][:, t:t + 1]
+            elif fed is not None:
+                tok = fed[t - p]
+            else:
+                tok = rows[-1][:, -1:, :cfg.vocab].argmax(-1)
+            if t >= p:
+                toks.append(tok)
+            pos = torch.full((b,), t, device=DEVICE)
+            sync(torch)
+            if mesh is not None:
+                mesh.barrier()
+            t0 = time.perf_counter()
+            lg, caches = step(local, cut(tok, tok_spec), caches,
+                              cut(pos, pos_spec))
+            sync(torch)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            rows.append(whole(lg, out_spec))
+    return {"logits": torch.stack(rows), "fed": torch.stack(toks), "ms": ms,
+            "caches": caches, "local": local, "lin": lin, "step": step,
+            "cut": cut, "tok_spec": tok_spec, "pos_spec": pos_spec}
+
+
+@contextlib.contextmanager
+def row_partials(C, SH, params, spec: str):
+    """Inside the block the unmeshed model sums each projection whose
+    packed rows ``spec``'s model axis cuts from the ranks' bf16 partial
+    products over their K slices, in rank order, as the ranks'
+    all-reduce does: the one rounding a model axis adds to a family
+    cell (on the CPU the meshed run equals this one bit for bit,
+    tests/test_torch_model_mesh.py, whose ranks use this function).
+    Each entry of the block walks ``params``' specs anew."""
+    from repro_torch.launch import mesh as M
+
+    shape, axes = M.parse(spec)
+    mesh = M.StandInMesh(shape, axes)
+    tp = mesh.axis_size("model")
+    cut = set()
+
+    def walk(t, sp):
+        if isinstance(t, dict):
+            if "w_packed" in t and sp["w_packed"][0] == "model":
+                cut.add(id(t))
+            for k, v in t.items():
+                walk(v, sp[k])
+        elif isinstance(t, list):
+            for a, b in zip(t, sp):
+                walk(a, b)
+
+    walk(params, SH.param_specs(params, mesh))
+    saved = C._linear
+
+    def lin(p, x, quant, psum=None, n_shards=1):
+        if id(p) not in cut:
+            return saved(p, x, quant, psum, n_shards)
+        r = p["w_packed"].shape[0] // tp
+        y = None
+        for i in range(tp):
+            part = saved({"w_packed": p["w_packed"][i * r:(i + 1) * r],
+                          "scale": p["scale"]},
+                         x[..., 5 * r * i:5 * r * (i + 1)], quant)
+            y = part if y is None else y + part
+        return y + p["b"] if "b" in p else y
+
+    C._linear = lin
+    try:
+        yield
+    finally:
+        C._linear = saved
+
+
+@contextlib.contextmanager
+def xent_inputs():
+    """Inside the block every `losses.chunked_xent` call records a copy
+    of its hidden rows (the final norm's output) in the yielded list."""
+    from repro_torch.models import losses
+
+    seen, saved = [], losses.chunked_xent
+
+    def spy(x, *args, **kw):
+        seen.append(x.detach().clone())
+        return saved(x, *args, **kw)
+
+    losses.chunked_xent = spy
+    try:
+        yield seen
+    finally:
+        losses.chunked_xent = saved
+
+
+def gpipe_batch(torch, cfg) -> dict:
+    rng = np.random.default_rng(SEED + 42)
+    return {k: torch.as_tensor(rng.integers(0, cfg.vocab, (TRAIN_BATCH,
+                                                            TRAIN_SEQ)),
+                               device=DEVICE) for k in ("tokens", "labels")}
+
+
+def gpipe_prediction(cfg, spec: str) -> dict:
+    """The dry run's exchanges of the pipelined forward on ``spec``: each
+    stage walked on ``meta`` tensors on a `StandInMesh` at its
+    coordinates (model 0), nothing allocated; per stage the
+    collective-permute count and payload bytes, and every record."""
+    import torch
+
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import pipeline as PP
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.roofline import hlo
+
+    shape, axes = M.parse(spec)
+    aparams = ST.abstract_params(cfg, stacked=True)
+    out = {}
+    for stage in range(shape[0]):
+        mesh = M.StandInMesh(shape, axes, coord={"pod": stage})
+        local = SH.shard_tree(aparams, PP.stage_pspecs(aparams, mesh), mesh)
+        batch = {k: torch.empty((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int64,
+                                device="meta") for k in ("tokens", "labels")}
+        w = hlo.walk(lambda p, b: PP.pipeline_forward_loss(
+            p, b, cfg, mesh, n_micro=GPIPE_MICRO), (local, batch), mesh)
+        perm = hlo.collective_bytes(w.records)["by_op"]["collective-permute"]
+        out[str(stage)] = {"count": perm["count"],
+                           "bytes": perm["payload_bytes"],
+                           "records": [list(r) for r in w.records],
+                           "flops": w.flops,
+                           "memory": hlo.memory(w)}
+    return out
+
+
+def gpipe_tp_path(torch, MM, TF, DEC, C, configs, llm, card: str) -> int:
+    """GPipe over ``pod`` and the ssm, hybrid and encdec families on a
+    model axis (see GPIPE_TP_WORLDS): this process runs the unmeshed
+    cells and the dry run's prediction, the ranks the meshed ones.
+    Returns the kernel-7 launches summed over every rank's cells."""
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch import steps as ST
+
+    cfg, params = llm["cfg"], llm["params"]
+    batch = gpipe_batch(torch, cfg)
+    with torch.no_grad(), xent_inputs() as seen:
+        flat, _ = TF.forward_loss(params, batch, cfg)
+    meta = {"gpipe_loss": float(flat), "digest": _digest(torch, params),
+            "families": {}, "prediction": {}}
+    for spec in GPIPE_MESHES.values():
+        meta["prediction"][spec] = gpipe_prediction(cfg, spec)
+    arrays = {k: v.cpu().numpy() for k, v in batch.items()}
+    arrays["gpipe_hidden"] = seen[0].float().cpu().numpy()
+    del seen
+    for fam in ("ssm", "hybrid", "encdec"):
+        fcfg = family_cfg(configs, fam)
+        fparams = llm_params(torch, TF, fcfg)
+        inp = family_inputs(torch, fcfg, fam)
+        run = _family_run(torch, TF, DEC, C, SH, ST, fcfg, fparams, inp)
+        arrays[f"{fam}/logits"] = run["logits"].float().cpu().numpy()
+        arrays[f"{fam}/fed"] = run["fed"].cpu().numpy()
+        for spec in {sp for cells in FAMILY_CELLS.values()
+                     for f, sp in cells if f == fam and "model:1" not in sp}:
+            with row_partials(C, SH, fparams, spec):
+                arrays[f"{fam}/{spec}/partials"] = _family_run(
+                    torch, TF, DEC, C, SH, ST, fcfg, fparams, inp,
+                    fed=run["fed"])["logits"].float().cpu().numpy()
+        meta["families"][fam] = {"digest": _digest(torch, fparams),
+                                 "ms": float(np.median(run["ms"])),
+                                 "params_gb": _param_bytes(fparams) / 1e9}
+        del fparams, run
+        torch.cuda.empty_cache()
+    total = 0
+    with tempfile.TemporaryDirectory() as root:
+        np.savez(os.path.join(root, "gpipe_tp.npz"), **arrays)
+        with open(os.path.join(root, "gpipe_tp.json"), "w") as f:
+            json.dump(meta, f)
+        for world, backend in GPIPE_TP_WORLDS.items():
+            t0 = time.perf_counter()
+            ranks = _mesh_world(world, backend, root, "--gpipe-tp-rank")
+            wall = time.perf_counter() - t0
+            total += _gpipe_tp_report(ranks, world, backend, meta, configs,
+                                      card)
+            log(f"phase 4: gpipe/tp world {world} on {backend}: "
+                f"{len(ranks)} ranks, {wall!r} s wall with their start; "
+                f"{card}")
+    return total
+
+
+def _gpipe_tp_report(ranks, world, backend, meta, configs, card) -> int:
+    """Check and print one world's results; its kernel-7 launches."""
+    launches = 0
+    for i, (fam, spec) in enumerate(FAMILY_CELLS[world]):
+        got = [r["families"][i] for r in ranks]
+        cfg = family_cfg(configs, fam)
+        for rank, g in enumerate(got):
+            what = f"{fam} on {spec} (rank {rank})"
+            if g["launches"] != g["want"]:
+                raise RuntimeError(f"{what}: kernel 7 launched "
+                                   f"{g['launches']}, want {g['want']}")
+            if world == 1 and not g["bitwise"]:
+                raise RuntimeError(f"{what}: logits differ from the unmeshed "
+                                   "run's")
+            lim = FAMILY_MESH_ULPS[f"{fam} {spec}"] if world > 1 else None
+            if lim and (g["max_ulps"] > lim[0]
+                        or g["partials_prefill_ulps"] > lim[1]
+                        or g["partials_decode_ulps"] > lim[2]):
+                raise RuntimeError(f"{what}: a logit {g['max_ulps']} ulps "
+                                   f"from the unmeshed run's (per row "
+                                   f"{g['row_ulps']}), "
+                                   f"{g['partials_prefill_ulps']} / "
+                                   f"{g['partials_decode_ulps']} (prefill "
+                                   f"row / decode rows) from the one with "
+                                   f"the row products' partial sums (per "
+                                   f"row {g['partials_row_ulps']}); at most "
+                                   f"{lim}")
+            if sorted(g["vs_plain"]) != sorted(g["slice_shapes"]) or \
+                    max(g["vs_plain"].values()) > SSM_MIXER_ULPS:
+                raise RuntimeError(f"{what}: kernel 7 against its plain "
+                                   f"version {g['vs_plain']}, want rows x "
+                                   f"N {g['slice_shapes']} within "
+                                   f"{SSM_MIXER_ULPS} ulps")
+            launches += g["launches"]
+        errs: dict = {}
+        for g in got:
+            for k, v in g["vs_plain"].items():
+                errs[k] = max(errs.get(k, 0.0), v)
+        g = got[0]
+        log(f"phase 4: {fam} cell {spec} ({cfg.name} ternary_packed, "
+            f"{g['depth']}, batch {FAMILY_BATCH[fam]}, "
+            f"{FAMILY_PROMPT[fam]}-token prompt + {FAMILY_STEPS} decode "
+            f"steps; {backend}): "
+            + ("every logit bit-identical to the unmeshed run; "
+               if world == 1 else
+               f"largest logit difference {max(r['max_ulps'] for r in got)!r}"
+               f" bf16 ulps of its row's max |logit| (at most "
+               f"{FAMILY_MESH_ULPS[f'{fam} {spec}'][0]}; per row, prefill "
+               f"step then each decode step: {g['row_ulps']}); against the "
+               f"unmeshed run with the row-cut projections' bf16 partial "
+               f"sums (`row_partials`) prefill row "
+               f"{max(r['partials_prefill_ulps'] for r in got)!r}, decode "
+               f"rows {max(r['partials_decode_ulps'] for r in got)!r} (at "
+               f"most {FAMILY_MESH_ULPS[f'{fam} {spec}'][1:]}; per row "
+               f"{g['partials_row_ulps']}); ")
+            + f"SSM state / caches per rank {g['cache_local']}; out_proj "
+            f"packed rows per rank {g['out_proj_rows']}; kernel 7 launched "
+            f"{g['launches']} times per rank; decode step ms (slowest "
+            f"rank's median) {max(r['ms'] for r in got)!r} (unmeshed "
+            f"{meta['families'][fam]['ms']!r}); collective bytes per rank "
+            f"per decode step {g['bytes_per_step']}; kernel 7 against its "
+            f"plain version per (M, K, N), max |err| in bf16 ulps: "
+            f"{ {k: round(v, 3) for k, v in sorted(errs.items())} } "
+            f"(tolerance {SSM_MIXER_ULPS}); {world} ranks on one card; "
+            f"{card}")
+    if world not in GPIPE_MESHES:
+        return launches
+    spec = GPIPE_MESHES[world]
+    got = [r["gpipe"] for r in ranks]
+    pred = meta["prediction"][spec]
+    for rank, g in enumerate(got):
+        what = f"gpipe {spec} (rank {rank})"
+        tp = "model" in spec
+        if abs(g["loss"] - meta["gpipe_loss"]) > (GPIPE_LOSS_ATOL if tp
+                                                  else 0.0) or \
+                g["loss"] != got[0]["loss"]:
+            raise RuntimeError(f"{what}: loss {g['loss']!r}, unmeshed "
+                               f"{meta['gpipe_loss']!r}")
+        if g["hidden_ulps"] is not None and (
+                g["hidden_ulps"] > GPIPE_HIDDEN_ULPS if tp
+                else not g["hidden_equal"]):
+            raise RuntimeError(f"{what}: the last stage's final hidden rows "
+                               f"{g['hidden_ulps']} ulps from the unmeshed "
+                               f"forward's (bit for bit: "
+                               f"{g['hidden_equal']})")
+        if g["launches"] != g["want"]:
+            raise RuntimeError(f"{what}: kernel 7 launched {g['launches']}, "
+                               f"want {g['want']}")
+        p = pred[str(g["stage"])]
+        if g["permutes"] != [p["count"], p["bytes"]] or \
+                g["records"] != p["records"]:
+            raise RuntimeError(f"{what}: exchanges {g['permutes']} "
+                               f"{g['records']}, the dry run predicts "
+                               f"{p['count']} {p['bytes']} {p['records']}")
+        if max(g["vs_plain"].values()) > SSM_MIXER_ULPS:
+            raise RuntimeError(f"{what}: kernel 7 against its plain version "
+                               f"{g['vs_plain']}")
+        launches += g["launches"]
+    errs: dict = {}
+    for g in got:
+        for k, v in g["vs_plain"].items():
+            errs[k] = max(errs.get(k, 0.0), v)
+    g = got[0]
+    last = next((r for r in got if r["hidden_ulps"] is not None), None)
+    if last is None:
+        raise RuntimeError(f"gpipe {spec}: no rank saw the final hidden rows")
+    log(f"phase 4: gpipe cell {spec} (llama3.2-1B ternary_packed, full "
+        f"width and depth, {g['layers']} layers a stage, batch "
+        f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, {GPIPE_MICRO} microbatches; "
+        f"{backend}): loss {g['loss']!r}, unmeshed forward_loss "
+        f"{meta['gpipe_loss']!r} (|diff| {abs(g['loss'] - meta['gpipe_loss'])!r}"
+        f", at most {GPIPE_LOSS_ATOL if 'model' in spec else 0.0}); the "
+        f"last stage's final hidden rows "
+        + ("bit-identical to the unmeshed forward's"
+           if last["hidden_equal"] else
+           f"{last['hidden_ulps']!r} bf16 ulps of their row's max |value| "
+           f"from the unmeshed forward's (at most {GPIPE_HIDDEN_ULPS})")
+        + f"; ms per pipelined forward "
+        f"(slowest rank's median) {max(r['ms'] for r in got)!r}; "
+        f"collective-permute per rank {g['permutes'][0]} x "
+        f"{g['permutes'][1] / max(g['permutes'][0], 1)!r} B = "
+        f"{g['permutes'][1]!r} B, the dry run's prediction "
+        f"{pred['0']['count']} / {pred['0']['bytes']!r} B (every record "
+        f"equal, stage by stage); dry-run memory per rank stage 0 "
+        f"{pred['0']['memory']}, last stage "
+        f"{pred[str(len(pred) - 1)]['memory']}; kernel 7 launched "
+        f"{g['launches']} times per rank; kernel 7 against its plain "
+        f"version per (M, K, N), max |err| in bf16 ulps: "
+        f"{ {k: round(v, 3) for k, v in sorted(errs.items())} }; {world} "
+        f"ranks on one card; {card}")
+    return launches
+
+
+def _packed_rows(local) -> list:
+    """(rows, N) of every packed leaf of a local tree, as strings."""
+    out: set = set()
+
+    def walk(t):
+        if isinstance(t, dict):
+            if "w_packed" in t:
+                out.add(str(tuple(t["w_packed"].shape)))
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, list):
+            for v in t:
+                walk(v)
+
+    walk(local)
+    return sorted(out)
+
+
+def _family_rank_cell(torch, MM, TF, DEC, C, M, SH, ST, configs, fam, spec,
+                      meta, z, world) -> dict:
+    """One rank's family cell on ``spec`` (see FAMILY_CELLS)."""
+    cfg = family_cfg(configs, fam)
+    params = llm_params(torch, TF, cfg)
+    if _digest(torch, params) != meta["families"][fam]["digest"]:
+        raise RuntimeError(f"{fam}: the rank drew other weights")
+    inp = family_inputs(torch, cfg, fam)
+    want = torch.as_tensor(z[f"{fam}/logits"], device=DEVICE)
+    fed = torch.as_tensor(z[f"{fam}/fed"], device=DEVICE)
+    own = None
+    if world == 1:
+        own = _family_run(torch, TF, DEC, C, SH, ST, cfg, params, inp,
+                          fed=fed)["logits"]
+    mesh = M.make_mesh(*M.parse(spec), device=DEVICE)
+    reset_launches(MM)
+    sent = sum(mesh.sent.values())
+    run = _family_run(torch, TF, DEC, C, SH, ST, cfg, params, inp, mesh, fed)
+    launches = MM.LAUNCHES["ternary_matmul"]
+    steps = FAMILY_PROMPT[fam] + FAMILY_STEPS
+    got = run["logits"]
+    # kernel 7 against its plain version on the same inputs: one more
+    # prefill step's forward and one more decode step
+    b = inp["tokens"].shape[0]
+    with torch.no_grad(), kernel_vs_plain(torch, MM, C) as vs_plain:
+        with C.use_mesh(mesh):
+            TF.forward_logits(run["local"], run["lin"], cfg)
+        run["step"](run["local"], run["cut"](fed[-1], run["tok_spec"]),
+                    run["caches"], run["cut"](torch.full(
+                        (b,), steps, device=DEVICE), run["pos_spec"]))
+    ulps = (got.float() - want.float()).abs() / _ulp_rows(torch, want)
+    part = z.get(f"{fam}/{spec}/partials")
+    pulps = (got.float() - torch.as_tensor(part, device=DEVICE)).abs() \
+        / _ulp_rows(torch, want) if part is not None else ulps
+    lp = run["local"]["layers"][0]
+    rows = (lp["mixer"]["out_proj"]["w_packed"].shape[0] if "mixer" in lp
+            else lp["attn"]["wo"]["w_packed"].shape[0])
+    caches = {f"{k}/{kk}": list(v.shape) for k, d in run["caches"].items()
+              for kk, v in d.items()}
+    shapes = _packed_rows(run["local"])
+    per_rows: dict = {}                  # (packed rows, N) -> worst ulps
+    for (_m, k, n), v in vs_plain.items():
+        key = str((-(-k // 5), n))
+        per_rows[key] = max(per_rows.get(key, 0.0), v)
+    return {"launches": launches, "want": family_launches(
+                cfg, FAMILY_PROMPT[fam]) if DEVICE == "cuda" else 0,
+            "bitwise": own is not None and torch.equal(got, own),
+            "max_ulps": float(ulps.max()), "ms": float(np.median(run["ms"])),
+            "row_ulps": [round(float(u), 3)
+                         for u in ulps.amax(dim=(1, 2, 3))],
+            "partials_prefill_ulps": float(pulps[0].max()),
+            "partials_decode_ulps": float(pulps[1:].max()),
+            "partials_row_ulps": [round(float(u), 3)
+                                  for u in pulps.amax(dim=(1, 2, 3))],
+            "bytes_per_step": (sum(mesh.sent.values()) - sent) // (steps + 1),
+            "depth": (f"{cfg.enc_layers} + {cfg.n_layers} layers"
+                      if fam == "encdec" else f"{cfg.n_layers} layers"),
+            "cache_local": caches, "out_proj_rows": int(rows),
+            "vs_plain": per_rows, "slice_shapes": shapes}
+
+
+def _gpipe_rank_cell(torch, MM, TF, M, SH, ST, C, cfg, params, z,
+                     spec) -> dict:
+    """One rank's pipelined forward on ``spec`` (see GPIPE_MESHES)."""
+    from repro_torch.launch import pipeline as PP
+    from repro_torch.roofline import hlo
+
+    mesh = M.make_mesh(*M.parse(spec), device=DEVICE)
+    stacked = TF.stack_layers(params)
+    specs = PP.stage_pspecs(ST.abstract_params(cfg, stacked=True), mesh)
+    local = SH.shard_tree(stacked, specs, mesh)
+    del stacked
+    torch.cuda.empty_cache()
+    batch = {k: torch.as_tensor(z[k], device=DEVICE)
+             for k in ("tokens", "labels")}
+
+    def fwd(p, b):
+        return PP.pipeline_forward_loss(p, b, cfg, mesh, n_micro=GPIPE_MICRO)
+
+    ms = []
+    with torch.no_grad():
+        reset_launches(MM)
+        with xent_inputs() as seen:
+            w = hlo.walk(fwd, (local, batch), mesh)
+        launches = MM.LAUNCHES["ternary_matmul"]
+        for _ in range(3):
+            sync(torch)
+            mesh.barrier()
+            t0 = time.perf_counter()
+            fwd(local, batch)
+            sync(torch)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        with kernel_vs_plain(torch, MM, C) as vs_plain:
+            fwd(local, batch)
+    perm = hlo.collective_bytes(w.records)["by_op"]["collective-permute"]
+    layers = int(local["layers"]["ln1"]["scale"].shape[0])
+    # the last stage's final hidden rows against the unmeshed forward's
+    hidden_ulps = hidden_equal = None
+    if seen:
+        want = torch.as_tensor(z["gpipe_hidden"], device=DEVICE)
+        got = seen[0].float()
+        hidden_equal = bool(torch.equal(got, want))
+        hidden_ulps = float(((got - want).abs()
+                             / _ulp_rows(torch, want)).max())
+    return {"loss": float(w.out[0]), "stage": mesh.coord("pod"),
+            "hidden_ulps": hidden_ulps, "hidden_equal": hidden_equal,
+            "layers": layers, "ms": float(np.median(ms)),
+            "launches": launches,
+            "want": 7 * layers * GPIPE_MICRO if DEVICE == "cuda" else 0,
+            "permutes": [perm["count"], perm["payload_bytes"]],
+            "records": [list(r) for r in w.records],
+            "vs_plain": {str(k): v for k, v in vs_plain.items()}}
+
+
+def gpipe_tp_rank_main(rank: int, world: int, backend: str,
+                       root: str) -> int:
+    """``--gpipe-tp-rank R WORLD BACKEND DIR``: one rank of the GPipe and
+    model-axis family path.  Joins the process group
+    (``file://DIR/gpg<WORLD>``), runs its world's family cells and, in
+    worlds 2 and 4, the pipelined forward of the main path's llama3.2-1B
+    weights (their digest must be the parent's), and writes its results
+    to ``DIR/w<WORLD>r<R>.json``; any failed check raises."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.kernels import ternary_matmul as MM
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import common as C
+    from repro_torch.models import decoding as DEC
+    from repro_torch.models import transformer as TF
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        backend, init_method=f"file://{os.path.join(root, f'gpg{world}')}",
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        with open(os.path.join(root, "gpipe_tp.json")) as f:
+            meta = json.load(f)
+        with np.load(os.path.join(root, "gpipe_tp.npz")) as z:
+            z = {k: z[k] for k in z.files}
+        out = {"families": []}
+        for fam, spec in FAMILY_CELLS[world]:
+            out["families"].append(_family_rank_cell(
+                torch, MM, TF, DEC, C, M, SH, ST, configs, fam, spec, meta,
+                z, world))
+            torch.cuda.empty_cache()
+        if world in GPIPE_MESHES:
+            cfg = configs.get(LLM_ARCH).replace(quant="ternary_packed",
+                                                attn_kv_chunk=16)
+            params = llm_params(torch, TF, cfg)
+            if _digest(torch, params) != meta["digest"]:
+                raise RuntimeError("gpipe: the rank drew other weights")
+            out["gpipe"] = _gpipe_rank_cell(torch, MM, TF, M, SH, ST, C, cfg,
+                                            params, z, GPIPE_MESHES[world])
         with open(os.path.join(root, f"w{world}r{rank}.json"), "w") as f:
             json.dump(out, f)
         dist.barrier()
@@ -3472,7 +4208,7 @@ def ssm_chunked_check(torch, TF, DEC, params, cfg, prompt,
     each within SSM_LAYER_RTOL of the layer's largest |increment| (the two
     round their convolutions, sums and attention differently in bf16).
     End to end (a prompt's last-position logits from `forward_logits`
-    against `ssm_prefill`'s): 48 layers of seeded weights compound those
+    against `ssm_prefill`'s): the layers of seeded weights compound those
     differences, so the reference's reduced-size rule
     (test_decode_matches_prefill: correlation above 0.99, |err| within 0.3
     + 0.3 |logit|) is reported; held for the ssm family are a correlation
@@ -3542,10 +4278,11 @@ def ssm_chunked_check(torch, TF, DEC, params, cfg, prompt,
 
 def ssm_path(torch, MM, TC, S, TF, DEC, C, codec, configs, card: str,
              cfg=None) -> dict:
-    """mamba2-780m, ternary_packed, at full width and depth with seeded
+    """mamba2-780m, ternary_packed, at full width and SSM_PATH_LAYERS of
+    its 48 layers with seeded
     weights on the card, serving the LLM path's 8 requests paged with
     prefix caching (block-boundary state snapshots): kernel 7 launches
-    3 x 48 per token through the model (prompt tokens one by one), paged
+    3 x layers per token through the model (prompt tokens one by one), paged
     and contiguous give the same tokens, kernel 7 agrees with its plain
     version in every mixer call of a prefill, the chunked forward's last logits
     agree with the token-by-token prefill under the reference's
@@ -3554,7 +4291,8 @@ def ssm_path(torch, MM, TC, S, TF, DEC, C, codec, configs, card: str,
     follows the plain tokens under the margin rule, and the trit state
     store round-trips on the card; then the serving times and the
     device's busy share."""
-    cfg = cfg or configs.get(SSM_ARCH).replace(quant="ternary_packed")
+    cfg = cfg or configs.get(SSM_ARCH).replace(quant="ternary_packed",
+                                               n_layers=SSM_PATH_LAYERS)
     params = llm_params(torch, TF, cfg)
     prompts = llm_prompts(cfg)
     per_tok = 3 * cfg.n_layers
@@ -3728,20 +4466,21 @@ def hybrid_decode(torch, MM, DEC, params, cfg, prompts) -> dict:
 
 
 def hybrid_path(torch, MM, TF, DEC, C, configs, card: str) -> dict:
-    """zamba2-2.7b, ternary_packed, at full width and depth with seeded
-    weights on the card: the first HYBRID_BATCH prompts of the LLM path
-    through `ssm_prefill` and LLM_NEW greedy decode steps (the
-    reference's serving functions for the family; it has no hybrid
-    executor): kernel 7 launches `hybrid_launches_per_step` (225) per
-    token step; in one decode step each of the 9 applications of the
-    shared block runs the one ``shared_attn`` dict on its own KV cache,
+    """zamba2-2.7b, ternary_packed, at full width and HYBRID_PATH_LAYERS
+    of its 54 layers with seeded weights on the card: the first
+    HYBRID_BATCH prompts of the LLM path through `ssm_prefill` and
+    LLM_NEW greedy decode steps (the reference's serving functions for
+    the family; it has no hybrid executor): kernel 7 launches
+    `hybrid_launches_per_step` (75 at 18 layers) per token step; in one
+    decode step each application of the shared block runs the one ``shared_attn`` dict on its own KV cache,
     and every kernel-7 call (M = HYBRID_BATCH) agrees with its plain
     version within SSM_MIXER_ULPS; every mixer call of a prefill
     (`ssm_plain_check`); the chunked forward against the recurrence layer
     by layer (`ssm_chunked_check`); then the parameter bytes, the host
     medians, the device's busy share of a profiled run and the peak
     memory."""
-    cfg = configs.get(HYBRID_ARCH).replace(quant="ternary_packed")
+    cfg = configs.get(HYBRID_ARCH).replace(quant="ternary_packed",
+                                           n_layers=HYBRID_PATH_LAYERS)
     _fresh_peak(torch)
     t0 = time.perf_counter()
     params = llm_params(torch, TF, cfg)
@@ -3772,7 +4511,7 @@ def hybrid_path(torch, MM, TF, DEC, C, configs, card: str) -> dict:
             and bool(caches["kv"]["k"][:, :, end:].eq(0).all())
             and all(not torch.equal(rows[i], rows[j])
                     for i in range(n_apps) for j in range(i))):
-        raise RuntimeError("hybrid: the shared block's KV caches are not 9 "
+        raise RuntimeError("hybrid: the shared block's KV caches are not "
                            "distinct caches written up to the position")
     log(f"phase 4: hybrid {b} prompts x {s} tokens through ssm_prefill "
         f"({run['prefill_s']!r} s, {run['prefill_s'] / s * 1e3!r} ms per "
@@ -5642,6 +6381,9 @@ def main() -> int:
     spent.append(("llm_train_path", time.perf_counter()))
     llm["launches"] += model_mesh_path(torch, MM, TF, DEC, llm, card)
     spent.append(("model_mesh_path", time.perf_counter()))
+    llm["launches"] += gpipe_tp_path(torch, MM, TF, DEC, C, configs, llm,
+                                     card)
+    spent.append(("gpipe_tp_path", time.perf_counter()))
     torch.cuda.empty_cache()
     moe_run = moe_path(torch, MM, TC, S, TF, DEC, C, codec, moe, configs,
                        card)
@@ -5709,4 +6451,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--model-mesh-rank"]:
         sys.exit(model_mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]),
                                       sys.argv[4], sys.argv[5]))
+    if sys.argv[1:2] == ["--gpipe-tp-rank"]:
+        sys.exit(gpipe_tp_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                                    sys.argv[4], sys.argv[5]))
     sys.exit(main())

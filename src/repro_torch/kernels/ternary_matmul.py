@@ -18,6 +18,15 @@ on a CPU tensor it runs the plain version beside it.  bf16/f16 and int8
 x run on the tensor cores, f32 x on the CUDA cores (TF32 would round
 x): the route follows x's dtype, never M.  ``LAUNCHES`` counts kernel
 launches per wrapper and nothing else.
+
+A ``meta`` tensor (a dry run's walk) gets an output of the right shape
+and dtype and nothing is computed.  Each wrapper is also a registered
+op (``repro_torch::ternary_matmul``, ``repro_torch::ternary_matmul_dense``)
+with a FLOP formula, 2 M K N at the logical K, that
+`torch.utils.flop_counter.FlopCounterMode` reads: the wrapper goes
+through the op for a ``meta`` tensor and whenever a dispatch mode is
+tracing, so a trace sees one op with its operands and result however
+the device computes it (`repro_torch.roofline.hlo`).
 """
 
 from __future__ import annotations
@@ -28,6 +37,8 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import _get_current_dispatch_mode
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
@@ -231,6 +242,17 @@ def _launch(x, w, out, eps, rows: int, packed: int, epilogue: str,
     LAUNCHES[name] += 1
 
 
+def _traced(x: torch.Tensor) -> bool:
+    """Whether a call goes through its registered op: a ``meta`` x, or
+    a dispatch mode tracing."""
+    return x.device.type == "meta" or _get_current_dispatch_mode() is not None
+
+
+def _opt(v, dev):
+    return v if v is None or isinstance(v, torch.Tensor) \
+        else torch.as_tensor(v, device=dev)
+
+
 def ternary_matmul(x: torch.Tensor, w_packed: torch.Tensor, *, scale=None,
                    t_lo=None, t_hi=None, flip=None,
                    round_scale: bool = False) -> torch.Tensor:
@@ -239,6 +261,16 @@ def ternary_matmul(x: torch.Tensor, w_packed: torch.Tensor, *, scale=None,
     Replaces `repro.kernels.ternary_matmul.ternary_matmul_pallas`.
     """
     _check(x, w_packed, "ternary_matmul")
+    if _traced(x):
+        return _ternary_matmul_op(x, w_packed,
+                                  *(_opt(v, x.device)
+                                    for v in (scale, t_lo, t_hi, flip)),
+                                  round_scale)
+    return _ternary_matmul(x, w_packed, scale=scale, t_lo=t_lo, t_hi=t_hi,
+                           flip=flip, round_scale=round_scale)
+
+
+def _ternary_matmul(x, w_packed, *, scale, t_lo, t_hi, flip, round_scale):
     if not _on_card(x, "ternary_matmul"):
         return ternary_matmul_plain(x, w_packed, scale=scale, t_lo=t_lo,
                                     t_hi=t_hi, flip=flip,
@@ -284,6 +316,12 @@ def ternary_matmul_dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.shape[1] != w.shape[0]:
         raise ValueError(f"ternary_matmul_dense: x {tuple(x.shape)} and w "
                          f"{tuple(w.shape)} do not chain")
+    if _traced(x):
+        return _ternary_matmul_dense_op(x, w)
+    return _ternary_matmul_dense(x, w)
+
+
+def _ternary_matmul_dense(x, w):
     if not _on_card(x, "ternary_matmul_dense"):
         return ternary_matmul_dense_plain(x, w)
     out = torch.empty((x.shape[0], w.shape[1]), dtype=torch.int32,
@@ -293,3 +331,42 @@ def ternary_matmul_dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                 out, (None, None, None, None), w.shape[0], 0, "none", False,
                 "ternary_matmul_dense")
     return out
+
+
+# -- the registered ops: one op to a dispatch mode, nothing computed on meta --
+
+
+@torch.library.custom_op("repro_torch::ternary_matmul", mutates_args=())
+def _ternary_matmul_op(x: torch.Tensor, w_packed: torch.Tensor,
+                       scale: torch.Tensor | None, t_lo: torch.Tensor | None,
+                       t_hi: torch.Tensor | None, flip: torch.Tensor | None,
+                       round_scale: bool) -> torch.Tensor:
+    return _ternary_matmul(x, w_packed, scale=scale, t_lo=t_lo, t_hi=t_hi,
+                           flip=flip, round_scale=round_scale)
+
+
+@_ternary_matmul_op.register_fake
+def _(x, w_packed, scale, t_lo, t_hi, flip, round_scale):
+    _check_round_scale(x, round_scale)
+    _, dtype = _epilogue(x, scale, t_lo)
+    return x.new_empty((x.shape[0], w_packed.shape[1]), dtype=dtype)
+
+
+@torch.library.custom_op("repro_torch::ternary_matmul_dense",
+                         mutates_args=())
+def _ternary_matmul_dense_op(x: torch.Tensor, w: torch.Tensor
+                             ) -> torch.Tensor:
+    return _ternary_matmul_dense(x, w)
+
+
+@_ternary_matmul_dense_op.register_fake
+def _(x, w):
+    return x.new_empty((x.shape[0], w.shape[1]), dtype=torch.int32)
+
+
+@register_flop_formula([torch.ops.repro_torch.ternary_matmul,
+                        torch.ops.repro_torch.ternary_matmul_dense])
+def _flops(x_shape, w_shape, *args, out_shape=None, **kwargs) -> int:
+    """2 M K N: x's K is the logical depth (packed rows hold 5 each)."""
+    m, k = x_shape
+    return 2 * m * k * w_shape[1]

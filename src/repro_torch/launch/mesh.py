@@ -24,18 +24,45 @@ copied back, explicitly, while the compute stays on the card
 (``staged``).  An axis of size 1 exchanges nothing: on a world of one
 every meshed computation is the unmeshed one, op for op.
 
+While a trace runs (`repro_torch.roofline.hlo.walk` sets ``records``
+to a list), every exchange is recorded as a `Record` (op, payload
+bytes, group size) under the reference's HLO names, its payload the
+*result's* bytes, as `repro_torch.roofline.hlo.collective_bytes`
+prices an HLO collective (an all-gather's result is the group size
+times its input); otherwise ``records`` is None, so a long run keeps no
+log.  ``sent`` keeps the bytes each rank put in.
+`StandInMesh` has the same interface and no process group: its
+exchanges record themselves and return ``meta`` tensors of the result's
+shape, so a dry run walks a production mesh in one process
+(`repro_torch.launch.dryrun`).
+
 `make_production_mesh` and `make_mesh` are functions, so importing this
 module touches no process group.
 """
 
 from __future__ import annotations
 
+import copy
+from typing import NamedTuple
+
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch.device import resolve_device
 
 AXES = ("pod", "data", "model")
+#: (shape, axes) of the reference's production meshes, single and multi pod
+PRODUCTION = {False: ((16, 16), ("data", "model")),
+              True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+class Record(NamedTuple):
+    """One exchange: its HLO op name, the bytes of its result on this
+    rank, and the number of ranks in its group."""
+    op: str
+    payload_bytes: int
+    group: int
 
 
 def _op(name: str):
@@ -63,6 +90,8 @@ class Mesh:
         self._group = {a: device_mesh.get_group(a) for a in self.axis_names}
         #: bytes this rank put into each kind of exchange, for accounting
         self.sent = {"all_reduce": 0, "all_gather": 0}
+        #: every exchange of this rank while a trace runs (`Record`s)
+        self.records: list[Record] | None = None
 
     @property
     def rank(self) -> int:
@@ -78,6 +107,16 @@ class Mesh:
     def coord(self, axis: str) -> int:
         return self._coord.get(axis, 0)
 
+    def sub(self, axes) -> "Mesh":
+        """This rank's view of ``axes`` alone (the others dropped), over
+        the same process groups, ``records`` and ``sent``: a pipeline
+        stage's mesh, whose batch sums leave out ``pod``."""
+        m = copy.copy(self)
+        m.axis_names = tuple(a for a in self.axis_names if a in axes)
+        m.shape = {a: self.shape[a] for a in m.axis_names}
+        m._coord = {a: self._coord[a] for a in m.axis_names}
+        return m
+
     def axis_size(self, axis: str) -> int:
         return self.shape.get(axis, 1)
 
@@ -87,20 +126,65 @@ class Mesh:
 
     # -- exchanges (not recorded by autograd) ------------------------------
 
+    def _record(self, op: str, nbytes: int, axis: str) -> None:
+        if self.records is not None:
+            self.records.append(Record(op, nbytes, self.shape[axis]))
+
+    # An exchange's own copies are no model op: a dispatch mode tracing
+    # the step (`repro_torch.roofline.hlo`) sees its record, not them.
+
     def _reduce(self, t: torch.Tensor, axis: str, op: str) -> torch.Tensor:
-        self.sent["all_reduce"] += t.numel() * t.element_size()
+        nbytes = t.numel() * t.element_size()
+        self.sent["all_reduce"] += nbytes
+        self._record("all-reduce", nbytes, axis)
+        with _disable_current_modes():
+            return self._all_reduce(t, axis, op)
+
+    def _gather(self, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+        nbytes = t.numel() * t.element_size()
+        self.sent["all_gather"] += nbytes
+        self._record("all-gather", nbytes * self.shape[axis], axis)
+        with _disable_current_modes():
+            return self._all_gather(t, axis, dim)
+
+    def _permute(self, t: torch.Tensor, axis: str, step: int
+                 ) -> torch.Tensor:
+        """Position i sends ``t`` to i + step and returns what i - step
+        sent it (zeros where no position sends)."""
+        self._record("collective-permute", t.numel() * t.element_size(),
+                     axis)
+        with _disable_current_modes():
+            return self._send_recv(t, axis, step)
+
+    # the exchanges themselves, over the process group
+
+    def _all_reduce(self, t, axis, op):
         buf = t.detach().cpu() if self.staged else t.detach().clone(
             memory_format=torch.contiguous_format)
         dist.all_reduce(buf, op=_op(op), group=self._group[axis])
         return buf.to(t.device) if self.staged else buf
 
-    def _gather(self, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
-        self.sent["all_gather"] += t.numel() * t.element_size()
+    def _all_gather(self, t, axis, dim):
         src = t.detach().cpu() if self.staged else t.detach().contiguous()
         parts = [torch.empty_like(src) for _ in range(self.shape[axis])]
         dist.all_gather(parts, src, group=self._group[axis])
         out = torch.cat(parts, dim=dim)
         return out.to(t.device) if self.staged else out
+
+    def _send_recv(self, t, axis, step):
+        n, pos = self.shape[axis], self.coord(axis)
+        group = self._group[axis]
+        ranks = dist.get_process_group_ranks(group)
+        src = t.detach().cpu() if self.staged else t.detach().contiguous()
+        buf = torch.zeros_like(src)
+        req = None
+        if 0 <= pos + step < n:
+            req = dist.isend(src, dst=ranks[pos + step], group=group)
+        if 0 <= pos - step < n:
+            dist.recv(buf, src=ranks[pos - step], group=group)
+        if req is not None:
+            req.wait()
+        return buf.to(t.device) if self.staged else buf
 
     def all_reduce(self, t: torch.Tensor, axes, op: str = "sum"
                    ) -> torch.Tensor:
@@ -121,6 +205,17 @@ class Mesh:
         if t.requires_grad:
             return _AllGather.apply(t, self, axis, dim)
         return self._gather(t, axis, dim)
+
+    def shift(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """The ring step of a pipeline over ``axis`` (the reference's
+        ``ppermute`` with pairs (i, i + 1)): position i + 1 gets
+        position i's ``t``, position 0 gets zeros, the last position's
+        ``t`` goes nowhere.  The backward shifts the cotangents back."""
+        if self.shape.get(axis, 1) == 1:
+            return torch.zeros_like(t)
+        if t.requires_grad:
+            return _Shift.apply(t, self, axis)
+        return self._permute(t, axis, 1)
 
     def barrier(self) -> None:
         dist.barrier()
@@ -153,6 +248,54 @@ class _AllGather(torch.autograd.Function):
         m, a = ctx.mesh, ctx.axis
         g = m._reduce(g, a, "sum")
         return g.narrow(ctx.dim, m.coord(a) * ctx.n, ctx.n), None, None, None
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return mesh._permute(t, axis, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._permute(g, ctx.axis, -1), None, None
+
+
+class StandInMesh(Mesh):
+    """A mesh of ``shape`` over ``axes`` with no process group, for a dry
+    run: this rank sits at ``coord`` (axis -> position; 0 on every axis
+    it leaves out), computes on the ``meta`` device, and each exchange
+    records itself (``records``, ``sent``) and returns an uninitialized
+    ``meta`` tensor of its result's shape."""
+
+    def __init__(self, shape, axes, coord=None):
+        self.axis_names = tuple(axes)
+        self.shape = {a: int(n) for a, n in zip(self.axis_names, shape)}
+        self.device = torch.device("meta")
+        self.backend = "none"
+        self.staged = False
+        self._coord = {a: int((coord or {}).get(a, 0))
+                       for a in self.axis_names}
+        self.sent = {"all_reduce": 0, "all_gather": 0}
+        self.records = []
+
+    @property
+    def rank(self) -> int:
+        return 0
+
+    def _all_reduce(self, t, axis, op):
+        return torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+    def _all_gather(self, t, axis, dim):
+        shape = list(t.shape)
+        shape[dim] *= self.shape[axis]
+        return torch.empty(shape, dtype=t.dtype, device="meta")
+
+    def _send_recv(self, t, axis, step):
+        return torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+    def barrier(self) -> None:
+        pass
 
 
 def make_mesh(shape, axes, device=None) -> Mesh:
@@ -197,9 +340,7 @@ def make_mesh(shape, axes, device=None) -> Mesh:
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes, device)
+    return make_mesh(*PRODUCTION[multi_pod], device)
 
 
 def parse(spec: str) -> tuple[tuple, tuple]:

@@ -115,10 +115,12 @@ def make_prefill_step(cfg: ArchConfig):
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig, *, kv_sharded: bool = True):
+def make_decode_step(cfg: ArchConfig, *, kv_sharded: bool = True,
+                     cross_sharded: bool = True):
     def serve_step(params, token, caches, pos):
         return DEC.decode_step(params, token, caches, pos, cfg,
-                               kv_sharded=kv_sharded)
+                               kv_sharded=kv_sharded,
+                               cross_sharded=cross_sharded)
     return serve_step
 
 
@@ -143,8 +145,6 @@ def build_cell(cfg: ArchConfig, shape_name, mesh,
     args`` and whose partition specs (in, out) are ``specs``.
     ``shape_name`` is a key of `SHAPES` or a `ShapeSpec`."""
     shape = SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
-    with C.use_mesh(mesh):
-        TF.check_tp(cfg)
     aparams = abstract_params(cfg)
     pspecs = SH.param_specs(aparams, mesh)
 
@@ -175,14 +175,17 @@ def build_cell(cfg: ArchConfig, shape_name, mesh,
     dstruct = decode_struct(cfg, shape)
     dspecs = decode_pspecs(cfg)
     cache_specs = SH.fit_named(mesh, dspecs["caches"], dstruct["caches"])
-    kv_sharded = all(s[2] is not None
-                     for s in SH.spec_leaves(cache_specs.get("kv")))
+    # whether each rank's KV (and whisper's cross) cache holds its model
+    # slice of the sequence, or all of it (the dim does not divide)
+    kv_sharded, cross_sharded = (
+        all(s[2] is not None for s in SH.spec_leaves(cache_specs.get(k)))
+        for k in ("kv", "cross"))
     b = shape.global_batch
     logits = _meta((b, 1, TF.vocab_padded(cfg)), torch.bfloat16)
     token_spec = SH.fit_named(mesh, dspecs["token"], dstruct["token"])
     pos_spec = SH.fit_named(mesh, dspecs["pos"], dstruct["pos"])
     fn = _under(mesh, torch.no_grad()(make_decode_step(
-        cfg, kv_sharded=kv_sharded)))
+        cfg, kv_sharded=kv_sharded, cross_sharded=cross_sharded)))
     specs = {"in": (pspecs, token_spec, cache_specs, pos_spec),
              "out": (SH.fit_named(mesh, P(BATCH_AXES, None, "model"),
                                   logits), cache_specs)}

@@ -344,9 +344,14 @@ def _decode_attention_tp(p, x, cfg, cache, pos, rope, cross, kv_sharded,
     t0 = mesh.coord(C.MODEL) * t_l if kv_sharded else 0
     if not cross:
         knew, vnew = _project_kv(p, x, cfg, positions, rope, (0, hk))
-        rows = torch.nonzero((pos >= t0) & (pos < t0 + t_l)).flatten()
-        k[rows, pos[rows] - t0] = knew[rows, 0].to(k.dtype)
-        v[rows, pos[rows] - t0] = vnew[rows, 0].to(v.dtype)
+        # every row writes: its own k/v where its position is in this
+        # rank's slice, the slot's value as it was elsewhere (no
+        # data-dependent shape, so a meta walk takes the same ops)
+        rows = torch.arange(b, device=x.device)
+        mine = ((pos >= t0) & (pos < t0 + t_l))[:, None, None]
+        at = (pos - t0).clamp(0, t_l - 1)
+        k[rows, at] = torch.where(mine, knew[:, 0].to(k.dtype), k[rows, at])
+        v[rows, at] = torch.where(mine, vnew[:, 0].to(v.dtype), v[rows, at])
     qg = q.reshape(b, 1, hk, h // hk, dh).to(torch.float32)
     ke = k.to(q.dtype).to(torch.float32)
     sc = torch.einsum("bqhgd,bkhd->bhgqk", qg, ke) * dh ** -0.5

@@ -82,13 +82,14 @@ def _moe(lp, x, cfg):
 
 
 def decode_step(p, token, caches, pos, cfg: ArchConfig, *,
-                kv_sharded: bool = True):
+                kv_sharded: bool = True, cross_sharded: bool = True):
     """token (B, 1) int; pos (B,) int (unused by the ssm family).
     Returns (logits, caches).  Under a tensor-parallel mesh the logits
-    are this rank's vocabulary slice and ``kv_sharded`` says whether the
+    are this rank's vocabulary slice, ``kv_sharded`` says whether the
     KV caches hold its model slice of the sequence (`cache_pspecs`) or
-    all of it."""
-    TF.check_tp(cfg)
+    all of it, and ``cross_sharded`` the same of whisper's cross cache;
+    the SSM state holds ``conv_x`` and ``ssm`` cut or whole, as
+    `mamba2.decode_step` reads them."""
     x = TF._embed(p, token, cfg)
     if cfg.family in ("dense", "vlm", "moe"):
         x, kv = _decode_attn_stack(p, x, caches["kv"], pos, cfg, kv_sharded)
@@ -98,11 +99,11 @@ def decode_step(p, token, caches, pos, cfg: ArchConfig, *,
         new = {"ssm": st}
     elif cfg.family == "hybrid":
         x, st = _decode_hybrid_stack(p, x, caches["ssm"], caches["kv"], pos,
-                                     cfg)
+                                     cfg, kv_sharded)
         new = {"ssm": st, "kv": caches["kv"]}
     elif cfg.family == "encdec":
         x = _decode_encdec_stack(p, x, caches["kv"], caches["cross"], pos,
-                                 cfg)
+                                 cfg, kv_sharded, cross_sharded)
         new = {"kv": caches["kv"], "cross": caches["cross"]}
     else:
         raise ValueError(cfg.family)
@@ -150,7 +151,7 @@ def _decode_ssm_stack(p, x, st, cfg):
     return _decode_hybrid_stack(p, x, st, None, None, cfg)
 
 
-def _decode_hybrid_stack(p, x, st, kv, pos, cfg):
+def _decode_hybrid_stack(p, x, st, kv, pos, cfg, kv_sharded=True):
     """The mamba2 layers' decode steps; for the hybrid family the shared
     block after every ``attn_every``-th layer, its j-th application on KV
     cache j (written in place).  Returns (x, new SSM state)."""
@@ -164,31 +165,34 @@ def _decode_hybrid_stack(p, x, st, kv, pos, cfg):
         if kv is not None and (i + 1) % cfg.attn_every == 0:
             j = (i + 1) // cfg.attn_every - 1
             x = _decode_body(x, p["shared_attn"], kv["k"][j], kv["v"][j],
-                             cfg=cfg, pos=pos)
+                             cfg=cfg, pos=pos, kv_sharded=kv_sharded)
     return x, {k: torch.stack(v) for k, v in new.items()}
 
 
-def _decode_encdec_stack(p, x, kv, cross, pos, cfg):
+def _decode_encdec_stack(p, x, kv, cross, pos, cfg, kv_sharded=True,
+                         cross_sharded=True):
     """Whisper's decoder layers: causal self-attention over the KV cache
     (rows written in place), cross-attention over the static encoder
     projection, MLP."""
     for i, lp in enumerate(p["layers"]):
         x = _decode_encdec_body(x, lp, kv["k"][i], kv["v"][i],
                                 cross["k"][i], cross["v"][i], cfg=cfg,
-                                pos=pos)
+                                pos=pos, kv_sharded=kv_sharded,
+                                cross_sharded=cross_sharded)
     return x
 
 
-def _decode_encdec_body(h, lp, ck, cv, xk, xv, *, cfg, pos):
+def _decode_encdec_body(h, lp, ck, cv, xk, xv, *, cfg, pos, kv_sharded=True,
+                        cross_sharded=True):
     """One decoder layer of a decode step; writes its k/v rows into
     ck/cv and reads the cross cache xk/xv."""
     a, _ = attn.decode_attention(
         lp["attn"], TF._norm(cfg, lp["ln1"], h), cfg, {"k": ck, "v": cv},
-        pos)
+        pos, kv_sharded=kv_sharded)
     h = h + a
     a, _ = attn.decode_attention(
         lp["xattn"], TF._norm(cfg, lp["lnx"], h), cfg, {"k": xk, "v": xv},
-        pos, rope=False, cross=True)
+        pos, rope=False, cross=True, kv_sharded=cross_sharded)
     h = h + a
     return h + mlp.apply(lp["mlp"], TF._norm(cfg, lp["ln2"], h), cfg)
 
@@ -210,7 +214,6 @@ def prefill_with_cache(p, batch, cfg: ArchConfig, max_len: int):
             "see serving runtime")
     if cfg.family not in ("dense", "vlm", "moe"):
         raise ValueError(cfg.family)
-    TF.check_tp(cfg)
     tokens = batch["tokens"]
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)[None]

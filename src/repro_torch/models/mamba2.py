@@ -14,6 +14,20 @@ wb, wc, wdt), as in the reference; wz, wx and out_proj take
 small wb, wc and wdt stay plain.  The SSD scan, the causal convs and the
 decode recurrence are plain PyTorch ops, as the reference's are plain
 jnp; the inter-chunk recurrence is a Python loop over chunks.
+
+Tensor parallelism (a ``model`` axis above 1, the reference's rules in
+`repro_torch.launch.shardings` and `repro_torch.models.decoding.
+cache_pspecs`): each rank computes the SSD heads [h0, h1) of `heads`,
+its model slice where ``ssm_heads`` divides the axis (else every head):
+wz and wx are column products giving its channels of z and x, conv_x
+and its state are cut on channels, the SSD state on heads; wb, wc, wdt,
+conv_b, conv_c, A_log, D, dt_bias and the norm's scale are whole on
+every rank, which takes its heads', groups' or channels' part of them.
+The gated RMSNorm's mean runs over all of ``d_inner``: the f32 sum of
+squares is all-reduced over ``model`` before the rsqrt.  out_proj is a
+row product (`common.linear`).  A tensor a rank holds is whole or its
+equal model slice (read from its shape, as `common.linear` reads a
+leaf's), and `_take` gives any range of either.
 """
 
 from __future__ import annotations
@@ -51,6 +65,76 @@ def init(gen, cfg, d_model=None):
         "norm": C.rmsnorm_init(di, device=dev),
         "out_proj": C.linear_init(gen, di, d, quant=cfg.quant),
     }
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: which heads a rank computes, and the ranges it takes
+# ---------------------------------------------------------------------------
+
+
+def heads(cfg) -> tuple[int, int]:
+    """The SSD heads [h0, h1) this rank computes: its model slice under a
+    tensor-parallel mesh where ``ssm_heads`` divides the axis, else all."""
+    h = cfg.ssm_heads
+    mesh = C.tp_mesh()
+    if mesh is None or h % mesh.axis_size(C.MODEL):
+        return 0, h
+    t, r = mesh.axis_size(C.MODEL), mesh.coord(C.MODEL)
+    return r * h // t, (r + 1) * h // t
+
+
+def _groups(cfg, h0: int, h1: int) -> tuple[int, int]:
+    """The B/C groups [g0, g1) that heads [h0, h1) read (head j reads
+    group j // (H / G)): whole groups, or part of one."""
+    hg = cfg.ssm_heads // cfg.n_groups
+    g0, g1 = h0 // hg, (h1 - 1) // hg + 1
+    if g1 - g0 > 1 and (h0 % hg or h1 % hg):
+        raise ValueError(
+            f"heads [{h0}, {h1}) straddle groups of {hg} heads: with "
+            f"{cfg.n_groups} groups the model axis must cut whole groups "
+            "or parts of one")
+    return g0, g1
+
+
+def _take(t: torch.Tensor, n: int, lo: int, hi: int, dim: int = -1
+          ) -> torch.Tensor:
+    """[lo, hi) of ``t``'s width-``n`` dim ``dim``; ``t`` holds it whole
+    or this rank's equal model slice (a view where it can)."""
+    w = t.shape[dim]
+    if w != n:
+        mesh = C.tp_mesh()
+        own = mesh.coord(C.MODEL) * w
+        if (lo, hi) == (own, own + w):
+            return t
+        t = mesh.all_gather(t, C.MODEL, dim)
+    return t if (lo, hi) == (0, n) else t.narrow(dim, lo, hi - lo)
+
+
+def _put(new: torch.Tensor, like: torch.Tensor, n: int, lo: int,
+         dim: int) -> torch.Tensor:
+    """``new``, which holds [lo, lo + its width) of a width-``n`` dim, in
+    ``like``'s layout (whole, or this rank's equal model slice)."""
+    w, got = like.shape[dim], new.shape[dim]
+    if w == got:
+        return new
+    mesh = C.tp_mesh()
+    if w == n:
+        return mesh.all_gather(new, C.MODEL, dim)
+    return new.narrow(dim, mesh.coord(C.MODEL) * w - lo, w)
+
+
+def _gated_norm(p, y, z, di: int, c0: int, c1: int):
+    """``rmsnorm(y * silu(z))`` over all ``d_inner`` channels, of which y
+    and z hold [c0, c1): the f32 sum of squares all-reduced over
+    ``model`` where they hold a part."""
+    g = y * F.silu(z)
+    scale = _take(p["scale"], di, c0, c1)
+    if c1 - c0 == di:
+        return C.rmsnorm({"scale": scale}, g)
+    gf = g.to(torch.float32)
+    ss = C.tp_mesh().all_reduce((gf * gf).sum(dim=-1, keepdim=True),
+                                C.MODEL)
+    return (gf * torch.rsqrt(ss / di + 1e-6)).to(g.dtype) * scale
 
 
 def _softplus(x):
@@ -138,33 +222,73 @@ def ssd_chunked(x, dt, a_log, bmat, cmat, *, chunk: int,
     return y, s.reshape(b, h, pdim, n)
 
 
+def _in_proj(p, u, cfg):
+    """(z, x, B, C, dt_raw) of this rank's heads [h0, h1) and the groups
+    [g0, g1) they read, raw (before the convs); wb/wc give every group
+    (the convs and their states run on all of them)."""
+    d, di, h = u.shape[-1], cfg.d_inner, cfg.ssm_heads
+    gn = cfg.n_groups * cfg.d_state
+    h0, h1 = heads(cfg)
+    c0, c1 = h0 * cfg.ssm_headdim, h1 * cfg.ssm_headdim
+    q = cfg.quant
+    z = _take(C.linear(p["wz"], u, quant=q, dims=(d, di)), di, c0, c1)
+    xr = _take(C.linear(p["wx"], u, quant=q, dims=(d, di)), di, c0, c1)
+    br = C.linear(p["wb"], u, dims=(d, gn))
+    cr = C.linear(p["wc"], u, dims=(d, gn))
+    dt_raw = _take(C.linear(p["wdt"], u, dims=(d, h)), h, h0, h1)
+    return z, xr, br, cr, dt_raw
+
+
+def _head_params(p, cfg):
+    """This rank's heads' A_log, D, dt_bias."""
+    h = cfg.ssm_heads
+    h0, h1 = heads(cfg)
+    return [_take(p[k], h, h0, h1) for k in ("A_log", "D", "dt_bias")]
+
+
+def _conv_x(p, cfg):
+    di = cfg.d_inner
+    h0, h1 = heads(cfg)
+    c0, c1 = h0 * cfg.ssm_headdim, h1 * cfg.ssm_headdim
+    return (_take(p["conv_x"]["w"], di, c0, c1),
+            _take(p["conv_x"]["b"], di, c0, c1))
+
+
+def _group_slice(t, cfg):
+    """The groups [g0, g1) this rank's heads read of a (..., G * N)
+    tensor, as (..., g1 - g0, N)."""
+    n = cfg.d_state
+    g0, g1 = _groups(cfg, *heads(cfg))
+    t = t if (g0, g1) == (0, cfg.n_groups) else t[..., g0 * n:g1 * n]
+    return t.reshape(*t.shape[:-1], g1 - g0, n)
+
+
 def apply(p, u, cfg, *, initial_state=None, return_state=False):
-    """Full-sequence SSD block.  u (B, L, D) -> (B, L, D)."""
+    """Full-sequence SSD block.  u (B, L, D) -> (B, L, D).  Under a
+    tensor-parallel mesh ``initial_state`` and the returned state hold
+    this rank's heads (`heads`)."""
     b, l, d = u.shape
-    di, h, pdim = cfg.d_inner, cfg.ssm_heads, cfg.ssm_headdim
-    g, n = cfg.n_groups, cfg.d_state
+    di, pdim = cfg.d_inner, cfg.ssm_headdim
+    h0, h1 = heads(cfg)
+    c0, c1 = h0 * pdim, h1 * pdim
 
-    z = C.linear(p["wz"], u, quant=cfg.quant)
-    xr = C.linear(p["wx"], u, quant=cfg.quant)
-    br = C.linear(p["wb"], u)
-    cr = C.linear(p["wc"], u)
-    dt_raw = C.linear(p["wdt"], u)
-
-    xr = _causal_conv(xr, p["conv_x"]["w"], p["conv_x"]["b"])
+    z, xr, br, cr, dt_raw = _in_proj(p, u, cfg)
+    xr = _causal_conv(xr, *_conv_x(p, cfg))
     br = _causal_conv(br, p["conv_b"]["w"], p["conv_b"]["b"])
     cr = _causal_conv(cr, p["conv_c"]["w"], p["conv_c"]["b"])
 
-    x = xr.reshape(b, l, h, pdim)
-    bmat = br.reshape(b, l, g, n)
-    cmat = cr.reshape(b, l, g, n)
-    dt = _softplus(dt_raw.to(torch.float32) + p["dt_bias"])
+    x = xr.reshape(b, l, h1 - h0, pdim)
+    bmat = _group_slice(br, cfg)
+    cmat = _group_slice(cr, cfg)
+    a_log, dd, dt_bias = _head_params(p, cfg)
+    dt = _softplus(dt_raw.to(torch.float32) + dt_bias)
 
-    y, state = ssd_chunked(x, dt, p["A_log"], bmat, cmat, chunk=cfg.chunk,
+    y, state = ssd_chunked(x, dt, a_log, bmat, cmat, chunk=cfg.chunk,
                            initial_state=initial_state)
-    y = y + x.to(torch.float32) * p["D"][:, None]
-    y = y.reshape(b, l, di).to(u.dtype)
-    y = C.rmsnorm(p["norm"], y * F.silu(z))
-    out = C.linear(p["out_proj"], y, quant=cfg.quant)
+    y = y + x.to(torch.float32) * dd[:, None]
+    y = y.reshape(b, l, c1 - c0).to(u.dtype)
+    y = _gated_norm(p["norm"], y, z, di, c0, c1)
+    out = C.linear(p["out_proj"], y, quant=cfg.quant, dims=(di, d))
     if return_state:
         return out, state
     return out
@@ -201,40 +325,44 @@ def _conv_step(buf, xnew, w, b):
 
 def decode_step(p, u, cfg, state):
     """u (B, 1, D) -> (y (B, 1, D), new_state); ``state`` is not
-    written."""
-    b = u.shape[0]
+    written.  Under a tensor-parallel mesh ``state`` holds ``conv_x``
+    and ``ssm`` whole or cut on channels and heads (`decoding.
+    cache_pspecs`), and the new state keeps their layout."""
+    b, _, d = u.shape
     di, h, pdim = cfg.d_inner, cfg.ssm_heads, cfg.ssm_headdim
-    g, n = cfg.n_groups, cfg.d_state
+    n = cfg.d_state
+    h0, h1 = heads(cfg)
+    c0, c1 = h0 * pdim, h1 * pdim
 
-    z = C.linear(p["wz"], u, quant=cfg.quant)[:, 0]
-    xr = C.linear(p["wx"], u, quant=cfg.quant)[:, 0]
-    br = C.linear(p["wb"], u)[:, 0]
-    cr = C.linear(p["wc"], u)[:, 0]
-    dt_raw = C.linear(p["wdt"], u)[:, 0]
-
-    xr, conv_x = _conv_step(state["conv_x"], xr,
-                            p["conv_x"]["w"], p["conv_x"]["b"])
+    z, xr, br, cr, dt_raw = (t[:, 0] for t in _in_proj(p, u, cfg))
+    xr, conv_x = _conv_step(_take(state["conv_x"], di, c0, c1), xr,
+                            *_conv_x(p, cfg))
     br, conv_b = _conv_step(state["conv_b"], br,
                             p["conv_b"]["w"], p["conv_b"]["b"])
     cr, conv_c = _conv_step(state["conv_c"], cr,
                             p["conv_c"]["w"], p["conv_c"]["b"])
 
-    x = xr.reshape(b, h, pdim)
-    bmat = br.reshape(b, g, n).to(torch.float32)
-    cmat = cr.reshape(b, g, n).to(torch.float32)
-    dt = _softplus(dt_raw.to(torch.float32) + p["dt_bias"])
-    a = -torch.exp(p["A_log"])
+    hl = h1 - h0
+    x = xr.reshape(b, hl, pdim)
+    bmat = _group_slice(br, cfg).to(torch.float32)
+    cmat = _group_slice(cr, cfg).to(torch.float32)
+    g = bmat.shape[1]
+    a_log, dd, dt_bias = _head_params(p, cfg)
+    dt = _softplus(dt_raw.to(torch.float32) + dt_bias)
+    a = -torch.exp(a_log)
 
-    hg = h // g
+    hg = hl // g
     dec = torch.exp(dt * a)                              # (B, H)
     xf = x.to(torch.float32) * dt[..., None]
     upd = torch.einsum("bgN,bghp->bghpN", bmat, xf.reshape(b, g, hg, pdim))
-    s = state["ssm"].reshape(b, g, hg, pdim, n)
+    s = _take(state["ssm"], h, h0, h1, 1).reshape(b, g, hg, pdim, n)
     s = s * dec.reshape(b, g, hg)[..., None, None] + upd
     y = torch.einsum("bgN,bghpN->bghp", cmat, s)
-    y = y.reshape(b, h, pdim) + x.to(torch.float32) * p["D"][:, None]
-    y = y.reshape(b, 1, di).to(u.dtype)
-    y = C.rmsnorm(p["norm"], y * F.silu(z[:, None, :]))
-    out = C.linear(p["out_proj"], y, quant=cfg.quant)
-    return out, {"conv_x": conv_x, "conv_b": conv_b, "conv_c": conv_c,
-                 "ssm": s.reshape(b, h, pdim, n)}
+    y = y.reshape(b, hl, pdim) + x.to(torch.float32) * dd[:, None]
+    y = y.reshape(b, 1, c1 - c0).to(u.dtype)
+    y = _gated_norm(p["norm"], y, z[:, None, :], di, c0, c1)
+    out = C.linear(p["out_proj"], y, quant=cfg.quant, dims=(di, d))
+    return out, {"conv_x": _put(conv_x, state["conv_x"], di, c0, -1),
+                 "conv_b": conv_b, "conv_c": conv_c,
+                 "ssm": _put(s.reshape(b, hl, pdim, n), state["ssm"], h, h0,
+                             1)}

@@ -212,20 +212,6 @@ def _embed(p, tokens, cfg):
     return mesh.all_reduce(rows, C.MODEL).to(torch.bfloat16)
 
 
-#: the families with model-axis tensor parallelism
-TP_FAMILIES = ("dense", "moe", "vlm")
-
-
-def check_tp(cfg: ArchConfig) -> None:
-    """Refuse a tensor-parallel mesh for a family without model-axis TP
-    (it runs on any ``data`` mesh)."""
-    if C.tp_mesh() is not None and cfg.family not in TP_FAMILIES:
-        raise NotImplementedError(
-            f"model-axis tensor parallelism for the {cfg.family} family is "
-            "not ported yet (ROADMAP.md §1 item 12); run it on a mesh "
-            "without a model axis larger than 1")
-
-
 def _runner(cfg):
     """Call a block, under a checkpoint where ``cfg.remat`` asks for one
     and the forward records a gradient."""
@@ -297,14 +283,23 @@ def decode_stack_encdec(p, x, enc_out, cfg, positions):
     return x
 
 
-def _xattn_kv(pattn, enc_out, cfg):
+def _xattn_kv(pattn, enc_out, cfg, *, full_kv: bool = False):
     """A decoder layer's cross-attention keys and values (B, T, Hk, Dh)
-    of the encoder output (no rope)."""
-    b, t, _ = enc_out.shape
+    of the encoder output (no rope).  Under a tensor-parallel mesh the
+    kv heads this rank reads (`attention.tp_heads`; wk and wv are column
+    products), or every kv head with ``full_kv`` (what a decode step's
+    cross cache holds, `decoding.cache_pspecs`)."""
+    b, t, d = enc_out.shape
     hk, dh = cfg.n_kv, cfg.d_head
-    k = C.linear(pattn["wk"], enc_out, quant=cfg.quant).reshape(b, t, hk, dh)
-    v = C.linear(pattn["wv"], enc_out, quant=cfg.quant).reshape(b, t, hk, dh)
-    return k, v
+    heads = attn.tp_heads(cfg)
+    lo, hi = (0, hk) if heads is None or full_kv else heads[1]
+    kv = []
+    for name in ("wk", "wv"):
+        y = C.linear(pattn[name], enc_out, quant=cfg.quant, dims=(d, hk * dh))
+        if (lo, hi) != (0, hk) or y.shape[-1] != hk * dh:
+            y = C.width_range(y, hk * dh, lo * dh, hi * dh)
+        kv.append(y.reshape(b, t, hi - lo, dh))
+    return kv[0], kv[1]
 
 
 def project_patches(p, patches):
@@ -323,7 +318,6 @@ def forward_loss(p, batch, cfg):
     or ``patches`` (B, P, d_vision) for vlm.  On a mesh each rank holds
     its batch rows and the loss is the global token mean
     (`losses.chunked_xent`)."""
-    check_tp(cfg)
     tokens = batch["tokens"]
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)[None]
@@ -353,7 +347,6 @@ def forward_logits(p, batch, cfg):
     """Prefill forward -> last-position logits (serving path).  The vlm
     branch reads the tokens only, as the reference's does.  Under a
     tensor-parallel mesh the logits are this rank's vocabulary slice."""
-    check_tp(cfg)
     tokens = batch["tokens"]
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)[None]

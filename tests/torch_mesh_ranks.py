@@ -683,7 +683,9 @@ def _m_global(case, mdl, arrays, info):
 
 
 def _m_refusals(case, mdl, arrays, info):
-    """The model mesh's refusals, in an order every rank keeps."""
+    """The model mesh's refusals, in an order every rank keeps; the ssm
+    family's forward and `build_cell` on a model axis, refused before
+    its tensor parallelism, run."""
     from repro_torch.launch import steps
     from repro_torch.models import common as C
     from repro_torch.models import transformer as TF
@@ -710,7 +712,306 @@ def _m_refusals(case, mdl, arrays, info):
     }
 
 
+#: a family cell's batch rows, and its train step's sequence length
+FAMILY_BATCH, FAMILY_TRAIN_SEQ = 4, 32
+
+
+def family_batch(z, name: str, family: str, s: int) -> dict:
+    """The numpy batch of family model ``name``'s cells: FAMILY_BATCH rows
+    of ``s`` tokens and labels (the exported ones, cycled) and, for the
+    encdec family, its exported frames; the reference's side reads the
+    same arrays."""
+    out = {k: np.resize(z[f"batch/{k}"][0], (FAMILY_BATCH, s))
+           for k in ("tokens", "labels")}
+    if family == "encdec":
+        out["frames"] = z[f"frames/{name}"]
+    return out
+
+
+def _family_inputs(cfg, mdl, name: str, s: int) -> dict:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                torch.float32 if k == "frames" else torch.int64)
+            for k, v in family_batch(mdl.z, name, cfg.family, s).items()}
+
+
+def _cross(params, frames, cfg, caches):
+    """Whisper's cross caches from the encoder output of ``frames`` (each
+    layer's k/v, every kv head), written into ``caches``; under a
+    tensor-parallel mesh the meshed encoder's, each rank's model slice
+    of the sequence where it divides (`decoding._seq_slice`)."""
+    from repro_torch.models import decoding as DEC
+    from repro_torch.models import transformer as TF
+
+    enc = TF.encode(params, frames, cfg)
+    for i, lp in enumerate(params["layers"]):
+        k, v = TF._xattn_kv(lp["xattn"], enc, cfg, full_kv=True)
+        caches["cross"]["k"][i] = DEC._seq_slice(k, cfg.enc_seq)
+        caches["cross"]["v"][i] = DEC._seq_slice(v, cfg.enc_seq)
+
+
+def _row_partials():
+    """`chip_smoke.row_partials`: the unmeshed model with a mesh's row-cut
+    projections summed from the ranks' bf16 partial products (the one
+    oracle on the CPU and on the card)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("_chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.row_partials
+
+
+def _m_family(case, mdl, arrays, info):
+    """An ssm, hybrid or encdec model (the reference's params) on a
+    model mesh: `build_cell`'s prefill step on a batch, then
+    DECODE_STEPS of its decode step from zero caches (whisper's cross
+    cache from the meshed encoder), teacher-forced, beside the unmeshed
+    port's; every logits tensor gathered; and the unmeshed model again
+    with the mesh's row-cut projections summed from their per-rank bf16
+    partials (`chip_smoke.row_partials`).  Records how the rank holds
+    its SSM state, its cross cache and out_proj's packed rows."""
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch import steps
+    from repro_torch.models import common as C
+    from repro_torch.models import decoding as DEC
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.config import ShapeSpec
+
+    mesh = _mesh(case["shape"])
+    name = case["model"]
+    cfg, params = mdl.cfg(name), mdl.params(name)
+    b, s = FAMILY_BATCH, PROMPT
+    batch = _family_inputs(cfg, mdl, name, s)
+    del batch["labels"]
+    cid = case["id"]
+    pf, _, psp = steps.build_cell(cfg, ShapeSpec("p", s, b, "prefill"),
+                                  mesh)
+    fn, _, sp = steps.build_cell(cfg, ShapeSpec("d", MAX_LEN, b, "decode"),
+                                 mesh)
+    pspecs, tok_spec, cache_specs, pos_spec = sp["in"]
+    local = SH.shard_tree(params, pspecs, mesh)
+    lbatch = {k: SH.shard_leaf(v, psp["in"][1][k], mesh).contiguous()
+              for k, v in batch.items()}
+    with torch.no_grad():
+        arrays[f"{cid}/prefill"] = _f32(SH.gather_leaf(
+            pf(local, lbatch), psp["out"], mesh))
+        arrays[f"{cid}/prefill_port"] = _f32(TF.forward_logits(params, batch,
+                                                               cfg))
+        want_c = DEC.init_caches(cfg, b, MAX_LEN)
+        caches = SH.shard_tree(want_c, cache_specs, mesh)
+        if cfg.family == "encdec":
+            _cross(params, batch["frames"], cfg, want_c)
+            with C.use_mesh(mesh):
+                _cross(local, lbatch["frames"], cfg, caches)
+            cross = SH.gather_leaf(caches["cross"]["k"],
+                                   cache_specs["cross"]["k"], mesh)
+            info[f"{cid}/cross_equal"] = bool(torch.equal(
+                cross, want_c["cross"]["k"]))
+        # the unmeshed model with the mesh's row-cut partial sums
+        spec = ",".join(f"{a}:{n}" for a, n in zip(("data", "model"),
+                                                   case["shape"]))
+        row_partials = _row_partials()
+
+        def partials():
+            return row_partials(C, SH, params, spec)
+        emu_c = DEC.init_caches(cfg, b, MAX_LEN)
+        with partials():
+            arrays[f"{cid}/prefill_partials"] = _f32(TF.forward_logits(
+                params, batch, cfg))
+            if cfg.family == "encdec":
+                _cross(params, batch["frames"], cfg, emu_c)
+        got, want, emu = [], [], []
+        for i in range(DECODE_STEPS):
+            tok = torch.from_numpy(mdl.z["dtoks"][i]).to(torch.int64)
+            pos = torch.full((b,), i, dtype=torch.int64)
+            wl, want_c = DEC.decode_step(params, tok, want_c, pos, cfg)
+            with partials():
+                el, emu_c = DEC.decode_step(params, tok, emu_c, pos, cfg)
+            gl, caches = fn(local, SH.shard_leaf(tok, tok_spec, mesh),
+                            caches, SH.shard_leaf(pos, pos_spec, mesh))
+            got.append(_f32(SH.gather_leaf(gl, sp["out"][0], mesh)))
+            want.append(_f32(wl))
+            emu.append(_f32(el))
+    arrays[f"{cid}/decode"] = np.stack(got)
+    arrays[f"{cid}/decode_port"] = np.stack(want)
+    arrays[f"{cid}/decode_partials"] = np.stack(emu)
+    out = {"cache_specs": {k: [list(e) if isinstance(e, tuple) else e
+                               for e in v] for k, v in _flat_specs(
+                                   cache_specs).items()},
+           "cache_local": {k: list(v.shape) for k, v in _flat_specs(
+               caches).items()}}
+    layer = local["layers"][0]
+    if "mixer" in layer:
+        out["out_proj_rows"] = int(
+            layer["mixer"]["out_proj"]["w_packed"].shape[0])
+        out["out_proj_rows_global"] = int(
+            params["layers"][0]["mixer"]["out_proj"]["w_packed"].shape[0])
+    if cfg.family in ("ssm", "hybrid"):
+        out["state_max_diff"] = float((SH.gather_leaf(
+            caches["ssm"]["ssm"], cache_specs["ssm"]["ssm"], mesh)
+            - want_c["ssm"]["ssm"]).abs().max())
+    info[cid] = out
+
+
+def _flat_specs(tree, prefix=()):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_specs(v, prefix + (k,)))
+        else:
+            out["/".join(prefix + (k,))] = v
+    return out
+
+
+def _m_family_train(case, mdl, arrays, info):
+    """One `build_cell` train step of an ssm, hybrid or encdec model
+    (``quant="ternary"``, the reference's params) on a model mesh beside
+    the unmeshed step: losses, the lr, the params' largest difference,
+    and the gathered params after the step (stacked, as the
+    reference's)."""
+    from repro_torch.data.pipeline import make_global
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import adam
+    from repro_torch.train import loop
+
+    mesh = _mesh(case["shape"])
+    name = case["model"]
+    cfg, params = mdl.cfg(name), mdl.params(name)
+    b, s = FAMILY_BATCH, FAMILY_TRAIN_SEQ
+    batch = _family_inputs(cfg, mdl, name, s)
+    acfg = adam.AdamConfig(total_steps=4, warmup_steps=1)
+    fn, _, sp = steps.build_cell(cfg, ShapeSpec("t", s, b, "train"), mesh,
+                                 acfg)
+    local = SH.shard_tree(params, sp["in"][0], mesh)
+    opt = adam.init_state(loop._leaves(local), sp["placement"])
+    rp, ropt, rm = steps.make_train_step(cfg, acfg)(
+        params, adam.init_state(loop._leaves(params)), batch)
+    local, opt, m = fn(local, opt, make_global(batch, mesh, sp["in"][2]))
+    whole = SH.gather_tree(local, sp["in"][0], mesh)
+    arrays.update(flatten_tree(TF.stack_layers(whole),
+                               f"{case['id']}/params", _f32))
+    full, want = loop._leaves(whole), loop._leaves(rp)
+    info[case["id"]] = {
+        "loss": float(m["loss"]), "ref_loss": float(rm["loss"]),
+        "lr": float(m["lr"]),
+        "params_equal": all(torch.equal(a, w) for a, w in zip(full, want)),
+        "param_max_diff": max(float((a.float() - w.float()).abs().max())
+                              for a, w in zip(full, want)),
+        "param_slices": max(p.numel() // q.numel()
+                            for p, q in zip(full, loop._leaves(local)))}
+
+
+def _records(recs) -> list:
+    return [[op, int(n), int(g)] for op, n, g in recs]
+
+
+def _m_gpipe(case, mdl, arrays, info):
+    """GPipe over ``pod`` (`launch.pipeline`): the reference's params on
+    a (pod, model) mesh, the pipelined loss walked (`hlo.walk`: its
+    exchanges) beside the unmeshed port's `forward_loss`; the same
+    stage walked on ``meta`` tensors on a `StandInMesh` at this rank's
+    coordinates; the pipeline's refusals that need a process group."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import pipeline as PP
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as TF
+    from repro_torch.roofline import hlo
+
+    mesh = _mesh(case["shape"], ("pod", "model"))
+    cfg = mdl.cfg("gpipe")
+    tree = mdl.tree("gpipe")
+    batch = {k: torch.from_numpy(mdl.z[f"gpipe_{k}"]).to(torch.int64)
+             for k in ("tokens", "labels")}
+    specs = PP.stage_pspecs(steps.abstract_params(cfg, stacked=True), mesh)
+    local = SH.shard_tree(tree, specs, mesh)
+    with torch.no_grad():
+        w = hlo.walk(lambda p, b: PP.pipeline_forward_loss(
+            p, b, cfg, mesh, n_micro=4), (local, batch), mesh)
+        flat, _ = TF.forward_loss(TF.unstack_layers(tree), batch, cfg)
+        stand = M.StandInMesh(tuple(case["shape"]), ("pod", "model"),
+                              coord={a: mesh.coord(a)
+                                     for a in mesh.axis_names})
+        meta = SH.shard_tree(steps.abstract_params(cfg, stacked=True),
+                             specs, stand)
+        mbatch = {k: v.to("meta") for k, v in batch.items()}
+        mw = hlo.walk(lambda p, b: PP.pipeline_forward_loss(
+            p, b, cfg, stand, n_micro=4), (meta, mbatch), stand)
+    world = dist.get_world_size()
+    info[case["id"]] = {
+        "loss": float(w.out[0]), "tokens": float(w.out[1]["tokens"]),
+        "unmeshed_loss": float(flat),
+        "records": _records(w.records), "meta_records": _records(mw.records),
+        "flops": w.flops, "meta_flops": mw.flops,
+        "argument_bytes": w.argument_bytes,
+        "meta_argument_bytes": mw.argument_bytes,
+        "layers_local": int(local["layers"]["attn"]["wq"]["w"].shape[0]),
+        "world_mismatch": _refusal(lambda: _mesh((2, world),
+                                                 ("pod", "model"))),
+    }
+
+
+def _m_walk(case, mdl, arrays, info):
+    """A reduced `build_cell` cell run for real under `hlo.walk` on this
+    rank's slices of seeded global arguments, beside the same cell
+    walked on ``meta`` tensors on a `StandInMesh` at this rank's
+    coordinates (`dryrun.local_args`): FLOPs, exchange records, bytes
+    and memory of both."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch import steps
+    from repro_torch.models import decoding as DEC
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import adam
+    from repro_torch.roofline import hlo
+    from repro_torch.train import loop
+
+    shape = tuple(case["shape"])
+    mesh = _mesh(shape)
+    cfg = mdl.cfg(case["model"])
+    kind, b, s = case["cell"]
+    cell = ShapeSpec("c", s, b, kind)
+    fn, args, specs = steps.build_cell(cfg, cell, mesh)
+    params = TF.init_params(cfg, torch.Generator().manual_seed(7))
+    g = torch.Generator().manual_seed(8)
+    if kind == "train":
+        batch = {k: torch.randint(0, cfg.vocab, (b, s), generator=g,
+                                  dtype=torch.int32)
+                 for k in ("tokens", "labels")}
+        local_p = SH.shard_tree(params, specs["in"][0], mesh)
+        real = (local_p, adam.init_state(loop._leaves(local_p),
+                                         specs["placement"]),
+                SH.shard_tree(batch, specs["in"][2], mesh))
+    else:
+        glob = (params, torch.randint(0, cfg.vocab, (b, 1), generator=g,
+                                      dtype=torch.int32),
+                DEC.init_caches(cfg, b, s),
+                torch.full((b,), 3, dtype=torch.int32))
+        real = tuple(SH.shard_tree(a, sp, mesh)
+                     for a, sp in zip(glob, specs["in"]))
+    w = hlo.walk(fn, real, mesh)
+    stand = M.StandInMesh(shape, ("data", "model"),
+                          coord={a: mesh.coord(a) for a in mesh.axis_names})
+    mw = hlo.walk(*dryrun.local_args(cfg, cell, stand), stand)
+    info[case["id"]] = {
+        name: {"flops": x.flops, "bytes": x.bytes,
+               "records": _records(x.records),
+               "memory": hlo.memory(x), "argument_bytes": x.argument_bytes}
+        for name, x in (("real", w), ("meta", mw))}
+
+
 _MODEL_KINDS = {"train": _m_train, "decode": _m_decode,
+                "gpipe": _m_gpipe, "walk": _m_walk,
+                "family": _m_family, "family_train": _m_family_train,
                 "elastic": _m_elastic, "loop": _m_loop, "ep": _m_ep,
                 "global": _m_global, "refusal": _m_refusals}
 
