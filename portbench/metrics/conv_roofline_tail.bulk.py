@@ -1,0 +1,12 @@
+"""conv_roofline_tail.bulk: conv_roofline.bulk for the layers whose input
+map is smaller than 16x16 (layers 5-7 and the dense head of the paper's
+network, 4% of its operations): their least time, for every whole call
+in the traced window, over the device time of their kernel launches, in
+percent.  The launches are assigned to layers by their order in each
+call (`portbench.launches`)."""
+
+from portbench import launches
+
+
+def read(run):
+    return launches.group_roofline(run, lambda layer: layer["hw"] < 16)

@@ -23,12 +23,18 @@ stage it snapshots the static cost model (`repro_torch.compiler.report`),
 so ``CompileResult.cost_table()`` shows ops, sparsity, predicted energy
 and DRAM traffic before and after each pass.  The reference is
 `repro.compiler.compile`: the same graph gives the same program.
+
+Given a `repro_torch.obs.TraceRecorder` as ``trace``, the stages record
+their spans where their work happens: ``compile.lower`` (`lower_graph`),
+one span per optimization pass under its name in ``reports``,
+``compile.report`` around each cost snapshot and ``compile.validate``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+from repro_torch import obs as _obs
 from repro_torch.compiler import legalize, optimize, report
 from repro_torch.compiler.graph import Graph
 from repro_torch.core import engine
@@ -98,58 +104,76 @@ class CompileResult:
         return eng
 
 
+#: the trace category of the compiler's spans
+CAT = "compile"
+
+
 def lower_graph(graph: Graph,
                 instance: engine.CutieInstance = engine.GF22_SCM, *,
-                device=None) -> tuple[engine.CutieProgram, Graph]:
+                device=None, trace=None) -> tuple[engine.CutieProgram, Graph]:
     """Legalization half of the compiler: Graph -> (program, linear
-    graph), the program's tensors on ``device``."""
+    graph), the program's tensors on ``device``; one ``compile.lower``
+    span on ``trace`` (a `repro_torch.obs.TraceRecorder`) when given."""
     dev = resolve_device(device)
-    graph.infer_shapes()                       # early structural validation
-    g = legalize.ternarize_weights(graph)
-    g = legalize.fuse_pooling(g)
-    g = legalize.lower_dense(g, instance)
-    g = legalize.lower_residual(g)
-    order = legalize.linearize(g)
-    instrs = []
-    for name in order:
-        node = g.nodes[name]
-        instrs.append(engine.compile_layer(
-            node.weights, node.bn, stride=node.stride, padding=node.padding,
-            pool=node.pool, delta_ratio=node.delta_ratio, device=dev))
+    tr = trace if trace is not None else _obs.NULL.trace
+    with tr.span("compile.lower", cat=CAT):
+        graph.infer_shapes()                   # early structural validation
+        g = legalize.ternarize_weights(graph)
+        g = legalize.fuse_pooling(g)
+        g = legalize.lower_dense(g, instance)
+        g = legalize.lower_residual(g)
+        order = legalize.linearize(g)
+        instrs = []
+        for name in order:
+            node = g.nodes[name]
+            instrs.append(engine.compile_layer(
+                node.weights, node.bn, stride=node.stride,
+                padding=node.padding, pool=node.pool,
+                delta_ratio=node.delta_ratio, device=dev))
     return engine.CutieProgram(instrs, instance), g
 
 
 def compile_graph(graph: Graph,
                   instance: engine.CutieInstance = engine.GF22_SCM,
                   options: CompilerOptions | None = None, *,
-                  device=None, **kwargs) -> CompileResult:
+                  device=None, trace=None, **kwargs) -> CompileResult:
     """Compile a layer graph into a validated, optimized CutieProgram on
-    ``device``."""
+    ``device``, recording the stages' spans on ``trace`` (a
+    `repro_torch.obs.TraceRecorder`) when given."""
     if options is not None and kwargs:
         raise TypeError(f"pass compiler options either as options= or as "
                         f"keywords, not both (got options= plus "
                         f"{sorted(kwargs)})")
     opts = options or CompilerOptions(**kwargs)
-    program, g = lower_graph(graph, instance, device=device)
+    tr = trace if trace is not None else _obs.NULL.trace
+    program, g = lower_graph(graph, instance, device=device, trace=tr)
     h, w = g.in_hw
     in_shape = (opts.batch, h, w, g.in_channels)
-    program.validate(in_shape=in_shape)
+
+    def validate(prog):
+        with tr.span("compile.validate", cat=CAT):
+            prog.validate(in_shape=in_shape)
 
     def snap(name, prog):
-        return {"pass": name,
-                "cost": report.program_cost(prog, in_shape,
-                                            opts.energy_params)}
+        with tr.span("compile.report", cat=CAT, after=name):
+            return {"pass": name,
+                    "cost": report.program_cost(prog, in_shape,
+                                                opts.energy_params)}
 
+    validate(program)
     reports = [snap("lowered", program)]
     removed, folded = [0] * len(program.layers), 0
     if opts.optimize:
-        program, folded = optimize.fold_constant_thresholds(program)
+        with tr.span("fold-thresholds", cat=CAT):
+            program, folded = optimize.fold_constant_thresholds(program)
         reports.append(snap("fold-thresholds", program))
-        program, removed = optimize.eliminate_dead_channels(program)
+        with tr.span("dead-channel-elim", cat=CAT):
+            program, removed = optimize.eliminate_dead_channels(program)
         reports.append(snap("dead-channel-elim", program))
     if opts.pad_to is not None:
-        program = optimize.pad_program_channels(program, opts.pad_to)
+        with tr.span("pad-channels", cat=CAT):
+            program = optimize.pad_program_channels(program, opts.pad_to)
         reports.append(snap("pad-channels", program))
-    program.validate(in_shape=in_shape)
+    validate(program)
     return CompileResult(program=program, graph=g, reports=reports,
                          removed_channels=removed, folded_channels=folded)

@@ -17,7 +17,9 @@ Three legs, one subsystem (see also the README's Observability section):
   and Prometheus text export.
 
 :class:`Observability` bundles a recorder and a registry; the serving
-engine owns one and hands it to its executors (``Executor.bind_obs``).
+engine owns one and hands it to its executors (``Executor.bind_obs``),
+and a CNN pipeline records its compile, run and kernel-launch spans on
+one it is given (``CutiePipeline.compile(..., obs=...)``, ``bind_obs``).
 ``NULL`` is the disabled instance components default to, so
 instrumentation costs nothing until an engine turns it on.
 """

@@ -12,18 +12,22 @@ scheduler/batch machinery shares track 0, and one-off moments
 Event vocabulary (the subset of the format we emit):
 
 * ``ph: "B"/"E"`` — begin/end a duration span on one (pid, tid) track,
+* ``ph: "X"``     — a span recorded whole once it has ended (``dur``),
 * ``ph: "i"``     — an instant (scope ``"t"``: thread-width tick),
 * ``ph: "C"``     — a counter sample (Perfetto draws a value track),
 * ``ph: "M"``     — metadata (we name tracks with ``thread_name``).
 
 Timestamps are integer microseconds from a monotonic clock captured at
-recorder construction, so traces are replayable and diffable.  The
-buffer is bounded (``max_events``); overflow increments ``dropped``
-instead of growing without bound, matching the engine's windowed stats.
+recorder construction, so traces are replayable and diffable.  A
+disabled recorder returns from every recording call before it reads the
+clock or builds an event.  The buffer is bounded (``max_events``);
+overflow increments ``dropped`` instead of growing without bound,
+matching the engine's windowed stats.
 
 :func:`validate_trace` is the CI-side schema check: required fields,
 globally non-decreasing timestamps, B/E spans balanced LIFO per track
-with matching names, and at least one complete span per request track —
+with matching names, X spans of a non-negative integer ``dur``, and at
+least one complete span per request track —
 the guarantees a trace viewer needs to render without glitches.
 """
 
@@ -54,8 +58,6 @@ class TraceRecorder:
         return int((self.clock() - self._t0) * 1e6)
 
     def _emit(self, ev: dict) -> None:
-        if not self.enabled:
-            return
         if len(self.events) >= self.max_events:
             self.dropped += 1
             return
@@ -63,6 +65,8 @@ class TraceRecorder:
 
     def begin(self, name: str, *, tid: int = 0, cat: str = "engine",
               ts_us: Optional[int] = None, **args) -> None:
+        if not self.enabled:
+            return
         self._emit({"name": name, "ph": "B", "cat": cat, "pid": self.pid,
                     "tid": tid,
                     "ts": self.now_us() if ts_us is None else ts_us,
@@ -70,22 +74,49 @@ class TraceRecorder:
 
     def end(self, name: str, *, tid: int = 0, cat: str = "engine",
             ts_us: Optional[int] = None, **args) -> None:
+        if not self.enabled:
+            return
         self._emit({"name": name, "ph": "E", "cat": cat, "pid": self.pid,
                     "tid": tid,
                     "ts": self.now_us() if ts_us is None else ts_us,
                     **({"args": args} if args else {})})
 
-    @contextlib.contextmanager
     def span(self, name: str, *, tid: int = 0, cat: str = "engine", **args):
         """``with trace.span("execute", tid=uid):`` — balanced B/E pair."""
+        if not self.enabled:
+            return _NO_SPAN
+        return self._span(name, tid=tid, cat=cat, **args)
+
+    @contextlib.contextmanager
+    def _span(self, name: str, *, tid: int, cat: str, **args):
         self.begin(name, tid=tid, cat=cat, **args)
         try:
             yield self
         finally:
             self.end(name, tid=tid, cat=cat)
 
+    def complete(self, name: str, t_begin: float, t_end: float, *,
+                 tid: int = 0, cat: str = "engine",
+                 args: Optional[dict] = None) -> None:
+        """A span that has ended, as one ``ph: "X"`` event: ``t_begin``
+        and ``t_end`` are readings of ``clock``.  One event and no
+        keyword packing where ``begin``/``end`` make two, for hot loops;
+        it is recorded at the span's end, so the trace's stamps stay in
+        order where nothing else is recorded during the span."""
+        if not self.enabled:
+            return
+        ts = int((t_begin - self._t0) * 1e6)
+        ev = {"name": name, "ph": "X", "cat": cat, "pid": self.pid,
+              "tid": tid, "ts": ts,
+              "dur": int((t_end - self._t0) * 1e6) - ts}
+        if args:
+            ev["args"] = args
+        self._emit(ev)
+
     def instant(self, name: str, *, tid: int = 0, cat: str = "engine",
                 **args) -> None:
+        if not self.enabled:
+            return
         self._emit({"name": name, "ph": "i", "s": "t", "cat": cat,
                     "pid": self.pid, "tid": tid, "ts": self.now_us(),
                     **({"args": args} if args else {})})
@@ -93,6 +124,8 @@ class TraceRecorder:
     def counter(self, name: str, values: dict, *, tid: int = 0,
                 cat: str = "engine") -> None:
         """A Perfetto counter-track sample (``values`` are the series)."""
+        if not self.enabled:
+            return
         self._emit({"name": name, "ph": "C", "cat": cat, "pid": self.pid,
                     "tid": tid, "ts": self.now_us(),
                     "args": {k: float(v) for k, v in values.items()}})
@@ -100,6 +133,8 @@ class TraceRecorder:
     def thread_name(self, tid: int, name: str) -> None:
         """Label a track (metadata event; Perfetto shows it as the row
         title instead of a bare tid)."""
+        if not self.enabled:
+            return
         self._emit({"name": "thread_name", "ph": "M", "pid": self.pid,
                     "tid": tid, "ts": 0, "args": {"name": name}})
 
@@ -115,6 +150,9 @@ class TraceRecorder:
                 json.dump(trace, f)
         return trace
 
+
+#: what a disabled recorder's ``span`` returns: enters and exits at no cost
+_NO_SPAN = contextlib.nullcontext()
 
 _REQUIRED = ("name", "ph", "pid", "tid", "ts")
 
@@ -172,6 +210,14 @@ def validate_trace(trace: dict) -> dict:
                     f"event {i}: E {ev['name']!r} closes B "
                     f"{top['name']!r} on track {track} (spans must "
                     "nest LIFO)")
+            spans += 1
+            if ev.get("cat") == "request":
+                complete_request_tids.add(ev["tid"])
+        elif ph == "X":
+            dur = ev.get("dur")
+            if not isinstance(dur, int) or dur < 0:
+                raise ValueError(f"event {i}: X {ev['name']!r} has no "
+                                 f"non-negative integer dur: {dur!r}")
             spans += 1
             if ev.get("cat") == "request":
                 complete_request_tids.add(ev["tid"])

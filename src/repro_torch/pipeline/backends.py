@@ -22,6 +22,9 @@ degenerate-channel fixup), so their trit outputs are bit-identical.
 * ``ref``    - the plain PyTorch oracle, only when asked for by name.
 
 On a CPU device the kernel backends run their kernels' plain versions.
+
+A traced run records one ``launch`` span around each kernel launch,
+named by the wrapper's ``LAUNCHES`` key (``kernel``).
 """
 
 from __future__ import annotations
@@ -38,6 +41,23 @@ from repro_torch.kernels import fused_trunk as FT
 from repro_torch.kernels import ternary_conv2d as K
 
 
+#: the trace category of the pipeline's spans
+CAT = "pipeline"
+
+
+def _trunk_args(args: list, seg) -> dict:
+    """A fused segment's ``launch`` span args from its layers' ``args``:
+    the first layer's input, the last one's ``cout``, the layers' pools
+    joined by commas, and the segment's ``start`` and ``stop``."""
+    first = args[seg.start]
+    return dict(kernel="fused_trunk", n=first["n"], h=first["h"],
+                w=first["w"], cin=first["cin"],
+                cout=args[seg.stop - 1]["cout"],
+                pool=",".join(str(a["pool"])
+                              for a in args[seg.start:seg.stop]),
+                start=seg.start, stop=seg.stop)
+
+
 class Backend:
     """Protocol: ``lower`` a LayerInstr once, ``apply`` it per run.
 
@@ -51,10 +71,16 @@ class Backend:
     emit_stats=False)``, returning ``fn(lowered, x) -> (out, counts)``
     that runs the whole program; the pipeline prefers it for untraced
     runs and for tracers with ``kernel_stats``, where ``counts`` is the
-    program's (L, 3) int32 counter block.
+    program's (L, 3) int32 counter block.  ``fn(lowered, x, trace, call,
+    args)`` records a ``launch`` span around each launch on ``trace``,
+    with ``call`` and the pipeline's per-layer span ``args``.
+
+    ``kernel`` is the ``LAUNCHES`` key of the kernel ``apply`` launches
+    once a layer; None where it launches none of the port's kernels.
     """
 
     name: str = "?"
+    kernel = None
 
     def lower(self, instr: engine.LayerInstr, device: torch.device) -> Any:
         raise NotImplementedError
@@ -105,6 +131,7 @@ class CudaBackend(Backend):
     """The dense conv kernel with its fused epilogue and counters."""
 
     name: str = dataclasses.field(default="cuda", init=False)
+    kernel = "ternary_conv2d"
 
     def lower(self, instr, device):
         return _dense(instr, device)
@@ -122,6 +149,7 @@ class PackedBackend(Backend):
     """Weights live packed (5 trits/byte); the conv kernel decodes them."""
 
     name: str = dataclasses.field(default="packed", init=False)
+    kernel = "ternary_conv2d_packed"
 
     def lower(self, instr, device):
         return {"wp": codec.pack_filter_rows(
@@ -169,14 +197,16 @@ class FusedBackend(CudaBackend):
                       emit_stats: bool = False):
         """Whole-program trunk-fused execution for one input shape.
 
-        Returns ``fn(lowered, x) -> (out, counts)``; with ``emit_stats``
-        ``counts`` is the program's (L, 3) int32 counter block in layer
-        order (fused trunks count inside their kernel, per-layer segments
-        inside the conv kernel), else ``[]``.  ``fn`` stacks each trunk's
-        weights (head Cin zero-padded to the trunk's common width) and
-        thresholds (in the kernel's types) on its first call and reuses
-        them after: it belongs to the one pipeline whose ``lowered``
-        layers it is called with.
+        Returns ``fn(lowered, x, trace=None, call=0, args=None) -> (out,
+        counts)``; with ``emit_stats`` ``counts`` is the program's (L, 3)
+        int32 counter block in layer order (fused trunks count inside
+        their kernel, per-layer segments inside the conv kernel), else
+        ``[]``; with ``trace`` one ``launch`` span around each launch, a
+        layer's from ``args[layer]``, a trunk's from its layers'.  ``fn``
+        stacks each trunk's weights (head Cin zero-padded to the trunk's
+        common width) and thresholds (in the kernel's types) on its first
+        call and reuses them after: it belongs to the one pipeline whose
+        ``lowered`` layers it is called with.
         """
         in_shape = tuple(in_shape)
         segments = self.plan(program, in_shape)
@@ -202,17 +232,23 @@ class FusedBackend(CudaBackend):
                 stacks[si] = ws, th, metas
             return stacks[si]
 
-        def fn(lowered, x):
+        def fn(lowered, x, trace=None, call=0, args=None):
             cur, counts = x, []
             for si, seg in enumerate(segments):
                 if not seg.fused:
                     for i in range(seg.start, seg.stop):
+                        if trace is not None:
+                            t = trace.clock()
                         if emit_stats:
                             cur, row = self.apply_with_stats(
                                 lowered[i], cur, layers[i])
                             counts.append(row[None])
                         else:
                             cur = self.apply(lowered[i], cur, layers[i])
+                        if trace is not None:
+                            trace.complete("launch", t, trace.clock(),
+                                           cat=CAT,
+                                           args={"call": call, **args[i]})
                     continue
                 ws, th, metas = operands(lowered, si, seg)
                 cin = layers[seg.start].weights.shape[2]
@@ -220,10 +256,16 @@ class FusedBackend(CudaBackend):
                 if si > 0 and packed_after[si - 1]:
                     h, w = hw[seg.start]
                     packed_in = (in_shape[0], h, w, cin)
+                if trace is not None:
+                    t = trace.clock()
                 cur = FT.fused_trunk(
                     cur, ws, *th, metas=metas, packed_in=packed_in,
                     pack_out=packed_after[si], emit_stats=emit_stats,
                     stats_cin=cin)
+                if trace is not None:
+                    trace.complete("launch", t, trace.clock(), cat=CAT,
+                                   args={"call": call,
+                                         **_trunk_args(args, seg)})
                 if emit_stats:
                     cur, seg_counts = cur
                     counts.append(seg_counts)

@@ -30,6 +30,13 @@ the batch, filter-parallel over each layer's output channels, or
 pipeline-parallel over the layers, bit-identical to unsharded execution.
 Batch sizes and channel counts that do not divide the mesh are padded in
 and cropped back out.
+
+A bound `repro_torch.obs.Observability` (``compile(..., obs=...)`` or
+``bind_obs``) records the pipeline's spans on its trace, on one track:
+``compile`` with the compiler's stages and ``pipeline.lower`` inside it,
+one ``run`` per run and one ``launch`` per kernel launch inside the run.
+Unbound, a run reads no clock and builds no event: it pays one attribute
+test, and a test before and after each launch.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch.core import engine
 from repro_torch.device import resolve_device
 from repro_torch.pipeline import backends as B
@@ -64,13 +72,21 @@ class CutiePipeline:
     """A compiled CUTIE program bound to an execution backend and device.
 
     ``device=None`` is the card (raises when there is none); pass
-    ``device="cpu"`` for the plain PyTorch path on the CPU.
+    ``device="cpu"`` for the plain PyTorch path on the CPU.  ``obs``
+    binds an observability sink, as ``bind_obs`` does.
     """
+
+    #: the observability sink; the no-op ``NULL`` until one is bound
+    obs = _obs.NULL
+    #: ``obs.trace`` while it records, else None: what a run tests
+    _trace = None
 
     def __init__(self, program: engine.CutieProgram,
                  backend: str | B.Backend | None = None, device=None, *,
                  mesh=None, packed_collectives: bool = True,
-                 microbatches: int | None = None):
+                 microbatches: int | None = None, obs=None):
+        if obs is not None:
+            self.bind_obs(obs)
         program.validate()
         self.program = program
         self.device = resolve_device(device)
@@ -78,6 +94,15 @@ class CutiePipeline:
         self.mesh_spec = None
         self._sharded = None
         self.scannable = False
+        self._calls = 0                            # traced runs so far
+        with self.obs.trace.span("pipeline.lower", cat=B.CAT):
+            self._lower(program, mesh, packed_collectives, microbatches)
+        self._programs: dict[tuple, object] = {}   # built program fns
+        self._variants: set[tuple] = set()         # (input shape, traced)
+        self._launch_args: dict[tuple, list] = {}  # input shape -> spans'
+
+    def _lower(self, program, mesh, packed_collectives, microbatches):
+        """Lower every layer onto the device, or onto the mesh's ranks."""
         if mesh is not None:
             from repro_torch.launch import cutie_mesh
 
@@ -111,16 +136,20 @@ class CutiePipeline:
         else:
             self._lowered = [self.backend.lower(i, self.device)
                              for i in program.layers]
-        self._programs: dict[tuple, object] = {}   # built program fns
-        self._variants: set[tuple] = set()         # (input shape, traced)
+
+    def bind_obs(self, obs) -> None:
+        """Record this pipeline's spans on ``obs.trace`` (an
+        `repro_torch.obs.Observability`; ``obs.NULL`` stops recording)."""
+        self.obs = obs
+        self._trace = obs.trace if obs.trace.enabled else None
 
     @classmethod
     def compile(cls, source, *,
                 instance: engine.CutieInstance = engine.GF22_SCM,
                 backend: str | B.Backend | None = None, device=None,
                 mesh=None, packed_collectives: bool = True,
-                microbatches: int | None = None, **compiler_options
-                ) -> "CutiePipeline":
+                microbatches: int | None = None, obs=None,
+                **compiler_options) -> "CutiePipeline":
         """Compile a network straight into a pipeline on ``device``.
 
         ``source`` is a :class:`repro_torch.compiler.Graph`, legalized,
@@ -131,31 +160,34 @@ class CutiePipeline:
         ``compiler_options`` (e.g. ``optimize=False``, ``pad_to=128``)
         apply to a graph only; ``mesh``, ``packed_collectives`` and
         ``microbatches`` bind the pipeline to a mesh as the constructor
-        does.
+        does.  ``obs`` is bound before compiling: its trace records one
+        ``compile`` span around the whole, with the compiler's stages and
+        ``pipeline.lower`` inside it.
         """
         from repro_torch import compiler
 
-        mesh_kw = dict(mesh=mesh, packed_collectives=packed_collectives,
-                       microbatches=microbatches)
-        if isinstance(source, compiler.Graph):
-            result = compiler.compile_graph(source, instance=instance,
-                                            device=device,
-                                            **compiler_options)
-            pipe = cls(result.program, backend=backend, device=device,
-                       **mesh_kw)
-            pipe.compile_result = result
-            return pipe
-        if compiler_options:
+        if compiler_options and not isinstance(source, compiler.Graph):
             raise TypeError("compiler options "
                             f"{sorted(compiler_options)} require a "
                             "repro_torch.compiler.Graph source")
-        instrs = []
-        for spec in source:
-            w, bn, *rest = spec
-            instrs.append(engine.compile_layer(
-                w, bn, device=device, **(rest[0] if rest else {})))
-        return cls(engine.CutieProgram(instrs, instance), backend=backend,
-                   device=device, **mesh_kw)
+        kw = dict(backend=backend, device=device, mesh=mesh,
+                  packed_collectives=packed_collectives,
+                  microbatches=microbatches, obs=obs)
+        trace = (obs or _obs.NULL).trace
+        with trace.span("compile", cat=B.CAT):
+            if isinstance(source, compiler.Graph):
+                result = compiler.compile_graph(
+                    source, instance=instance, device=device, trace=trace,
+                    **compiler_options)
+                pipe = cls(result.program, **kw)
+                pipe.compile_result = result
+                return pipe
+            instrs = []
+            for spec in source:
+                w, bn, *rest = spec
+                instrs.append(engine.compile_layer(
+                    w, bn, device=device, **(rest[0] if rest else {})))
+            return cls(engine.CutieProgram(instrs, instance), **kw)
 
     # -- introspection ------------------------------------------------------
 
@@ -213,16 +245,14 @@ class CutiePipeline:
         """
         has_program = hasattr(self.backend, "build_program")
         kernel_stats = tracer is not None and tracer.kernel_stats
-        fallback = None
+        mode, fallback = self._mode(tracer), None
         if self._sharded is not None:
             wire = "5-trits/byte packed" if self._sharded.packed else "dense"
-            if self.mesh_spec.layer > 1:
-                mode = "sharded-pipeline"
+            if mode == "sharded-pipeline":
                 reason = (f"layer mesh axis: one trunk stage per rank, "
                           f"microbatches streamed through a send/recv "
                           f"ring ({wire} activations)")
             else:
-                mode = "sharded-per-layer"
                 reason = (f"mesh= requested; per-layer execution with "
                           f"{wire} inter-layer collectives")
                 if has_program:
@@ -230,15 +260,13 @@ class CutiePipeline:
                     reason += ("; the backend's program-level build (fused "
                                "trunk kernels) is dropped: fused trunks do "
                                "not shard yet")
-        elif has_program and (tracer is None or kernel_stats):
-            mode = "program"
+        elif mode == "program":
             reason = (f"backend {self.backend_name!r} provides "
                       "build_program (one trunk-kernel launch per fused "
                       "segment)")
             if kernel_stats:
                 reason += "; tracer rows come from in-kernel counters"
         else:
-            mode = "per-layer"
             reason = "eager loop over the layer FIFO, one kernel per layer"
             if tracer is not None:
                 reason += ("; tracer rows from in-kernel counters"
@@ -267,6 +295,16 @@ class CutiePipeline:
                 for s in self.backend.plan(self.program, tuple(in_shape))]
         return plan
 
+    def _mode(self, tracer: Tracer | None) -> str:
+        """``execution_plan``'s ``mode`` of a run with ``tracer``."""
+        if self._sharded is not None:
+            return ("sharded-pipeline" if self.mesh_spec.layer > 1
+                    else "sharded-per-layer")
+        if (hasattr(self.backend, "build_program")
+                and (tracer is None or tracer.kernel_stats)):
+            return "program"
+        return "per-layer"
+
     def __repr__(self) -> str:
         mesh = f", mesh={self.mesh_spec}" if self.mesh_spec else ""
         return (f"CutiePipeline(layers={self.n_layers}, "
@@ -293,11 +331,30 @@ class CutiePipeline:
 
         Returns the final trit tensor; with a tracer, also the tracer's
         per-layer rows: ``(out, rows)``.
+
+        With a recording trace bound (``bind_obs``) the run records one
+        ``run`` span: ``call`` (this pipeline's traced runs, counted from
+        1), ``n`` and ``mode`` (``execution_plan``'s).  Inside it, an
+        unsharded run records one ``launch`` span per kernel launch (the
+        `_layer_launch_args`, and ``call``); a meshed run records the
+        ``run`` span only.
         """
         x = torch.as_tensor(x, device=self.device).to(torch.int8)
         if x.dim() != 4:
             raise ValueError(f"expected (N, H, W, C) trits, got "
                              f"{tuple(x.shape)}")
+        tr = self._trace
+        if tr is None:
+            return self._run(x, tracer, None, 0)
+        self._calls += 1
+        tr.begin("run", cat=B.CAT, call=self._calls, n=x.shape[0],
+                 mode=self._mode(tracer))
+        try:
+            return self._run(x, tracer, tr, self._calls)
+        finally:
+            tr.end("run", cat=B.CAT)
+
+    def _run(self, x, tracer: Tracer | None, trace, call: int):
         if self._sharded is not None:
             if tracer is not None:
                 raise NotImplementedError(
@@ -309,23 +366,32 @@ class CutiePipeline:
             self._variants.add((tuple(x.shape), False))
             return self._sharded.crop(self._sharded.run(x), n)
         self._variants.add((tuple(x.shape), tracer is not None))
+        if trace is not None and self.backend.kernel is None:
+            trace = None                        # `ref`: no launch to span
+        args = (None if trace is None
+                else self._layer_launch_args(tuple(x.shape)))
         fn = self._program(x.shape, tracer)
         if fn is not None:
-            out, counts = fn(self._lowered, x)
+            out, counts = fn(self._lowered, x, trace, call, args)
             if tracer is None:
                 return out
             return out, tracer.finalize_counts(
                 self.program, counts.cpu().numpy(),
                 self.shapes(tuple(x.shape)))
         cur, recs = x, []
-        for lw, instr in zip(self._lowered, self.program.layers):
-            if tracer is None:
-                y = self.backend.apply(lw, cur, instr)
-            elif tracer.kernel_stats:
+        for i, (lw, instr) in enumerate(zip(self._lowered,
+                                            self.program.layers)):
+            if trace is not None:
+                t = trace.clock()
+            if tracer is not None and tracer.kernel_stats:
                 y, row = self.backend.apply_with_stats(lw, cur, instr)
                 recs.append(row)
             else:
                 y = self.backend.apply(lw, cur, instr)
+            if trace is not None:
+                trace.complete("launch", t, trace.clock(), cat=B.CAT,
+                               args={"call": call, **args[i]})
+            if tracer is not None and not tracer.kernel_stats:
                 recs.append(tracer.trace_layer(cur, y, instr))
             cur = y
         if tracer is None:
@@ -337,6 +403,23 @@ class CutiePipeline:
             return cur, tracer.finalize_counts(self.program, counts, shapes)
         recs = [{k: v.cpu().numpy() for k, v in r.items()} for r in recs]
         return cur, tracer.finalize(self.program, recs, shapes)
+
+    def _layer_launch_args(self, in_shape: tuple) -> list[dict]:
+        """Each layer's ``launch`` span args for an input of ``in_shape``,
+        worked out once per shape: ``layer``, ``kernel`` (the backend's
+        ``LAUNCHES`` key), the input's ``n, h, w, cin``, ``cout`` and
+        ``pool`` (``"max2"``, or None)."""
+        if in_shape not in self._launch_args:
+            shapes = self.shapes(in_shape)
+            args = []
+            for i, instr in enumerate(self.program.layers):
+                n, h, w, cin = shapes[i]
+                pool = instr.pool and f"{instr.pool[0]}{instr.pool[1]}"
+                args.append(dict(layer=i, kernel=self.backend.kernel, n=n,
+                                 h=h, w=w, cin=cin, cout=shapes[i + 1][3],
+                                 pool=pool))
+            self._launch_args[in_shape] = args
+        return self._launch_args[in_shape]
 
     # -- measurement --------------------------------------------------------
 
